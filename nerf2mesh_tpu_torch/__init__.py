@@ -1,0 +1,23 @@
+"""nerf2mesh_tpu_torch: PyTorch + CUDA port of nerf2mesh_tpu for NVIDIA Hopper.
+
+The JAX package ``nerf2mesh_tpu`` is the reference; each module here mirrors
+the JAX module of the same path and public names, and tests/test_torch_*.py
+hold the two against each other on the CPU.  Every Pallas kernel that a
+ported path reaches is a hand-written CUDA kernel under ``csrc/``, built for
+sm_90a at first use (``kernels/build.py``).  A wrapper runs its kernel for a
+CUDA tensor and its plain PyTorch version for a CPU tensor.
+
+Ported so far: stage-0 training (``utils.trainer.Trainer``).  Not yet
+ported (ROADMAP queue A): the CLI, eval render, checkpoints, mesh export,
+stage 1, SDF mode, cascades/contraction and multi-device.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Full fp32 products everywhere: the JAX sampler and get_rays run at
+# Precision.HIGHEST on purpose (ops/sampling.py, data/rays.py), and the MLPs
+# run in fp32 unless cfg.fp16.  PyTorch's TF32 defaults would keep ~3 digits.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

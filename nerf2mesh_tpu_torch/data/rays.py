@@ -1,0 +1,105 @@
+"""Camera and ray math (port of nerf2mesh_tpu/data/rays.py).
+
+Conventions follow the reference: dir_cam = [(i-cx)/fx, -(j-cy)/fy, -1] at
+pixel centers, not normalized; poses are cam2world [4, 4]; rays_d =
+dir_cam @ R^T, rays_o = t.  The rotation is a full-fp32 product written out
+per element (the JAX package runs it at Precision.HIGHEST: bf16 ray
+directions warped the stage-0 field).  The numpy camera helpers are copies
+of the JAX module's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True).clamp(min=eps))
+
+
+def pixel_dirs_cam(i, j, intrinsics):
+    """Camera-space (unnormalized) ray directions for pixel centers.
+    i: [N] column (x), j: [N] row (y), float, already +0.5."""
+    fx, fy, cx, cy = intrinsics
+    xs = (i - cx) / fx
+    ys = -(j - cy) / fy
+    zs = -torch.ones_like(i)
+    return torch.stack([xs, ys, zs], dim=-1)
+
+
+def get_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
+             indices: torch.Tensor = None):
+    """World-space rays.
+
+    poses: [B, 4, 4] cam2world (B == N when indices picks a pose per ray).
+    intrinsics: (fx, fy, cx, cy) scalars.  indices: optional [N] flat pixel
+    ids (j * W + i); None gives the full H*W image (poses must be [1, 4, 4]).
+    Returns dict rays_o [N, 3], rays_d [N, 3] and, with indices, i, j [N]."""
+    idx = (torch.arange(H * W, device=poses.device) if indices is None
+           else indices)
+    jj = (idx // W).float() + 0.5
+    ii = (idx % W).float() + 0.5
+    dirs = pixel_dirs_cam(ii, jj, intrinsics)                  # [N, 3]
+    rot = poses[:, :3, :3]
+    # rays_d[n, r] = sum_c dirs[n, c] * rot[n, r, c], in fp32 on every device
+    rays_d = (dirs[:, None, 0] * rot[:, :, 0] + dirs[:, None, 1] * rot[:, :, 1]
+              + dirs[:, None, 2] * rot[:, :, 2])
+    rays_o = poses[:, :3, 3].expand_as(rays_d)
+    out = {"rays_o": rays_o, "rays_d": rays_d}
+    if indices is not None:
+        out["i"] = idx % W
+        out["j"] = idx // W
+    return out
+
+
+def nerf_matrix_to_ngp(pose: np.ndarray, scale: float = 0.33,
+                       offset=(0, 0, 0)) -> np.ndarray:
+    """Scale/offset camera centers into the scene box (reference provider.py:16-19)."""
+    pose = np.array(pose, dtype=np.float32)
+    pose[:3, 3] = pose[:3, 3] * scale + np.asarray(offset, dtype=np.float32)
+    return pose
+
+
+def make_projection(H: int, W: int, fl_y: float, near: float,
+                    far: float = 1000.0) -> np.ndarray:
+    """Perspective projection matching the reference (provider.py:265-276)."""
+    y = H / (2.0 * fl_y)
+    aspect = W / H
+    return np.array(
+        [
+            [1 / (y * aspect), 0, 0, 0],
+            [0, -1 / y, 0, 0],
+            [0, 0, -(far + near) / (far - near), -(2 * far * near) / (far - near)],
+            [0, 0, -1, 0],
+        ],
+        dtype=np.float32,
+    )
+
+
+def make_mvps(projection: np.ndarray, poses: np.ndarray) -> np.ndarray:
+    """MVP per camera: projection @ inv(cam2world)."""
+    return np.einsum("ij,njk->nik", projection,
+                     np.linalg.inv(poses)).astype(np.float32)
+
+
+def orbit_pose(theta: float, phi: float, radius: float) -> np.ndarray:
+    """One orbit-camera cam2world pose looking at the origin; the rotation's
+    third column is the camera *backward* axis (get_rays uses dir_cam z=-1)."""
+    center = np.array([
+        radius * np.sin(theta) * np.sin(phi),
+        radius * np.cos(theta),
+        radius * np.sin(theta) * np.cos(phi),
+    ], dtype=np.float32)
+
+    def normalize(x):
+        return x / (np.linalg.norm(x, axis=-1, keepdims=True) + 1e-8)
+
+    backward = normalize(center)
+    up = np.array([0, 1, 0], dtype=np.float32)
+    right = normalize(np.cross(up, backward))
+    up = normalize(np.cross(backward, right))
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = np.stack((right, up, backward), axis=-1)
+    pose[:3, 3] = center
+    return pose

@@ -1,0 +1,150 @@
+"""Procedural synthetic scene (port of nerf2mesh_tpu/data/synthetic.py).
+
+``render_synthetic_frames`` draws the same cameras and ray-traces the same
+uint8 RGBA frames as the JAX package's ``generate_synthetic_dataset``, but
+returns them in memory, so a run needs neither disk nor Pillow;
+``generate_synthetic_dataset`` writes them as a nerf-synthetic directory
+(transforms_{split}.json + PNGs, Pillow imported inside it).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import numpy as np
+
+from .rays import orbit_pose
+
+
+@dataclass
+class SphereScene:
+    """A few diffuse spheres; analytic ray-traced ground truth."""
+    centers: np.ndarray = field(default_factory=lambda: np.array(
+        [[0.0, 0.0, 0.0], [0.35, 0.25, 0.3], [-0.4, -0.1, 0.25]], np.float32))
+    radii: np.ndarray = field(default_factory=lambda: np.array(
+        [0.42, 0.22, 0.18], np.float32))
+    colors: np.ndarray = field(default_factory=lambda: np.array(
+        [[0.85, 0.25, 0.2], [0.2, 0.6, 0.9], [0.9, 0.8, 0.2]], np.float32))
+    light_dir: np.ndarray = field(default_factory=lambda: np.array(
+        [0.5, 0.8, 0.3], np.float32))
+
+    def trace(self, rays_o: np.ndarray, rays_d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns rgb [N,3] in [0,1] and alpha [N]."""
+        N = rays_o.shape[0]
+        d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+        best_t = np.full(N, np.inf, np.float32)
+        rgb = np.zeros((N, 3), np.float32)
+        alpha = np.zeros(N, np.float32)
+        L = self.light_dir / np.linalg.norm(self.light_dir)
+        for c, r, col in zip(self.centers, self.radii, self.colors):
+            oc = rays_o - c
+            b = np.sum(oc * d, -1)
+            cc = np.sum(oc * oc, -1) - r * r
+            disc = b * b - cc
+            hit = disc > 0
+            t = -b - np.sqrt(np.maximum(disc, 0))
+            hit &= (t > 0) & (t < best_t)
+            if not hit.any():
+                continue
+            p = rays_o[hit] + t[hit, None] * d[hit]
+            n = (p - c) / r
+            lam = np.clip(n @ L, 0, 1) * 0.8 + 0.2
+            rgb[hit] = col[None, :] * lam[:, None]
+            alpha[hit] = 1.0
+            best_t[hit] = t[hit]
+        return rgb, alpha
+
+
+def _camera_rays(pose: np.ndarray, H: int, W: int, fl: float,
+                 dx: float = 0.5, dy: float = 0.5):
+    """Pixel rays with subpixel offset (dx, dy) from the pixel's top-left
+    corner (0.5, 0.5 = pixel center)."""
+    j, i = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    x = (i.reshape(-1) + dx - W / 2) / fl
+    y = -(j.reshape(-1) + dy - H / 2) / fl
+    dirs = np.stack([x, y, -np.ones_like(x)], -1).astype(np.float32)
+    rays_d = dirs @ pose[:3, :3].T
+    rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape)
+    return rays_o, rays_d
+
+
+def render_synthetic_frames(
+    scene: SphereScene | None = None,
+    H: int = 128,
+    W: int = 128,
+    n_train: int = 32,
+    n_val: int = 4,
+    n_test: int = 8,
+    fovx_deg: float = 45.0,
+    radius: float = 2.8,
+    seed: int = 0,
+    ssaa: int = 1,
+) -> Dict[str, dict]:
+    """{split: {"camera_angle_x": float, "images": [n, H, W, 4] uint8,
+    "poses": [n, 4, 4] float32}} - the frames generate_synthetic_dataset
+    writes, with the same camera draws from the same seed."""
+    scene = scene or SphereScene()
+    rng = np.random.default_rng(seed)
+    camera_angle_x = float(np.deg2rad(fovx_deg))
+    fl = W / (2 * np.tan(camera_angle_x / 2))
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        images, poses = [], []
+        for k in range(n):
+            if split == "train":
+                theta = np.arccos(rng.uniform(0.05, 0.95))
+                phi = rng.uniform(0, 2 * np.pi)
+            elif split == "val":
+                theta = np.pi / 3
+                phi = 2 * np.pi * k / n
+            else:
+                theta = np.pi / 2.4
+                phi = 2 * np.pi * (k + 0.5) / n
+            pose = orbit_pose(theta, phi, radius)
+            s = max(int(ssaa), 1)
+            acc_pm = np.zeros((H * W, 3), np.float32)   # premultiplied rgb
+            acc_a = np.zeros((H * W,), np.float32)
+            for ay in range(s):
+                for ax in range(s):
+                    rays_o, rays_d = _camera_rays(
+                        pose, H, W, fl, dx=(ax + 0.5) / s, dy=(ay + 0.5) / s)
+                    rgb_s, a_s = scene.trace(rays_o, rays_d)
+                    acc_pm += rgb_s * a_s[:, None]
+                    acc_a += a_s
+            alpha = acc_a / (s * s)
+            rgb = acc_pm / (s * s) / np.maximum(alpha[:, None], 1e-8)
+            rgb = np.where(alpha[:, None] > 0, rgb, 0.0)
+            img = np.concatenate([rgb, alpha[:, None]], -1).reshape(H, W, 4)
+            images.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+            poses.append(pose)
+        out[split] = {
+            "camera_angle_x": camera_angle_x,
+            "images": np.stack(images) if images else np.zeros((0, H, W, 4), np.uint8),
+            "poses": np.stack(poses) if poses else np.zeros((0, 4, 4), np.float32),
+        }
+    return out
+
+
+def generate_synthetic_dataset(root: str, scene: SphereScene | None = None,
+                               **kw) -> str:
+    """Write a nerf-synthetic-format dataset under `root` (see
+    render_synthetic_frames for the keywords). Returns root."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for split, fr in render_synthetic_frames(scene, **kw).items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for k, (img, pose) in enumerate(zip(fr["images"], fr["poses"])):
+            fname = f"./{split}/r_{k}"
+            Image.fromarray(img, "RGBA").save(
+                os.path.join(root, fname[2:] + ".png"))
+            frames.append({"file_path": fname,
+                           "transform_matrix": pose.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": fr["camera_angle_x"],
+                       "frames": frames}, f)
+    return root

@@ -1,0 +1,164 @@
+"""NeRF field network (port of nerf2mesh_tpu/models/network.py, NGP mode).
+
+Architecture (as the JAX package's merged-table default):
+  * one block512 hash table [total, 3]: channel 0 feeds the density MLP,
+    channels 1..2 the color MLP;
+  * density:  concat(x, h0 [L]) -> MLP(3+L -> 32 -> 1) -> trunc_exp;
+  * color:    concat(x, h12 [2L]) -> MLP(-> 64 -> 64 -> 3+spec) -> sigmoid;
+  * specular: MLP(3 dir + spec -> 32 -> 3) -> sigmoid; full color =
+    clamp(diffuse + specular, 0, 1) once full shading is on.
+
+The encode always takes the splat path (ops/splat_encode.py): points are
+morton-sorted once around the whole field, and only the narrow [N, 7]
+(sigma, color, specular) output is unsorted.  Parameters keep the JAX
+pytree layout: ``table`` [total, 3] and ``*_net.<layer>.w`` [in, out]
+(utils/convert.py maps between the two).
+
+Not ported yet (NotImplementedError): SDF mode, per-image codes, separate
+tables, the "ref" table layout (ROADMAP queue A and kernel K4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.activation import trunc_exp
+from ..ops.hashgrid import HashGridSpec, init_hashgrid
+from ..ops.splat_encode import morton_perm, permute, splat_encode
+from .mlp import MLP
+
+
+@dataclass(frozen=True)
+class NetworkSpec:
+    bound: float = 1.0            # grid bound (2 when contracted)
+    sdf: bool = False
+    specular_dim: int = 3
+    ind_dim: int = 0
+    ind_num: int = 500
+    fp16: bool = False            # bf16 compute for the MLPs
+    separate_tables: bool = False
+    log2_hashmap_size: int = 19
+    num_levels: int = 16
+    grid_layout: str = "block512"
+    # splat-encoder routing: levels evaluated by plain gather instead of the
+    # window kernels (the trainer's residual-rate probe rewires this)
+    encode_gather_levels: Tuple[int, ...] = ()
+    # train-only unbiased 1-corner sampling of gather levels and residuals
+    encode_stochastic: bool = False
+
+    @property
+    def density_grid_spec(self) -> HashGridSpec:
+        return HashGridSpec(
+            num_levels=self.num_levels,
+            level_dim=1 if self.separate_tables else 3,
+            log2_hashmap_size=self.log2_hashmap_size,
+            desired_resolution=int(2048 * self.bound), interpolation="linear",
+            layout=self.grid_layout,
+        )
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.fp16 else torch.float32
+
+
+def check_supported(spec: NetworkSpec) -> None:
+    if spec.sdf:
+        raise NotImplementedError("SDF mode is not ported yet (ROADMAP A9)")
+    if spec.ind_dim > 0:
+        raise NotImplementedError(
+            "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A11)")
+    if spec.separate_tables or spec.grid_layout != "block512":
+        raise NotImplementedError(
+            "only the merged block512 table is ported; the 'ref' layout's "
+            "small-table kernel is ROADMAP queue B (pallas_encode K4)")
+
+
+class NeRFField(nn.Module):
+    """Parameters of the stage-0 field; the math is in the functions below."""
+
+    def __init__(self, spec: NetworkSpec, generator: torch.Generator):
+        super().__init__()
+        check_supported(spec)
+        L, sd = spec.num_levels, spec.specular_dim
+        self.table = nn.Parameter(init_hashgrid(generator, spec.density_grid_spec))
+        self.sigma_net = MLP(3 + L, 1, 32, 2, generator)
+        self.color_net = MLP(3 + 2 * L, 3 + sd, 64, 3, generator)
+        self.specular_net = MLP(sd + 3, 3, 32, 2, generator)
+
+
+def _mask_levels(h, max_level, gspec: HashGridSpec):
+    L, C = gspec.num_levels, gspec.level_dim
+    if max_level is None or int(max_level) >= L:
+        return h
+    keep = torch.arange(L, device=h.device) < int(max_level)
+    return (h.reshape(-1, L, C) * keep[None, :, None]).reshape(-1, L * C)
+
+
+def encode_fields(params: NeRFField, x01: torch.Tensor, spec: NetworkSpec,
+                  max_level: Optional[int] = None, pre_sorted: bool = False):
+    """One pass over the merged table -> (density feats [N, L], color feats
+    [N, 2L], per-level residual counts [L])."""
+    L = spec.num_levels
+    gspec = spec.density_grid_spec
+    h, cnt = splat_encode(params.table, x01, gspec, sort=not pre_sorted,
+                          gather_levels=spec.encode_gather_levels,
+                          stochastic=spec.encode_stochastic)
+    h = _mask_levels(h, max_level, gspec).reshape(x01.shape[0], L, 3)
+    return h[:, :, 0], h[:, :, 1:].reshape(x01.shape[0], 2 * L), cnt
+
+
+def _density_from_feat(params: NeRFField, x, hd, spec: NetworkSpec):
+    h = params.sigma_net(torch.cat([x.float(), hd], dim=-1),
+                         spec.compute_dtype)
+    return trunc_exp(h[..., 0])
+
+
+def _geo_feat_from_feat(params: NeRFField, x, hc, spec: NetworkSpec):
+    h = params.color_net(torch.cat([x.float(), hc], dim=-1),
+                         spec.compute_dtype)
+    return torch.sigmoid(h)
+
+
+def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
+            max_level: Optional[int] = None) -> torch.Tensor:
+    """sigma (after trunc_exp). x: [N, 3] in [-bound, bound]."""
+    b = spec.bound
+    perm, inv = morton_perm((x + b) / (2 * b))
+    xs = permute(x, perm, inv)
+    hd, _, _ = encode_fields(params, (xs + b) / (2 * b), spec, max_level,
+                             pre_sorted=True)
+    sig = _density_from_feat(params, xs, hd, spec)
+    return permute(sig, inv, perm)
+
+
+def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
+                  spec: NetworkSpec, full_flag: bool,
+                  max_level: Optional[int] = None):
+    """Hot-path forward: ONE hash-table pass -> (sigma [N], color [N, 3],
+    specular [N, 3], encode residual counts [L]).  full_flag selects full
+    (diffuse + specular) shading over diffuse-only."""
+    b = spec.bound
+    perm, inv = morton_perm((x + b) / (2 * b))
+    x = permute(x, perm, inv)
+    d = permute(d, perm, inv)
+
+    hd, hc, cnt = encode_fields(params, (x + b) / (2 * b), spec, max_level,
+                                pre_sorted=True)
+    sigma = _density_from_feat(params, x, hd, spec)
+    gf = _geo_feat_from_feat(params, x, hc, spec)
+    diffuse = gf[..., :3]
+    spec_in = torch.cat([d.float(), gf[..., 3:]], dim=-1)
+    specular = torch.sigmoid(params.specular_net(spec_in, spec.compute_dtype))
+    if full_flag:
+        color = (diffuse + specular).clamp(0.0, 1.0)
+    else:
+        color = diffuse
+        specular = torch.zeros_like(specular)
+
+    packed = torch.cat([sigma[:, None], color, specular], dim=-1)  # [N, 7]
+    packed = permute(packed, inv, perm)
+    return packed[:, 0], packed[:, 1:4], packed[:, 4:7], cnt

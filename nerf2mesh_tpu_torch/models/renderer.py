@@ -1,0 +1,309 @@
+"""Stage-0 volumetric renderer (port of nerf2mesh_tpu/models/renderer.py).
+
+Occupancy-grid state, the EMA-max density-grid update (one of 8 x-slabs per
+call, round-robin), ``mark_untrained_grid`` (numpy) and the training render
+``render_train`` with valid-sample pool compaction.  The eval render
+(``render_eval_segment``/``render_frame_queue``), SDF/NeuS alpha, cascades
+and the trainable density grid are not ported yet (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data.rays import safe_normalize
+from ..ops.composite import composite_rays
+from ..ops.sampling import near_far_from_aabb, sample_rays
+from .network import NeRFField, NetworkSpec, density, field_forward
+
+
+@dataclass(frozen=True)
+class RenderSpec:
+    """Static geometry/render configuration (derived from Config)."""
+    bound: float = 1.0
+    contract: bool = False
+    grid_size: int = 128
+    min_near: float = 0.05
+    density_thresh: float = 10.0
+    max_steps: int = 1024         # sets dt_min = 2*sqrt(3)/max_steps
+    num_coarse: int = 128         # coarse occupancy candidates per ray
+    num_fine: int = 64            # field samples per ray (dense layout)
+    dt_gamma: float = 0.0
+    T_thresh: float = 1e-4
+    sdf: bool = False
+
+    @property
+    def grid_bound(self) -> float:
+        return 2.0 if self.contract else self.bound
+
+    @property
+    def cascades(self) -> int:
+        gb = self.grid_bound
+        return 1 + int(math.ceil(math.log2(gb))) if gb > 1 else 1
+
+
+def check_supported(spec: RenderSpec) -> None:
+    if spec.sdf:
+        raise NotImplementedError("SDF rendering is not ported yet (ROADMAP A9)")
+    if spec.contract or spec.cascades > 1:
+        raise NotImplementedError(
+            "cascades / contracted scenes are not ported yet (ROADMAP A11)")
+
+
+@dataclass
+class RenderState:
+    """Occupancy state carried across steps."""
+    density_grid: torch.Tensor   # [CAS, H, H, H] f32; -1 marks untrained cells
+    occ_grid: torch.Tensor       # [CAS, H, H, H] uint8 thresholded occupancy
+    mean_density: torch.Tensor   # [] f32
+    iter_density: int = 0
+
+
+def init_render_state(spec: RenderSpec, device=None) -> RenderState:
+    H, C = spec.grid_size, spec.cascades
+    return RenderState(
+        density_grid=torch.zeros((C, H, H, H), device=device),
+        occ_grid=torch.ones((C, H, H, H), dtype=torch.uint8, device=device),
+        mean_density=torch.zeros((), device=device),
+    )
+
+
+GRID_UPDATE_SLABS = 8
+
+
+def slab_points(spec: RenderSpec, slab: int, device=None) -> torch.Tensor:
+    """[HX*H*H, 3] cell-center coords in [-1, 1] of x-slab `slab`."""
+    H = spec.grid_size
+    sh = H // GRID_UPDATE_SLABS
+    ax = 2.0 * torch.arange(H, dtype=torch.float32, device=device) / (H - 1) - 1.0
+    gi = torch.arange(sh, dtype=torch.float32, device=device) + float(slab * sh)
+    ax_x = 2.0 * gi / (H - 1) - 1.0
+    gx, gy, gz = torch.meshgrid(ax_x, ax, ax, indexing="ij")
+    return torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+
+
+def slab_noise(spec: RenderSpec, generator: torch.Generator,
+               device=None) -> List[torch.Tensor]:
+    """Per-cascade jitter, uniform in [-half, half) per cell coordinate."""
+    H = spec.grid_size
+    n = (H // GRID_UPDATE_SLABS) * H * H
+    out = []
+    for cas in range(spec.cascades):
+        half = min(2 ** cas, spec.grid_bound) / H
+        u = torch.rand((n, 3), generator=generator, device=device)
+        out.append(u * (2 * half) - half)
+    return out
+
+
+@torch.no_grad()
+def _update_density_slab(params: NeRFField, state: RenderState,
+                         noise: List[torch.Tensor], spec: RenderSpec,
+                         net_spec: NetworkSpec, max_level: Optional[int],
+                         slab: int, decay: float = 0.95) -> RenderState:
+    """Query density at jittered cell centers of one x-slab, EMA-max update,
+    re-threshold occupancy (reference renderer.py:1074-1149).  noise:
+    per-cascade [HX*H*H, 3] jitter (slab_noise)."""
+    H, CAS = spec.grid_size, spec.cascades
+    sh = H // GRID_UPDATE_SLABS
+    x_lo = slab * sh
+    xyzs01 = slab_points(spec, slab, state.density_grid.device)
+    tmp = []
+    for cas in range(CAS):
+        bound = min(2 ** cas, spec.grid_bound)
+        half = bound / H
+        pts = xyzs01 * (bound - half)
+        sig = density(params, pts + noise[cas], net_spec, max_level)
+        tmp.append(sig.reshape(sh, H, H))
+    tmp_slab = torch.stack(tmp, dim=0)                      # [CAS, HX, H, H]
+
+    grid = state.density_grid.clone()
+    old_slab = grid[:, x_lo:x_lo + sh]
+    valid = (old_slab >= 0) & (tmp_slab >= 0)
+    grid[:, x_lo:x_lo + sh] = torch.where(
+        valid, torch.maximum(old_slab * decay, tmp_slab), old_slab)
+
+    mean_density = grid.clamp(min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=spec.density_thresh)
+    return RenderState(
+        density_grid=grid,
+        occ_grid=(grid > thresh).to(torch.uint8),
+        mean_density=mean_density,
+        iter_density=state.iter_density + 1,
+    )
+
+
+def update_density_grid(params: NeRFField, state: RenderState,
+                        generator: torch.Generator, spec: RenderSpec,
+                        net_spec: NetworkSpec, max_level: Optional[int] = None,
+                        decay: float = 0.95, slab: int = -1) -> RenderState:
+    """slab in [0, 8) refreshes that x-slab; slab=-1 refreshes all eight
+    (one logical grid update)."""
+    dev = state.density_grid.device
+    if slab < 0:
+        it0 = state.iter_density
+        for s in range(GRID_UPDATE_SLABS):
+            state = _update_density_slab(
+                params, state, slab_noise(spec, generator, dev), spec,
+                net_spec, max_level, s, decay)
+        return replace(state, iter_density=it0 + 1)
+    return _update_density_slab(params, state, slab_noise(spec, generator, dev),
+                                spec, net_spec, max_level, slab, decay)
+
+
+def mark_untrained_grid(state: RenderState, poses: np.ndarray, intrinsics,
+                        spec: RenderSpec, aabb: Optional[np.ndarray] = None,
+                        cam_near_far: Optional[np.ndarray] = None
+                        ) -> RenderState:
+    """Mark grid cells never seen by any training camera (or outside the
+    AABB) with -1 so they stay unoccupied (reference renderer.py:985-1071).
+    Host-side numpy, once before training."""
+    H, CAS = spec.grid_size, spec.cascades
+    fx, fy, cx, cy = intrinsics
+    poses = np.asarray(poses, np.float32)
+    B = poses.shape[0]
+
+    ax = 2.0 * np.arange(H, dtype=np.float32) / (H - 1) - 1.0
+    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+    world = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+    if aabb is None:
+        rb = spec.bound
+        aabb = np.array([-rb, -rb, -rb, rb, rb, rb], np.float32)
+
+    grid = state.density_grid.detach().cpu().numpy().copy()
+    for cas in range(CAS):
+        bound = min(2 ** cas, spec.grid_bound)
+        half = bound / H
+        pts = world * (bound - half)
+        in_aabb = np.all((pts >= aabb[:3] - half) & (pts <= aabb[3:] + half),
+                         axis=-1)
+        seen = np.zeros(pts.shape[0], bool)
+        S = 64
+        for head in range(0, B, S):
+            P = poses[head:head + S]
+            cam = pts[None, :, :] - P[:, None, :3, 3]
+            cam = np.einsum("bnc,bcr->bnr", cam, P[:, :3, :3])
+            cam[:, :, 2] *= -1  # camera forward is -z (renderer.py:1044)
+            min_near = (spec.min_near if cam_near_far is None
+                        else cam_near_far[head:head + S, 0:1])
+            mask_z = cam[:, :, 2] > min_near
+            mask_x = np.abs(cam[:, :, 0]) < (cx / fx) * cam[:, :, 2] + half * 2
+            mask_y = np.abs(cam[:, :, 1]) < (cy / fy) * cam[:, :, 2] + half * 2
+            seen |= (mask_z & mask_x & mask_y).any(axis=0)
+        untrained = (~seen) | (~in_aabb)
+        g = grid[cas].reshape(-1)
+        g[untrained] = -1.0
+        grid[cas] = g.reshape(H, H, H)
+    return replace(state, density_grid=torch.from_numpy(grid).to(
+        state.density_grid.device))
+
+
+def compact_ids(flat_valid: torch.Tensor, P: int) -> torch.Tensor:
+    """First P indices of the True entries of flat_valid [M], padded with M
+    (an out-of-range id that writes nowhere) - ``jnp.nonzero(size=P,
+    fill_value=M)`` without a host sync."""
+    M = flat_valid.numel()
+    pos = torch.cumsum(flat_valid.to(torch.int64), 0) - 1
+    slot = torch.where(flat_valid & (pos < P), pos, torch.full_like(pos, P))
+    ids = torch.full((P + 1,), M, dtype=torch.int64, device=flat_valid.device)
+    ids.scatter_(0, slot, torch.arange(M, device=flat_valid.device))
+    return ids[:P]
+
+
+def _scatter_pool(values: torch.Tensor, ids: torch.Tensor, M: int):
+    """out[ids[i]] = values[i] into zeros [M, ...]; ids == M are dropped
+    (written into a spare row that is sliced off, never clamped)."""
+    out = values.new_zeros((M + 1,) + values.shape[1:])
+    out = out.index_copy(0, ids, values)
+    return out[:M]
+
+
+def render_train(
+    params: NeRFField,
+    occ_grid: torch.Tensor,
+    rays_o: torch.Tensor,            # [N, 3]
+    rays_d: torch.Tensor,            # [N, 3]
+    bg_color: torch.Tensor,          # [N, 3] or [3]
+    u: Optional[torch.Tensor],       # [N, num_fine] sampler noise
+    spec: RenderSpec,
+    net_spec: NetworkSpec,
+    *,
+    full_flag: bool = True,
+    max_level: Optional[int] = None,
+    aabb: Optional[torch.Tensor] = None,
+    pool_size: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """One training-mode volumetric render (reference renderer.py:676-748).
+
+    pool_size: valid samples are compacted into a pool of that size before
+    the field evaluation, so the field costs O(pool) instead of
+    O(rays * samples).  Rays whose valid samples did not fit leave the loss
+    (`ray_kept`); `pool_overflow` counts the clipped samples."""
+    check_supported(spec)
+    N = rays_o.shape[0]
+    if aabb is None:
+        rb = spec.bound
+        aabb = torch.tensor([-rb, -rb, -rb, rb, rb, rb], device=rays_o.device)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, spec.min_near)
+    m = sample_rays(
+        rays_o, rays_d, occ_grid, nears, fars,
+        num_coarse=spec.num_coarse, num_fine=spec.num_fine,
+        grid_size=spec.grid_size, cascades=spec.cascades, bound=spec.bound,
+        contracted=spec.contract, dt_gamma=spec.dt_gamma,
+        max_steps=spec.max_steps, u=u)
+    K = spec.num_fine
+    pts = m.xyzs.reshape(N * K, 3).detach()
+    dirs = safe_normalize(rays_d)
+
+    if pool_size is None:
+        dirs_flat = dirs[:, None, :].expand(N, K, 3).reshape(N * K, 3)
+        sigmas, rgbs, speculars, enc_cnt = field_forward(
+            params, pts, dirs_flat, net_spec, full_flag, max_level)
+        sig_nk, rgb_nk = sigmas.reshape(N, K), rgbs.reshape(N, K, 3)
+        pp_xyz, pp_valid, pp_spec = pts, m.valid.reshape(-1), speculars
+        ray_kept = torch.ones((N,), dtype=torch.bool, device=rays_o.device)
+        pool_overflow = torch.zeros((), dtype=torch.int64, device=rays_o.device)
+    else:
+        P = int(pool_size)
+        flat_valid = m.valid.reshape(-1)
+        ids = compact_ids(flat_valid, P)                     # [P], N*K = pad
+        in_pool = torch.arange(P, device=ids.device) < m.total
+        ids_c = ids.clamp(max=N * K - 1)
+        sentinel = 3.0 * spec.bound                          # x01 -> 2.0 (oob)
+        x_pool = torch.where(in_pool[:, None], pts[ids_c], sentinel)
+        d_pool = dirs[ids_c // K]
+
+        sigmas_p, rgbs_p, spec_p, enc_cnt = field_forward(
+            params, x_pool, d_pool, net_spec, full_flag, max_level)
+        sigmas_p = torch.where(in_pool, sigmas_p, 0.0)
+        rgbs_p = torch.where(in_pool[:, None], rgbs_p, 0.0)
+        sig_nk = _scatter_pool(sigmas_p, ids, N * K).reshape(N, K)
+        rgb_nk = _scatter_pool(rgbs_p, ids, N * K).reshape(N, K, 3)
+
+        kept_slot = _scatter_pool(torch.ones_like(sigmas_p), ids, N * K)
+        dropped = flat_valid & (kept_slot == 0.0)
+        ray_kept = ~dropped.reshape(N, K).any(dim=1)
+        pool_overflow = (m.total - P).clamp(min=0)
+        pp_xyz, pp_valid, pp_spec = x_pool, in_pool, spec_p
+
+    out = composite_rays(sig_nk, rgb_nk, m.ts, m.dts, m.valid,
+                         T_thresh=spec.T_thresh, alpha_mode=spec.sdf)
+    image = out["image"] + (1.0 - out["weights_sum"][:, None]) * bg_color
+    return dict(
+        image=image,
+        depth=out["depth"],
+        weights_sum=out["weights_sum"],
+        weights=out["weights"].reshape(-1),
+        xyzs=pp_xyz,
+        valid=m.valid.reshape(-1),
+        pp_valid=pp_valid,
+        num_points=m.total,
+        ray_kept=ray_kept,
+        pool_overflow=pool_overflow,
+        speculars=pp_spec,
+        encode_resid=enc_cnt,
+    )

@@ -1,0 +1,12 @@
+"""L-infinity scene contraction (port of nerf2mesh_tpu/ops/contraction.py).
+
+Maps world space onto [-2, 2]^3: identity inside the unit box, and
+x * (2 - 1/|x|_inf) / |x|_inf outside (reference nerf/renderer.py:25-41).
+"""
+
+import torch
+
+
+def contract(xyzs: torch.Tensor) -> torch.Tensor:
+    mag = xyzs.abs().amax(dim=-1, keepdim=True)
+    return torch.where(mag <= 1, xyzs, xyzs * (2 - 1 / mag) / mag)

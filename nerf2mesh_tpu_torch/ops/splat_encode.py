@@ -1,0 +1,395 @@
+"""Block512 hash encode with window kernels (port of nerf2mesh_tpu/ops/splat_encode.py).
+
+The JAX package splits each kernel-routed level of the encode into an
+*in-window* part, computed by a Pallas kernel from the 2x2x2 neighbourhood
+of 8^3 table blocks around each 128-point tile's base block (`tile_meta`),
+and a *residual* for the corners outside that 16^3 neighbourhood, computed
+in XLA.  The port keeps that split and the routing probe (`resid_counts`)
+exactly, and replaces the kernels:
+
+  K2 ``inwin_fwd`` (csrc/splat_inwin.cu) - in-window part, read straight from
+     the canonical [total, 3] table (no splat-layout transpose);
+  K3 ``inwin_bwd`` - its table gradient, atomic adds into a zeroed
+     [total, 3] buffer.
+
+``_InWin`` wraps both as one autograd Function (no gradient to x).  The
+residual is a masked 8-corner gather (exact mode) or the position-hashed
+1-corner pick (stochastic training mode), both in PyTorch.  The JAX budget,
+``jnp.nonzero`` compaction and ``lax.cond`` fallback around the exact
+residual, and ``gather_rows``' per-channel scatter, were TPU workarounds
+and give the same values as the masked gather.  The winsort kernels (K5/K6)
+are not ported yet (ROADMAP queue B).
+
+Points are expected morton-sorted (``morton_perm``) so that tiles are local.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from .. import kernels
+from .hashgrid import (HashGridSpec, _MASK32, _PRIMES, block_window,
+                       corner_bits, corner_weights, gather_rows, lattice, mul32)
+
+TILE = 128          # points per tile
+
+_GOLDEN = 0x9E3779B9
+
+
+def splat_supported(spec: HashGridSpec) -> bool:
+    return (spec.layout == "block512" and spec.input_dim == 3
+            and spec.interpolation == "linear" and spec.level_dim == 3)
+
+
+# ---------------------------------------------------------------------------
+# per-(tile, level) window metadata
+# ---------------------------------------------------------------------------
+
+def tile_meta(x_tiles: torch.Tensor, spec: HashGridSpec, l: int):
+    """Per-tile base block + the 8 neighbourhood window ids for level l.
+
+    x_tiles: [T, TILE, 3] clipped positions in [0, 1].  Returns (base
+    [T, 3] int32 block coords, rows [T, 8] int32 level-local window ids);
+    slot bit order matches the corner bit order (bit0=x, bit1=y, bit2=z)."""
+    pg, _ = lattice(x_tiles, spec, l)
+    base = pg.amin(dim=1).to(torch.int32) >> 3                      # [T, 3]
+    # slot s = sx + 2*sy + 4*sz: the same bit order as the corners
+    b = base.long()[:, None, :] + corner_bits(x_tiles.device)       # [T, 8, 3]
+    return base, block_window(b, spec, l).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 wrappers and their plain versions
+# ---------------------------------------------------------------------------
+
+def _inwin_corners(x, bases, rows, spec, levels):
+    """Plain corner walk of K2/K3: (row [N, Lk, 8] int64, w [N, Lk, 8]) with
+    w = 0 on out-of-window corners (their row is then a valid dummy)."""
+    corners = corner_bits(x.device)
+    rows_out, w_out = [], []
+    for k, l in enumerate(levels):
+        pg, frac = lattice(x, spec, l)
+        base = bases[k].long().repeat_interleave(TILE, dim=0)       # [N, 3]
+        local = pg.long()[:, None, :] + corners[None] - 8 * base[:, None, :]
+        inw = ((local >= 0) & (local < 16)).all(dim=-1)             # [N, 8]
+        local = local.clamp(0, 15)
+        slot = (local[..., 0] >> 3) + 2 * (local[..., 1] >> 3) \
+            + 4 * (local[..., 2] >> 3)
+        win = torch.gather(rows[k].long().repeat_interleave(TILE, dim=0),
+                           1, slot)                                 # [N, 8]
+        loc = local & 7
+        row = (int(spec.offsets[l]) + win * 512 + loc[..., 0]
+               + 8 * loc[..., 1] + 64 * loc[..., 2])
+        rows_out.append(row)
+        w_out.append(torch.where(inw, corner_weights(frac), 0.0))
+    return torch.stack(rows_out, 1), torch.stack(w_out, 1)
+
+
+def inwin_fwd_plain(table, x, bases, rows, spec, levels):
+    """Plain version of K2: [N, Lk, 3] in-window features."""
+    N, Lk = x.shape[0], len(levels)
+    row, w = _inwin_corners(x, bases, rows, spec, levels)
+    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lk, 8, 3)
+    return (w[..., None] * vals).sum(dim=2)
+
+
+def inwin_bwd_plain(grad, x, bases, rows, spec, levels, total):
+    """Plain version of K3: [total, 3] table gradient of K2."""
+    row, w = _inwin_corners(x, bases, rows, spec, levels)
+    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, 3)
+    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    return dtab.index_add_(0, row.reshape(-1), contrib)
+
+
+def _check_inwin_args(x, bases, rows, levels):
+    N, Lk = x.shape[0], len(levels)
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError("inwin: x must be float32 [N, 3]")
+    if N % TILE:
+        raise ValueError(f"inwin: N={N} is not a multiple of {TILE}")
+    T = N // TILE
+    if bases.dtype != torch.int32 or tuple(bases.shape) != (Lk, T, 3):
+        raise ValueError(f"inwin: bases must be int32 [{Lk}, {T}, 3]")
+    if rows.dtype != torch.int32 or tuple(rows.shape) != (Lk, T, 8):
+        raise ValueError(f"inwin: rows must be int32 [{Lk}, {T}, 8]")
+    for t in (bases, rows):
+        if t.device != x.device:
+            raise ValueError("inwin: inputs on different devices")
+    return N, T, Lk
+
+
+def _launch_inwin(name, src, x, bases, rows, spec, levels, out):
+    N, T, Lk = x.shape[0], x.shape[0] // TILE, len(levels)
+    # per-level constants travel by value in the launch (host arrays)
+    scales = (ctypes.c_float * Lk)(*[spec.level_scale32(l) for l in levels])
+    offsets = (ctypes.c_int32 * Lk)(*[int(spec.offsets[l]) for l in levels])
+    lib = kernels.load()
+    fn = getattr(lib, f"n2m_{name}")
+    code = fn(src.data_ptr(), x.data_ptr(), bases.data_ptr(), rows.data_ptr(),
+              scales, offsets, float(spec.shift), N, T, Lk, out.data_ptr(),
+              kernels.current_stream_handle(x.device))
+    kernels.check(lib, f"n2m_{name}", code)
+    kernels.LAUNCHES[name] += 1
+
+
+def inwin_fwd(table, x, bases, rows, spec: HashGridSpec,
+              levels: Tuple[int, ...]) -> torch.Tensor:
+    """In-window features [N, Lk, 3] of the kernel levels `levels`.
+
+    table [total, 3] f32 canonical block512; x [N, 3] f32 clipped to [0, 1],
+    N a multiple of TILE; bases/rows from tile_meta, stacked over `levels`.
+    A CPU tensor takes the plain version; a CUDA tensor launches K2."""
+    N, T, Lk = _check_inwin_args(x, bases, rows, levels)
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != 3:
+        raise ValueError("inwin_fwd: table must be float32 [total, 3]")
+    if table.device != x.device:
+        raise ValueError("inwin_fwd: table and x on different devices")
+    if x.device.type == "cpu":
+        return inwin_fwd_plain(table, x, bases, rows, spec, levels)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"inwin_fwd: no kernel for {x.device}")
+    table, x = table.contiguous(), x.contiguous()
+    bases, rows = bases.contiguous(), rows.contiguous()
+    out = torch.empty((N, Lk, 3), dtype=torch.float32, device=x.device)
+    _launch_inwin("inwin_fwd", table, x, bases, rows, spec, levels, out)
+    return out
+
+
+def inwin_bwd(grad, x, bases, rows, spec: HashGridSpec,
+              levels: Tuple[int, ...], total: int) -> torch.Tensor:
+    """Table gradient [total, 3] of inwin_fwd for output gradient grad
+    [N, Lk, 3].  A CPU tensor takes the plain version; a CUDA tensor
+    launches K3 (atomic adds into a zeroed buffer)."""
+    N, T, Lk = _check_inwin_args(x, bases, rows, levels)
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lk, 3):
+        raise ValueError(f"inwin_bwd: grad must be float32 [{N}, {Lk}, 3]")
+    if grad.device != x.device:
+        raise ValueError("inwin_bwd: grad and x on different devices")
+    if x.device.type == "cpu":
+        return inwin_bwd_plain(grad, x, bases, rows, spec, levels, total)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"inwin_bwd: no kernel for {x.device}")
+    grad, x = grad.contiguous(), x.contiguous()
+    bases, rows = bases.contiguous(), rows.contiguous()
+    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    _launch_inwin("inwin_bwd", grad, x, bases, rows, spec, levels, dtab)
+    return dtab
+
+
+class _InWin(torch.autograd.Function):
+    """K2 forward, K3 backward; gradient flows to the table only."""
+
+    @staticmethod
+    def forward(ctx, table, x, bases, rows, spec, levels):
+        ctx.save_for_backward(x, bases, rows)
+        ctx.spec, ctx.levels, ctx.total = spec, levels, table.shape[0]
+        return inwin_fwd(table, x, bases, rows, spec, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bases, rows = ctx.saved_tensors
+        dtab = inwin_bwd(g.float().contiguous(), x, bases, rows, ctx.spec,
+                         ctx.levels, ctx.total)
+        return dtab, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# corner geometry + the public op
+# ---------------------------------------------------------------------------
+
+def _corner_geometry(xc, spec: HashGridSpec, bases):
+    """Canonical corner indices, weights and residual weights.
+
+    xc: [N, 3] in [0, 1]; bases: [L, T, 3] per-level tile base blocks.
+    Returns (idx [N, L, 8] int64, w_all [N, L, 8], w_resid [N, L, 8] with
+    in-window corners zeroed)."""
+    corners = corner_bits(xc.device)
+    idx_l, w_l, wr_l = [], [], []
+    for l in range(spec.num_levels):
+        pg, frac = lattice(xc, spec, l)
+        cg = pg.long()[:, None, :] + corners[None]                  # [N, 8, 3]
+        win = block_window(cg >> 3, spec, l)
+        loc = cg & 7
+        idx_l.append(win * 512 + loc[..., 0] + 8 * loc[..., 1]
+                     + 64 * loc[..., 2] + int(spec.offsets[l]))
+        w = corner_weights(frac)                                    # [N, 8]
+        w_l.append(w)
+        base = bases[l].long().repeat_interleave(TILE, dim=0)
+        local = cg - 8 * base[:, None, :]
+        inw = ((local >= 0) & (local < 16)).all(dim=-1)
+        wr_l.append(torch.where(inw, 0.0, w))
+    return (torch.stack(idx_l, 1), torch.stack(w_l, 1), torch.stack(wr_l, 1))
+
+
+def _position_hash(xc: torch.Tensor) -> torch.Tensor:
+    """uint32 xor-of-primes hash of the float32 bit patterns of xc [N, 3]."""
+    xb = xc.contiguous().view(torch.int32).long() & _MASK32
+    return (mul32(xb[:, 0], _PRIMES[0]) ^ mul32(xb[:, 1], _PRIMES[1])
+            ^ mul32(xb[:, 2], _PRIMES[2]))
+
+
+def _pick_one_corner(hsh, salt: int, w8, idx8):
+    """Unbiased 1-corner estimate: pick corner k with probability w8[k] /
+    sum(w8) from the position-hash draw; returns (row [N], weight sum [N])."""
+    hl = hsh ^ (salt & _MASK32)
+    u = ((hl >> 8) & 0xFFFF).float() / 65536.0
+    # running sum in corner order (XLA's order for 8 terms); on a card this
+    # beats cumsum's scan kernel on 8-wide rows ~10x
+    cols = [w8[:, 0]]
+    for k in range(1, 8):
+        cols.append(cols[-1] + w8[:, k])
+    cdf = torch.stack(cols, dim=1)
+    total = cols[-1]
+    k = ((u * total)[:, None] >= cdf).sum(dim=-1).clamp(max=7)
+    return torch.gather(idx8, 1, k[:, None])[:, 0], total
+
+
+def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
+                     spec: HashGridSpec,
+                     gather_levels: Tuple[int, ...] = (),
+                     stochastic: bool = False):
+    """Hash encode of morton-sorted points with per-level routing.
+
+    Levels in `gather_levels` use a plain gather (8 corners, or 1 sampled
+    corner when `stochastic`); the other levels use K2/K3 for their
+    in-window part plus a residual (exact masked gather, or 1 sampled
+    out-of-window corner when `stochastic`).  N must be a multiple of TILE.
+
+    Returns (feat [N, L*C], resid_counts [L] int32: per level, the number of
+    out-of-window corners with nonzero weight - the trainer's routing probe;
+    gather-routed levels report what their kernel residual would be).  No
+    gradient flows to x01."""
+    if not splat_supported(spec):
+        raise ValueError("splat_encode needs a block512, linear, C=3 spec")
+    x01 = x01.detach()
+    N = x01.shape[0]
+    if N % TILE:
+        raise ValueError(f"splat_encode_raw: N={N} not a multiple of {TILE}")
+    L, C = spec.num_levels, spec.level_dim
+    T = N // TILE
+    gather_levels = tuple(l for l in gather_levels if 0 <= l < L)
+    k_levels = tuple(l for l in range(L) if l not in gather_levels)
+
+    xc = x01.float().clamp(0.0, 1.0).contiguous()
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+
+    tiles = xc.reshape(T, TILE, 3)
+    metas = [tile_meta(tiles, spec, l) for l in range(L)]
+    bases_all = torch.stack([m[0] for m in metas])                 # [L, T, 3]
+
+    idx, w_all, w = _corner_geometry(xc, spec, bases_all)          # [N, L, 8]
+    w = torch.where(oob[:, None, None], 0.0, w)
+    w_all = torch.where(oob[:, None, None], 0.0, w_all)
+    resid_counts = (w != 0.0).sum(dim=(0, 2)).to(torch.int32)
+
+    by_level: Dict[int, torch.Tensor] = {}
+    hsh = _position_hash(xc) if stochastic else None
+
+    if gather_levels:
+        gl = list(gather_levels)
+        if stochastic:
+            picks = [_pick_one_corner(hsh, l * _GOLDEN, w_all[:, l], idx[:, l])
+                     for l in gl]
+            rows_g = torch.stack([p[0] for p in picks], 1)          # [N, G]
+            w_g = torch.stack([p[1] for p in picks], 1)
+            contrib = w_g[..., None] * gather_rows(
+                table, rows_g.reshape(-1)).reshape(N, len(gl), C)
+        else:
+            rows_g = torch.stack([idx[:, l] for l in gl], 1)        # [N, G, 8]
+            w_g = torch.stack([w_all[:, l] for l in gl], 1)
+            vals = gather_rows(table, rows_g.reshape(-1)).reshape(
+                N, len(gl), 8, C)
+            contrib = (w_g[..., None] * vals).sum(dim=2)
+        for i, l in enumerate(gl):
+            by_level[l] = contrib[:, i]
+
+    if k_levels:
+        kl = list(k_levels)
+        bases = torch.stack([metas[l][0] for l in kl]).contiguous()
+        rows = torch.stack([metas[l][1] for l in kl]).contiguous()
+        kf = _InWin.apply(table, xc, bases, rows, spec, k_levels)  # [N, Lk, 3]
+        if stochastic:
+            picks = [_pick_one_corner(hsh, (l * _GOLDEN) ^ 0xA5A5A5A5,
+                                      w[:, l], idx[:, l]) for l in kl]
+            rows_r = torch.stack([p[0] for p in picks], 1)          # [N, Lk]
+            w_r = torch.stack([p[1] for p in picks], 1)
+            kf = kf + w_r[..., None] * gather_rows(
+                table, rows_r.reshape(-1)).reshape(N, len(kl), C)
+        else:
+            idx_k = torch.stack([idx[:, l] for l in kl], 1)         # [N, Lk, 8]
+            w_k = torch.stack([w[:, l] for l in kl], 1)
+            vals = gather_rows(table, idx_k.reshape(-1)).reshape(
+                N, len(kl), 8, C)
+            kf = kf + (w_k[..., None] * vals).sum(dim=2)
+        for i, l in enumerate(kl):
+            by_level[l] = kf[:, i]
+
+    feat = torch.stack([by_level[l] for l in range(L)], dim=1)     # [N, L, C]
+    feat = torch.where(oob[:, None, None], 0.0, feat)
+    return feat.reshape(N, L * C), resid_counts
+
+
+def splat_encode(table, x01, spec: HashGridSpec, sort: bool = True,
+                 gather_levels: Tuple[int, ...] = (),
+                 stochastic: bool = False):
+    """Drop-in replacement for hashgrid_encode on block512 specs: pads N to a
+    TILE multiple (with out-of-bounds points) and, unless sort=False, morton
+    sorts and unsorts around splat_encode_raw.  Returns (feat [N, L*C],
+    resid_counts [L])."""
+    N0 = x01.shape[0]
+    pad = (-N0) % TILE
+    xp = torch.cat([x01, x01.new_full((pad, 3), 2.0)]) if pad else x01
+    if sort:
+        perm, inv = morton_perm(xp)
+        xp = permute(xp, perm, inv)
+    feat, cnt = splat_encode_raw(table, xp, spec, gather_levels, stochastic)
+    if sort:
+        feat = permute(feat, inv, perm)
+    return feat[:N0], cnt
+
+
+# ---------------------------------------------------------------------------
+# morton ordering + permutation with a gather backward
+# ---------------------------------------------------------------------------
+
+def _spread3(v):
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_perm(x01: torch.Tensor):
+    """(perm, inv_perm) sorting points by fine-block (8^3-cell at 2048)
+    morton id, stably (ties keep input order, as jnp.argsort).
+    Out-of-[0,1] points sort to the end."""
+    b = (x01.float() * 256.0).to(torch.int32).clamp(0, 255)
+    key = _spread3(b[:, 0]) | (_spread3(b[:, 1]) << 1) | (_spread3(b[:, 2]) << 2)
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+    key = torch.where(oob, torch.full_like(key, 0x7FFFFFFF), key)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    return perm, inv
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g[inv_perm], None, None
+
+
+def permute(x: torch.Tensor, perm: torch.Tensor, inv_perm: torch.Tensor):
+    """out[i] = x[perm[i]]; the backward is a gather by inv_perm, not a
+    scatter-add."""
+    return _Permute.apply(x, perm, inv_perm)

@@ -1,0 +1,135 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device (marker ``cuda``) and skips without one.
+The machine with the card has no JAX, so run this file there without the
+repository's conftest (which imports jax):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+
+Tolerances: K1 exact; K2 atol 1e-5; K3 atol 1e-5 with rtol 1e-4 of each
+row's summed |contribution| (the atomics add in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nerf2mesh_tpu_torch import kernels
+from nerf2mesh_tpu_torch.ops import occ_sweep
+from nerf2mesh_tpu_torch.ops import splat_encode as se
+from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
+
+pytestmark = pytest.mark.cuda
+
+SPEC = HashGridSpec(num_levels=6, level_dim=3, log2_hashmap_size=14,
+                    desired_resolution=256, layout="block512")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _points(n, seed=0):
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    c = rng.uniform(0.2, 0.8, (8, 3))
+    pts = np.concatenate([c[rng.integers(0, 8, h)]
+                          + rng.uniform(0, 0.03, (h, 3)),
+                          rng.uniform(0, 1, (n - h, 3))])
+    return torch.from_numpy(np.clip(pts, 0, 1).astype(np.float32))
+
+
+def _same_window_tile(l=3, seed=0):
+    """128 points around a 2x2x2 block neighbourhood of level l in which two
+    slots share one window id (levels 2-5 of SPEC have such blocks)."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import block_window
+    slots = torch.tensor([[s & 1, (s >> 1) & 1, (s >> 2) & 1] for s in range(8)])
+    ax = torch.arange(int(SPEC.block_counts[l]) - 1)
+    b = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    win = torch.sort(block_window(b[:, None] + slots[None], SPEC, l), 1)[0]
+    base = b[(win[:, 1:] == win[:, :-1]).any(1).nonzero()[0, 0]].numpy()
+    rng = np.random.default_rng(seed)
+    cells = 8 * base[None] + rng.uniform(0, 15, (128, 3))
+    cells[0] = 8 * base + 0.25
+    pts = (cells - SPEC.shift) / SPEC.level_scale32(l)
+    return torch.from_numpy(np.clip(pts, 0, 1).astype(np.float32))
+
+
+def _inputs(dev, n=2048, levels=tuple(range(6))):
+    x = _points(n - 128).to(dev)
+    perm, _ = se.morton_perm(x)
+    x = torch.cat([x[perm], _same_window_tile().to(dev)]).contiguous()
+    tiles = x.reshape(-1, se.TILE, 3)
+    metas = [se.tile_meta(tiles, SPEC, l) for l in levels]
+    bases = torch.stack([m[0] for m in metas]).contiguous()
+    rows = torch.stack([m[1] for m in metas]).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    table = (torch.rand((SPEC.table_size, 3), generator=g) * 2 - 1).to(dev)
+    return table, x, bases, rows, levels
+
+
+def test_occ_lookup_kernel_exact(dev):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    occ = (torch.rand((1, 64, 64, 64), generator=g) < 0.3).to(torch.uint8).to(dev)
+    words = occ_sweep.pack_bits(occ)
+    idx = torch.randint(0, 64 ** 3, (4096, 128), generator=g,
+                        dtype=torch.int32).to(dev)
+    before = kernels.LAUNCHES["occ_lookup"]
+    got = occ_sweep.occ_lookup(words, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["occ_lookup"] == before + 1
+    assert torch.equal(got, occ_sweep.occ_lookup_plain(words, idx))
+    assert torch.equal(got, occ.reshape(-1)[idx.long()].to(torch.int32))
+
+
+def test_inwin_kernels_match_plain(dev):
+    table, x, bases, rows, levels = _inputs(dev)
+    assert len(set(rows[3, -1].tolist())) < 8          # same-window slots
+    out = se.inwin_fwd(table, x, bases, rows, SPEC, levels)
+    ref = se.inwin_fwd_plain(table, x, bases, rows, SPEC, levels)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    gr = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    dk = se.inwin_bwd(gr, x, bases, rows, SPEC, levels, SPEC.table_size)
+    dp = se.inwin_bwd_plain(gr, x, bases, rows, SPEC, levels, SPEC.table_size)
+    mag = se.inwin_bwd_plain(gr.abs(), x, bases, rows, SPEC, levels,
+                             SPEC.table_size)
+    assert bool(((dk - dp).abs() <= 1e-5 + 1e-4 * mag).all())
+    # with |g| every term is >= 0, so the same bound is the plain allclose
+    mk = se.inwin_bwd(gr.abs(), x, bases, rows, SPEC, levels, SPEC.table_size)
+    torch.testing.assert_close(mk, mag, atol=1e-5, rtol=1e-4)
+
+
+def test_inwin_autograd_and_encode_on_card(dev):
+    table, x, bases, rows, levels = _inputs(dev, levels=(0, 1, 2, 3))
+    t = table.clone().requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    feat, cnt = se.splat_encode_raw(t, x, SPEC, gather_levels=(4, 5))
+    feat.square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["inwin_fwd"] == before["inwin_fwd"] + 1
+    assert kernels.LAUNCHES["inwin_bwd"] == before["inwin_bwd"] + 1
+    t_ref = table.clone().requires_grad_()
+    ref = hashgrid_encode(t_ref, x, SPEC)
+    ref.square().sum().backward()
+    torch.testing.assert_close(feat, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(t.grad, t_ref.grad, atol=1e-4, rtol=1e-4)
+    # the card and the CPU pick the same stochastic corners
+    fs, cs = se.splat_encode_raw(table, x, SPEC, (4, 5), stochastic=True)
+    fc, cc = se.splat_encode_raw(table.cpu(), x.cpu(), SPEC, (4, 5),
+                                 stochastic=True)
+    torch.testing.assert_close(fs.cpu(), fc, atol=1e-5, rtol=0)
+    assert torch.equal(cs.cpu(), cc) and torch.equal(cnt.cpu(), cc)
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    table, x, bases, rows, levels = _inputs(dev)
+    with pytest.raises(ValueError):
+        se.inwin_fwd(table, x, bases.cpu(), rows, SPEC, levels)
+    with pytest.raises(ValueError):
+        se.inwin_fwd(table.double(), x, bases, rows, SPEC, levels)
+    with pytest.raises(TypeError):
+        occ_sweep.occ_lookup(torch.zeros(8, dtype=torch.int32, device=dev),
+                             torch.zeros(4, dtype=torch.int64, device=dev))
