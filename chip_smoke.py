@@ -7,13 +7,27 @@ Phases, in order; any failure exits non-zero:
   2. build: compile the port's kernels (nerf2mesh_tpu_torch/csrc) with nvcc;
   3. kernels: K1 occ_lookup, K2 inwin_fwd and K3 inwin_bwd against their
      plain PyTorch versions at the shapes the training step gives them,
-     plus K2 + the residual against the plain hashgrid_encode, with times
-     from CUDA events (median of 20);
+     plus K2 + the residual against the plain hashgrid_encode; K5
+     winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
+     (with out-of-bounds and block-edge points) at winsort levels 7-15,
+     plus K5 + its residual against hashgrid_encode; times from CUDA events
+     (median of 20);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
      256x256 x 24-view sphere scene; every loss finite, the loss falls, and
-     each kernel's launch counter is above 0 for the training run alone.
-The line before the last is the kernels' JSON record, the last line the
-device record.  Imports only the port, torch, numpy and the standard library.
+     K1-K3's launch counters are above 0 for the training run alone;
+  5. eval: Trainer.evaluate on 4 val views at 256x256 before and after the
+     phase-4 training; the PSNR after is finite and above the PSNR before,
+     and K1 and K2 launch during each eval alone; ms per frame and march
+     rounds;
+  6. winsort: a fresh trainer at the same configuration with
+     winsort_fine=True, stochastic_fine=False trains 64 steps (losses finite
+     and falling, K5 and K6 launched by the training alone), then evaluates
+     the val views (K5 launched by the eval alone); ms/step, rays/s,
+     ms/frame and PSNR.
+The line before the last is the kernels' JSON record (launch counts from
+each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6),
+the last line the device record.  Imports only the port, torch, numpy and
+the standard library.
 """
 
 from __future__ import annotations
@@ -32,8 +46,13 @@ import torch
 SEED = 0
 SLICE_STEPS = 128          # grid refresh at 0, slab updates at 16, 32, ...
 TIMED_STEPS = 64           # steady-state window: the last TIMED_STEPS steps
+WINSORT_STEPS = 64         # phase 6 (exact encode: K5/K6 in every step)
+N_VAL = 4                  # eval views (phases 5 and 6)
+WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
+KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
-       "inwin_bwd": (1e-5, 1e-4), "encode": (1e-5, 1e-5)}
+       "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
+       "winsort_bwd": (1e-5, 1e-4), "encode": (1e-5, 1e-5)}
 
 
 def log(msg: str) -> None:
@@ -127,7 +146,6 @@ def same_window_tile(spec, levels, rng):
 
 
 def phase_kernels(dev):
-    from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
     from nerf2mesh_tpu_torch.ops import occ_sweep, splat_encode as se
 
@@ -162,7 +180,7 @@ def phase_kernels(dev):
     levels = tuple(range(9))
     table = torch.from_numpy(rng.uniform(-1, 1, (spec.table_size, 3))
                              .astype(np.float32)).to(dev)
-    N = 2 ** 18
+    N = KERNEL_POINTS
     sl, tile = same_window_tile(spec, levels, rng)
     bnd = boundary_points(spec, levels, rng)
     n_bulk = N - 128 - len(bnd)
@@ -187,21 +205,12 @@ def phase_kernels(dev):
     err2 = float((out_k - out_p).abs().max())
     g = torch.from_numpy(rng.normal(size=(N, len(levels), 3))
                          .astype(np.float32)).to(dev)
-    dt_k = se.inwin_bwd(g, x, bases, rows, spec, levels, spec.table_size)
-    dt_p = se.inwin_bwd_plain(g, x, bases, rows, spec, levels, spec.table_size)
-    err3 = float((dt_k - dt_p).abs().max())
-    # atomics add each row's ~100s of terms in another order: for signed g
-    # the rtol is taken relative to the row's sum of |terms| (the
-    # order-independent bound), i.e. the plain gradient of |g|; for |g|,
-    # where every term is >= 0, that is the plain allclose
-    mag = se.inwin_bwd_plain(g.abs(), x, bases, rows, spec, levels,
-                             spec.table_size)
-    mag_k = se.inwin_bwd(g.abs(), x, bases, rows, spec, levels,
-                         spec.table_size)
-    tol3 = min(float((TOL["inwin_bwd"][0] + TOL["inwin_bwd"][1] * mag
-                      - (dt_k - dt_p).abs()).min()),
-               float((TOL["inwin_bwd"][0] + TOL["inwin_bwd"][1] * mag
-                      - (mag_k - mag).abs()).min()))
+    bargs = (x, bases, rows, spec, levels, spec.table_size)
+    dt_k = se.inwin_bwd(g, *bargs)
+    err3 = float((dt_k - se.inwin_bwd_plain(g, *bargs)).abs().max())
+    # atomics add each row's ~100s of terms in another order: the rtol is
+    # taken relative to the row's sum of |terms| (atomic_tol_margin)
+    tol3 = atomic_tol_margin(se.inwin_bwd, se.inwin_bwd_plain, g, bargs)
     log(f"[kernels] K2 max|err| {err2:.3e}; K3 max|err| {err3:.3e}; "
         f"in-window corner share "
         f"{float((out_p != 0).any(-1).float().mean()):.3f}")
@@ -237,58 +246,130 @@ def phase_kernels(dev):
         name="inwin_bwd", route="cuda",
         source="nerf2mesh_tpu_torch/csrc/splat_inwin.cu",
         replaces="nerf2mesh_tpu/ops/splat_encode.py:263", max_abs_err=err3,
-        ms=cuda_time_ms(lambda: se.inwin_bwd(g, x, bases, rows, spec, levels,
-                                             spec.table_size)),
-        plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(
-            g, x, bases, rows, spec, levels, spec.table_size))))
+        ms=cuda_time_ms(lambda: se.inwin_bwd(g, *bargs)),
+        plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs))))
+    results += winsort_kernels(dev, spec, table, rng)
     for r in results:
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms")
     return results
 
 
+def atomic_tol_margin(kernel, plain, g, args):
+    """Least margin of a gradient kernel against its plain version: atol +
+    rtol of each row's summed |terms| (the plain gradient of |g|), for g and
+    for |g| (where every term is >= 0 and the bound is the plain allclose).
+    Negative means a row disagrees."""
+    atol, rtol = TOL[kernel.__name__]
+    mag = plain(g.abs(), *args)
+    return min(float((atol + rtol * mag - (kernel(g, *args) - plain(g, *args))
+                      .abs()).min()),
+               float((atol + rtol * mag - (kernel(g.abs(), *args) - mag)
+                      .abs()).min()))
+
+
+def winsort_kernels(dev, spec, table, rng):
+    """K5/K6 on 2^18 uniform points (the fine-level regime: no spatial
+    locality) at winsort levels 7-15, with out-of-bounds points and points on
+    and 1 ulp from block edges."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import hashgrid_encode
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+
+    wl, N = WINSORT_LEVELS, KERNEL_POINTS
+    bnd = boundary_points(spec, wl, rng)
+    oobp = rng.uniform(0, 1, (64, 3))
+    oobp[:32, 0], oobp[32:, 2] = 1.5, -0.2
+    pts = np.concatenate([rng.uniform(0, 1, (N - len(bnd) - 64, 3)), bnd, oobp])
+    x = torch.from_numpy(pts[rng.permutation(N)].astype(np.float32)).to(dev)
+    xc = x.clamp(0, 1).contiguous()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    metas = [se.winsort_meta(xc, oob, spec, l) for l in wl]
+    perm = torch.stack([m[0] for m in metas]).to(torch.int32).contiguous()
+    wins = torch.stack([m[1] for m in metas]).contiguous()
+    slots = torch.stack([m[2] for m in metas]).contiguous()
+
+    out_k = se.winsort_fwd(table, xc, perm, wins, slots, spec, wl)
+    out_p = se.winsort_fwd_plain(table, xc, perm, wins, slots, spec, wl)
+    err5 = float((out_k - out_p).abs().max())
+    g = torch.from_numpy(rng.normal(size=(N, len(wl), 3))
+                         .astype(np.float32)).to(dev)
+    args = (xc, perm, wins, slots, spec, wl, spec.table_size)
+    err6 = float((se.winsort_bwd(g, *args)
+                  - se.winsort_bwd_plain(g, *args)).abs().max())
+    tol6 = atomic_tol_margin(se.winsort_bwd, se.winsort_bwd_plain, g, args)
+    share = float(torch.stack([m[3] for m in metas]).float().mean())
+    log(f"[kernels] K5 max|err| {err5:.3e}; K6 max|err| {err6:.3e}; slotted "
+        f"point share {share:.3f}; tiles with equal slots "
+        f"{int((slots[..., 0] == slots[..., 1]).sum())} of "
+        f"{slots.shape[0] * slots.shape[1]}")
+    if not err5 <= TOL["winsort_fwd"][0]:
+        raise AssertionError(f"K5 winsort_fwd disagrees: {err5}")
+    if tol6 < 0:
+        raise AssertionError(f"K6 winsort_bwd disagrees: {err6}")
+
+    feat, _ = se.splat_encode_raw(table, x, spec, gather_levels=wl,
+                                  winsort_levels=wl)
+    ref = hashgrid_encode(table, x, spec)
+    err_enc = float((feat - ref).abs().max())
+    log(f"[kernels] winsort splat_encode_raw vs hashgrid_encode max|err| "
+        f"{err_enc:.3e}")
+    atol, rtol = TOL["encode"]
+    if not torch.allclose(feat, ref, atol=atol, rtol=rtol):
+        raise AssertionError(f"K5 + residual != hashgrid_encode: {err_enc}")
+
+    fwd = (table, xc, perm, wins, slots, spec, wl)
+    return [
+        dict(name="winsort_fwd", route="cuda",
+             source="nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
+             replaces="nerf2mesh_tpu/ops/splat_encode.py:365",
+             max_abs_err=err5,
+             ms=cuda_time_ms(lambda: se.winsort_fwd(*fwd)),
+             plain_ms=cuda_time_ms(lambda: se.winsort_fwd_plain(*fwd))),
+        dict(name="winsort_bwd", route="cuda",
+             source="nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
+             replaces="nerf2mesh_tpu/ops/splat_encode.py:397",
+             max_abs_err=err6,
+             ms=cuda_time_ms(lambda: se.winsort_bwd(g, *args)),
+             plain_ms=cuda_time_ms(lambda: se.winsort_bwd_plain(g, *args)))]
+
+
 # --------------------------------------------------------------------------
 # phase 4: the slice
 # --------------------------------------------------------------------------
 
-def bench_config():
-    """bench.py's stage-0 configuration."""
+def bench_config(**kw):
+    """bench.py's stage-0 configuration, with the overrides kw."""
     from nerf2mesh_tpu_torch.config import Config
-    return dataclasses.replace(
-        Config(path=""),
+    base = dict(
         bound=1.0, scale=0.8, dt_gamma=0.0, iters=30000,
         num_rays=4096, num_points=2 ** 18, max_steps=1024,
         grid_size=128, diffuse_step=1000, random_image_batch=True,
         background="random", mark_untrained=True, adaptive_num_rays=True,
-        stochastic_fine=True, seed=SEED,
-    ).finalize()
+        stochastic_fine=True, seed=SEED)
+    base.update(kw)
+    return dataclasses.replace(Config(path=""), **base).finalize()
 
 
-def phase_slice(dev):
-    from nerf2mesh_tpu_torch import kernels
+def scene(cfg):
     from nerf2mesh_tpu_torch.data.provider import dataset_from_frames
     from nerf2mesh_tpu_torch.data.synthetic import render_synthetic_frames
-    from nerf2mesh_tpu_torch.utils.trainer import Trainer
-
-    cfg = bench_config()
-    t0 = time.perf_counter()
-    frames = render_synthetic_frames(H=256, W=256, n_train=24, n_val=0,
+    frames = render_synthetic_frames(H=256, W=256, n_train=24, n_val=N_VAL,
                                      n_test=0)
-    ds = dataset_from_frames(cfg, frames, "train")
-    trainer = Trainer(cfg, device=dev)
-    trainer.mark_untrained(ds)
-    log(f"[slice] scene {ds.images.shape} + trainer set up in "
-        f"{time.perf_counter() - t0:.1f} s; table {tuple(trainer.params.table.shape)}")
+    return (dataset_from_frames(cfg, frames, "train"),
+            dataset_from_frames(cfg, frames, "val"))
 
+
+def train_window(trainer, ds, steps, timed):
+    """Run `steps` training steps; returns (losses, ray buckets, gather
+    routes, last metrics, ms/step and rays/s over the last `timed` steps,
+    launch counts of the run alone)."""
+    from nerf2mesh_tpu_torch import kernels
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, buckets, routes = [], [], []
-    t_start = None
-    timed_rays = 0
-    t_all = time.perf_counter()
-    for s in range(SLICE_STEPS):
-        if s == SLICE_STEPS - TIMED_STEPS:
+    t_start, timed_rays = None, 0
+    for s in range(steps):
+        if s == steps - timed:
             torch.cuda.synchronize()
             t_start = time.perf_counter()
         nr = trainer._bucket(trainer.num_rays)
@@ -302,11 +383,61 @@ def phase_slice(dev):
     t_end = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
     losses = [float(v) for v in losses]
-    ms_step = (t_end - t_start) / TIMED_STEPS * 1e3
-    rays_s = timed_rays / (t_end - t_start)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    if not last8 < first:
+        raise AssertionError(f"loss did not fall: first-8 mean {first}, "
+                             f"last-8 mean {last8}")
+    return (losses, buckets, routes, m, (t_end - t_start) / timed * 1e3,
+            timed_rays / (t_end - t_start), launches)
+
+
+def run_eval(trainer, val, name, must_launch):
+    """Trainer.evaluate on the val views with the launch counts set to 0
+    just before and read just after; returns (PSNR, ms/frame, launches)."""
+    from nerf2mesh_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(val, name=name)
+    ms_frame = (time.perf_counter() - t0) / val.num_frames * 1e3
+    launches = dict(kernels.LAUNCHES)
+    psnr = float(res["PSNR"])
+    log(f"[eval] {name}: PSNR {psnr:.4f}; {ms_frame:.1f} ms/frame "
+        f"({val.H}x{val.W}); march rounds per frame "
+        f"{trainer.stats['eval_rounds']}; launches {launches}")
+    if not math.isfinite(psnr):
+        raise AssertionError(f"{name}: PSNR {psnr}")
+    for k in must_launch:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} was not launched")
+    return psnr, ms_frame, launches
+
+
+def phase_slice(dev):
+    """Phase 4 (128 training steps), with phase 5 (eval) around it."""
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    ds, val = scene(cfg)
+    trainer = Trainer(cfg, device=dev)
+    trainer.mark_untrained(ds)
+    log(f"[slice] scene {ds.images.shape} + {val.images.shape} val + trainer "
+        f"set up in {time.perf_counter() - t0:.1f} s; table "
+        f"{tuple(trainer.params.table.shape)}")
+
+    eval_launch = ("occ_lookup", "inwin_fwd")
+    psnr0, ms0, _ = run_eval(trainer, val, "before", eval_launch)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    losses, buckets, routes, m, ms_step, rays_s, launches = train_window(
+        trainer, ds, SLICE_STEPS, TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[slice] {SLICE_STEPS} steps in {t_end - t_all:.1f} s; losses "
-        f"first {np.round(losses[:4], 5).tolist()} last "
+    log(f"[slice] {SLICE_STEPS} steps in {time.perf_counter() - t_all:.1f} s;"
+        f" losses first {np.round(losses[:4], 5).tolist()} last "
         f"{np.round(losses[-4:], 5).tolist()}")
     log(f"[slice] ray buckets {sorted(set(buckets))} (first {buckets[0]}, "
         f"last {buckets[-1]}); gather levels first {routes[0]} last "
@@ -315,20 +446,48 @@ def phase_slice(dev):
     log(f"[slice] steady state (last {TIMED_STEPS} steps): {ms_step:.2f} "
         f"ms/step, {rays_s:.1f} rays/s; peak memory {peak:.2f} GiB; "
         f"launches {launches}")
-
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    first, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
-    if not last8 < first:
-        raise AssertionError(f"loss did not fall: first-8 mean {first}, "
-                             f"last-8 mean {last8}")
     if len(set(buckets)) < 2:
         raise AssertionError(f"adaptive ray bucket never changed: {buckets}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the slice")
-    return launches, dict(ms_per_step=ms_step, rays_per_sec=rays_s,
-                          peak_gib=peak, loss_first8=first, loss_last8=last8)
+
+    psnr1, ms1, _ = run_eval(trainer, val, "after", eval_launch)
+    if not psnr1 > psnr0:
+        raise AssertionError(f"eval PSNR did not rise: {psnr0} -> {psnr1}")
+    log(f"[eval] PSNR {psnr0:.4f} -> {psnr1:.4f} over {SLICE_STEPS} steps; "
+        f"{ms0:.1f} -> {ms1:.1f} ms/frame")
+    return launches
+
+
+def phase_winsort(dev):
+    """Phase 6: exact winsort training (K5 forward, K6 table gradient) and
+    its eval."""
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    cfg = bench_config(winsort_fine=True, stochastic_fine=False)
+    ds, val = scene(cfg)
+    trainer = Trainer(cfg, device=dev)
+    trainer.mark_untrained(ds)
+    if trainer.net_spec.encode_winsort_levels != WINSORT_LEVELS:
+        raise AssertionError(
+            f"winsort levels {trainer.net_spec.encode_winsort_levels}")
+    t_all = time.perf_counter()
+    losses, buckets, routes, m, ms_step, rays_s, launches = train_window(
+        trainer, ds, WINSORT_STEPS, WINSORT_STEPS // 2)
+    log(f"[winsort] {WINSORT_STEPS} steps in "
+        f"{time.perf_counter() - t_all:.1f} s; losses first "
+        f"{np.round(losses[:4], 5).tolist()} last "
+        f"{np.round(losses[-4:], 5).tolist()}; buckets {sorted(set(buckets))};"
+        f" gather (= winsort) levels last {routes[-1]}")
+    log(f"[winsort] last {WINSORT_STEPS // 2} steps: {ms_step:.2f} ms/step, "
+        f"{rays_s:.1f} rays/s; launches {launches}")
+    for k in ("winsort_fwd", "winsort_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by training")
+    psnr, ms_frame, _ = run_eval(trainer, val, "winsort", ("winsort_fwd",))
+    log(f"[winsort] eval PSNR {psnr:.4f}, {ms_frame:.1f} ms/frame")
+    return launches
 
 
 def main() -> int:
@@ -340,9 +499,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
-    launches, _ = phase_slice(dev)
+    launches = phase_slice(dev)
+    ws_launches = phase_winsort(dev)
     for r in results:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (ws_launches if r["name"].startswith("winsort")
+                         else launches)[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

@@ -35,17 +35,14 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "level_params.cuh"
+
 namespace {
 
-constexpr int kTile = 128;   // points per tile (TILE in splat_encode.py)
-constexpr int kMaxLevels = 32;
-
-// Per kernel level: lattice scale (float32, as the JAX code rounds it) and
-// the level's first row in the canonical table.  Passed by value.
-struct LevelParams {
-  float scale[kMaxLevels];
-  int32_t offset[kMaxLevels];
-};
+using n2m::blocks_for;
+using n2m::kTile;
+using n2m::LevelParams;
+using n2m::pack_levels;
 
 // Walks the 8 corners of point p at kernel level k; calls fn(row, w) for each
 // in-window corner.  Returns nothing: out-of-window corners are skipped.
@@ -129,20 +126,6 @@ __global__ void inwin_bwd_kernel(const float* __restrict__ grad,
                       atomicAdd(dtable + row * 3 + 1, __fmul_rn(g1, w));
                       atomicAdd(dtable + row * 3 + 2, __fmul_rn(g2, w));
                     });
-}
-
-inline unsigned blocks_for(int64_t n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
-}
-
-inline bool pack_levels(const float* scales, const int32_t* offsets,
-                        int n_levels, LevelParams* lp) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return false;
-  for (int k = 0; k < n_levels; ++k) {
-    lp->scale[k] = scales[k];
-    lp->offset[k] = offsets[k];
-  }
-  return true;
 }
 
 }  // namespace

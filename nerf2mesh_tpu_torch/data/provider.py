@@ -33,6 +33,10 @@ class Dataset:
     training: bool
     cam_near_far: Optional[np.ndarray] = None   # [B, 2] or None
 
+    @property
+    def num_frames(self) -> int:
+        return self.poses.shape[0]
+
     def intrinsics_for(self, i: int) -> np.ndarray:
         intr = np.asarray(self.intrinsics)
         return intr[i] if intr.ndim == 2 else intr

@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` file exposes plain ``extern "C"`` entry points, so the
 library is compiled by nvcc alone, without PyTorch's headers (seconds, not
 minutes).  The build runs at first use, inside the package's ``build/``
-directory, keyed by a hash of the sources and flags; a finished library is
-reused.  Each entry point launches on the stream it is given, allocates
-nothing, and returns its ``cudaGetLastError()``; ``check`` raises on a
-non-zero code.
+directory, keyed by a hash of the sources, headers and flags; a finished
+library is reused.  Each source compiles to an object in its own nvcc
+process, all started together, and one more nvcc links them.  Each entry
+point launches on the stream it is given, allocates nothing, and returns
+its ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -47,6 +48,14 @@ _SIGNATURES = {
     # n_tiles, n_levels, dtable, stream
     "n2m_inwin_bwd": (_P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64, _I64,
                       _I32, _P, _P),
+    # table, x, perm, wins, slots, scales (host), offsets (host), shift,
+    # n_points, n_tiles, n_levels, out, stream
+    "n2m_winsort_fwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
+                        _I64, _I32, _P, _P),
+    # grad, x, perm, wins, slots, scales (host), offsets (host), shift,
+    # n_points, n_tiles, n_levels, dtable, stream
+    "n2m_winsort_bwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
+                        _I64, _I32, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -74,10 +83,27 @@ def sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libn2m_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds, verbose: bool) -> None:
+    """Run the nvcc commands side by side; raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+        elif verbose and text:
+            print(text, flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build(verbose: bool = False) -> Path:
@@ -87,18 +113,20 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas=-v"] if verbose else []
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr, flush=True)
+    try:
+        _run_all([[nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)], verbose)
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *[str(o) for o in objs]]], verbose)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)            # atomic: concurrent builders agree
     build_seconds = time.perf_counter() - t0
     return out

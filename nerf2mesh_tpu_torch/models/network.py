@@ -49,6 +49,9 @@ class NetworkSpec:
     encode_gather_levels: Tuple[int, ...] = ()
     # train-only unbiased 1-corner sampling of gather levels and residuals
     encode_stochastic: bool = False
+    # exact window-sorted kernels (K5/K6) for those of the gather levels that
+    # are also listed here; encode_stochastic takes precedence when set
+    encode_winsort_levels: Tuple[int, ...] = ()
 
     @property
     def density_grid_spec(self) -> HashGridSpec:
@@ -106,7 +109,9 @@ def encode_fields(params: NeRFField, x01: torch.Tensor, spec: NetworkSpec,
     gspec = spec.density_grid_spec
     h, cnt = splat_encode(params.table, x01, gspec, sort=not pre_sorted,
                           gather_levels=spec.encode_gather_levels,
-                          stochastic=spec.encode_stochastic)
+                          stochastic=spec.encode_stochastic,
+                          winsort_levels=(() if spec.encode_stochastic
+                                          else spec.encode_winsort_levels))
     h = _mask_levels(h, max_level, gspec).reshape(x01.shape[0], L, 3)
     return h[:, :, 0], h[:, :, 1:].reshape(x01.shape[0], 2 * L), cnt
 

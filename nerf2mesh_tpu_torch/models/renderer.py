@@ -1,10 +1,10 @@
 """Stage-0 volumetric renderer (port of nerf2mesh_tpu/models/renderer.py).
 
 Occupancy-grid state, the EMA-max density-grid update (one of 8 x-slabs per
-call, round-robin), ``mark_untrained_grid`` (numpy) and the training render
-``render_train`` with valid-sample pool compaction.  The eval render
-(``render_eval_segment``/``render_frame_queue``), SDF/NeuS alpha, cascades
-and the trainable density grid are not ported yet (ROADMAP queue A).
+call, round-robin), ``mark_untrained_grid`` (numpy), the training render
+``render_train`` with valid-sample pool compaction, and the early-exit eval
+march (``render_eval_segment``, ``render_frame_queue``).  SDF/NeuS alpha,
+cascades and the trainable density grid are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from ..data.rays import safe_normalize
 from ..ops.composite import composite_rays
-from ..ops.sampling import near_far_from_aabb, sample_rays
+from ..ops.sampling import near_far_from_aabb, occupied_length, sample_rays
 from .network import NeRFField, NetworkSpec, density, field_forward
 
 
@@ -307,3 +307,134 @@ def render_train(
         speculars=pp_spec,
         encode_resid=enc_cnt,
     )
+
+
+@torch.no_grad()
+def render_eval_segment(
+    params: NeRFField,
+    occ_grid: torch.Tensor,
+    rays_o: torch.Tensor,            # [N, 3]
+    rays_d: torch.Tensor,            # [N, 3]
+    nears: torch.Tensor,             # [N] segment start (advances across calls)
+    fars: torch.Tensor,              # [N]
+    sample_dt: torch.Tensor,         # [N] fixed sample spacing
+    spec: RenderSpec,
+    net_spec: NetworkSpec,
+    *,
+    shading: str = "full",
+) -> Dict[str, torch.Tensor]:
+    """One segment of the early-exit eval march (reference renderer.py:
+    749-802, raymarching.cu:750-832).
+
+    Places spec.num_fine samples at the fixed spacing sample_dt from
+    `nears`, composites them with transmittance starting at 1, and reports
+    where the march stopped (`t_exit`).  The caller accumulates across
+    segments and drops finished rays.  No background here.
+
+    Only the valid samples go through the field: an exact compaction to
+    their count (one host sync).  The JAX package's fixed-size pool with a
+    lax.cond dense fallback was a static-shape device workaround and gives
+    the same values."""
+    check_supported(spec)
+    N, K = rays_o.shape[0], spec.num_fine
+    m = sample_rays(
+        rays_o, rays_d, occ_grid, nears, fars,
+        num_coarse=spec.num_coarse, num_fine=K, grid_size=spec.grid_size,
+        cascades=spec.cascades, bound=spec.bound, contracted=spec.contract,
+        dt_gamma=spec.dt_gamma, max_steps=spec.max_steps, sample_dt=sample_dt)
+    ids = torch.nonzero(m.valid.reshape(-1))[:, 0]
+    sig = torch.zeros((N * K,), device=rays_o.device)
+    rgb = torch.zeros((N * K, 3), device=rays_o.device)
+    if ids.numel():
+        dirs = safe_normalize(rays_d)
+        sig_v, rgb_v, _, _ = field_forward(
+            params, m.xyzs.reshape(N * K, 3)[ids], dirs[ids // K], net_spec,
+            shading != "diffuse")
+        sig[ids] = sig_v
+        rgb[ids] = rgb_v
+    out = composite_rays(sig.reshape(N, K), rgb.reshape(N, K, 3), m.ts, m.dts,
+                         m.valid, T_thresh=spec.T_thresh, alpha_mode=spec.sdf)
+    return {
+        "image": out["image"],                 # pre-background contribution
+        "depth": out["depth"],
+        "weights_sum": out["weights_sum"],     # 1 - T_end within the segment
+        "t_exit": m.t_exit,
+    }
+
+
+def eval_spacing(rays_o, rays_d, occ_grid, aabb, spec: RenderSpec,
+                 eval_fine: int):
+    """(nears, fars, occupied length, per-ray sample spacing) of the eval
+    march: the occupied length spread over eval_fine samples, at least the
+    schedule's dt_min."""
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, spec.min_near)
+    olen = occupied_length(
+        rays_o, rays_d, occ_grid, nears, fars, num_coarse=spec.num_coarse,
+        grid_size=spec.grid_size, cascades=spec.cascades, bound=spec.bound,
+        contracted=spec.contract, dt_gamma=spec.dt_gamma,
+        max_steps=spec.max_steps)
+    dt_min = 2.0 * math.sqrt(3.0) / spec.max_steps
+    return nears, fars, olen, (olen / eval_fine).clamp(min=dt_min)
+
+
+@torch.no_grad()
+def render_frame_queue(
+    params: NeRFField,
+    occ_grid: torch.Tensor,
+    rays_o: torch.Tensor,            # [N, 3] all rays of the frame
+    rays_d: torch.Tensor,            # [N, 3]
+    aabb: torch.Tensor,              # [6]
+    spec: RenderSpec,                # spec.num_fine = samples per segment
+    net_spec: NetworkSpec,
+    *,
+    chunk: int = 8192,
+    shading: str = "full",
+    eval_fine: int = 128,
+) -> Dict[str, torch.Tensor]:
+    """Whole-frame early-exit march over a queue of alive rays.
+
+    Per-ray march state (accumulated rgb/depth, transmittance T, current t,
+    alive flag) lives in dense [N] tensors on the device.  Each round takes
+    the first `chunk` rays of a stable "alive first" order, marches them
+    one `spec.num_fine`-sample segment, scatters the accumulators back and
+    updates the alive flags; the loop ends when no ray is alive (a host
+    sync per round, besides the segment's compaction) or after the safety
+    bound of
+    ceil(N / chunk) * max(2 * max_steps / num_fine, 2) rounds.  The JAX
+    package runs the same loop inside one lax.while_loop.  Returns
+    pre-background image/depth/weights_sum and the number of rounds."""
+    n, K = rays_o.shape[0], spec.num_fine
+    chunk = min(chunk, n)
+    nears, fars, olen, spacing = eval_spacing(rays_o, rays_d, occ_grid, aabb,
+                                              spec, eval_fine)
+    image = torch.zeros((n, 3), device=rays_o.device)
+    depth = torch.zeros((n,), device=rays_o.device)
+    T = torch.ones((n,), device=rays_o.device)
+    tcur = nears.clone()
+    alive = olen > 0.0
+    max_iters = -(-n // chunk) * max(2 * spec.max_steps // max(K, 1), 2)
+    it = 0
+    while it < max_iters and bool(alive.any()):
+        # stable sort: alive rays first, original order preserved
+        order = torch.argsort((~alive).to(torch.uint8), stable=True)
+        idx = order[:chunk]
+        a_sel = alive[idx]
+        fr_sel = fars[idx]
+        seg = render_eval_segment(
+            params, occ_grid, rays_o[idx], rays_d[idx],
+            torch.where(a_sel, tcur[idx], 1.0),
+            torch.where(a_sel, fr_sel, 0.0),        # dead: no samples
+            spacing[idx], spec, net_spec, shading=shading)
+        Ti = T[idx]
+        w = torch.where(a_sel, Ti, 0.0)
+        image[idx] += w[:, None] * seg["image"]
+        depth[idx] += w * seg["depth"]
+        Tn = torch.where(a_sel, Ti * (1.0 - seg["weights_sum"]), Ti)
+        T[idx] = Tn
+        tprev = tcur[idx]
+        tn = torch.where(a_sel, seg["t_exit"], tprev)
+        tcur[idx] = tn
+        alive[idx] = a_sel & (Tn > spec.T_thresh) & (tn <= fr_sel) & (tn > tprev)
+        it += 1
+    return {"image": image, "depth": depth, "weights_sum": 1.0 - T,
+            "iters": it}

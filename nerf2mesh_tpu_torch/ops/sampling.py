@@ -10,8 +10,9 @@ plus ``picked = (c < Kc) & (cdf0[c] < s)``, which reproduces the one-hot's
 empty row at s == 0 and across zero-length segments exactly.
 
 The sampler's noise ``u`` [N, Kf] is an explicit argument, so the port can
-be fed the JAX package's exact draws.  The eval-mode segment march
-(``sample_dt``) and ``occupied_length`` are not ported yet (ROADMAP A6).
+be fed the JAX package's exact draws.  The segment mode (``sample_dt``)
+places samples at a fixed per-ray spacing for the eval march and reports
+where it stopped (``t_exit``); ``occupied_length`` sets that spacing.
 """
 
 from __future__ import annotations
@@ -86,6 +87,42 @@ def _dt_schedule(t0, steps: int, dt_gamma: float, dt_min: float, dt_max: float):
     return ts, (ts * g).clamp(dt_min, dt_max)
 
 
+def _coarse_pass(rays_o, rays_d, occ_grid, nears, fars, num_coarse: int,
+                 grid_size: int, cascades: int, bound: float,
+                 contracted: bool, dt_gamma: float, max_steps: int):
+    """Kc coarse candidates on the dt schedule, stretched to cover [near,
+    far]; returns (t0c, dtc, occ) [N, Kc]."""
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * bound / grid_size
+    span = (fars - nears).clamp(min=1e-9)
+    ts_sched, _ = _dt_schedule(nears, num_coarse + 1, dt_gamma, dt_min, dt_max)
+    reach = ts_sched[:, -1] - nears
+    scale = (span / reach.clamp(min=1e-9)).clamp(min=1.0)
+    edges = nears[:, None] + (ts_sched - nears[:, None]) * scale[:, None]
+    t0c = edges[:, :-1]
+    dtc = edges[:, 1:] - edges[:, :-1]                        # [N, Kc]
+    tmidc = t0c + 0.5 * dtc
+
+    xyz_c = rays_o[:, None, :] + tmidc[..., None] * rays_d[:, None, :]
+    xyz_c = xyz_c.clamp(-bound, bound)
+    occ, _ = occupancy_lookup(occ_grid, xyz_c, dtc, bound, contracted,
+                              cascades, grid_size)
+    return t0c, dtc, occ & (t0c < fars[:, None])
+
+
+def occupied_length(rays_o, rays_d, occ_grid, nears, fars, *,
+                    num_coarse: int = 128, grid_size: int = 128,
+                    cascades: int = 1, bound: float = 1.0,
+                    contracted: bool = False, dt_gamma: float = 0.0,
+                    max_steps: int = 1024) -> torch.Tensor:
+    """[N] occupied length along each ray (coarse pass only, no field
+    queries): it sets the fixed sample spacing of the eval march."""
+    _, dtc, occ = _coarse_pass(rays_o, rays_d, occ_grid, nears, fars,
+                               num_coarse, grid_size, cascades, bound,
+                               contracted, dt_gamma, max_steps)
+    return torch.where(occ, dtc, 0.0).sum(dim=-1)
+
+
 class Samples(NamedTuple):
     """Dense per-ray samples, [N, K] layout."""
     ts: torch.Tensor      # [N, K] sample t
@@ -93,6 +130,8 @@ class Samples(NamedTuple):
     xyzs: torch.Tensor    # [N, K, 3] world (or contracted) positions
     valid: torch.Tensor   # [N, K] bool: the ray had occupied space here
     total: torch.Tensor   # [] int64 number of valid samples
+    t_exit: Optional[torch.Tensor] = None   # [N] segment mode: where the
+    #                                         march consumed its budget
 
 
 def sample_rays(
@@ -106,33 +145,29 @@ def sample_rays(
     dt_gamma: float = 0.0,
     max_steps: int = 1024,
     u: Optional[torch.Tensor] = None,
+    sample_dt: Optional[torch.Tensor] = None,
 ) -> Samples:
     """Two-pass occupancy-importance sampling. rays_o/d: [N, 3].
 
     u: [N, num_fine] uniform noise in [0, 1) (the JAX package draws it from
-    its noise key when perturbing); None places samples at u = 0.5."""
+    its noise key when perturbing); None places samples at u = 0.5.
+
+    sample_dt [N] (segment mode, for the eval march): instead of stretching
+    Kf samples over the whole occupied length, place them at the fixed
+    spacing sample_dt from `nears`, consuming at most Kf * sample_dt of
+    occupied length; `t_exit` then reports where the march stopped (the
+    next segment's near), or far + 1 once the ray's occupied space is
+    exhausted.  A sequence of segment calls is one long fixed-spacing march
+    (the reference's inference loop, raymarching.cu:750-832)."""
     N = rays_o.shape[0]
-    Kc, Kf = num_coarse, num_fine
+    Kf = num_fine
     dev = rays_o.device
-    dt_min = 2.0 * SQRT3 / max_steps
-    dt_max = 2.0 * SQRT3 * bound / grid_size
 
-    # pass 1: coarse candidates on the dt schedule, stretched to cover
-    # [near, far] with Kc segments
-    span = (fars - nears).clamp(min=1e-9)
-    ts_sched, _ = _dt_schedule(nears, Kc + 1, dt_gamma, dt_min, dt_max)
-    reach = ts_sched[:, -1] - nears
-    scale = (span / reach.clamp(min=1e-9)).clamp(min=1.0)
-    edges = nears[:, None] + (ts_sched - nears[:, None]) * scale[:, None]
-    t0c = edges[:, :-1]
-    dtc = edges[:, 1:] - edges[:, :-1]                        # [N, Kc]
-    tmidc = t0c + 0.5 * dtc
-
-    xyz_c = rays_o[:, None, :] + tmidc[..., None] * rays_d[:, None, :]
-    xyz_c = xyz_c.clamp(-bound, bound)
-    occ, _ = occupancy_lookup(occ_grid, xyz_c, dtc, bound, contracted,
-                              cascades, grid_size)
-    occ = occ & (t0c < fars[:, None])
+    # pass 1: coarse candidates tested against the occupancy grid
+    t0c, dtc, occ = _coarse_pass(rays_o, rays_d, occ_grid, nears, fars,
+                                 num_coarse, grid_size, cascades, bound,
+                                 contracted, dt_gamma, max_steps)
+    Kc = t0c.shape[1]
 
     # pass 2: inverse-CDF placement of Kf samples over occupied length
     occ_len = torch.where(occ, dtc, 0.0)
@@ -143,11 +178,16 @@ def sample_rays(
     if u is None:
         u = torch.full((N, Kf), 0.5, device=dev)
     i = torch.arange(Kf, dtype=torch.float32, device=dev)[None, :]
-    s = (i + u) / Kf * total_len                              # [N, Kf]
+    if sample_dt is None:
+        s = (i + u) / Kf * total_len                          # [N, Kf]
+    else:
+        sd = sample_dt[:, None].float()                       # [N, 1]
+        s = (i + u) * sd
 
     # segment c holds s when cdf0[c] < s <= cdf[c] (the JAX one-hot)
     cdf0 = torch.cat([torch.zeros_like(cdf[:, :1]), cdf[:, :-1]], dim=-1)
-    c = torch.searchsorted(cdf.contiguous(), s.contiguous(), side="left")
+    cdf = cdf.contiguous()
+    c = torch.searchsorted(cdf, s.contiguous(), side="left")
     cc = c.clamp(max=Kc - 1)
     picked = (c < Kc) & (torch.gather(cdf0, 1, cc) < s)
     seg_t0 = torch.where(picked, torch.gather(t0c, 1, cc), 0.0)
@@ -157,9 +197,24 @@ def sample_rays(
     frac = torch.where(seg_dt > 0,
                        (s - seg_cdf0) / seg_dt.clamp(min=1e-12), 0.0)
     ts = seg_t0 + frac * seg_dt
-    dts = (total_len / Kf).expand(N, Kf)
+    dts = (total_len / Kf if sample_dt is None else sd).expand(N, Kf)
 
     valid = picked & has_any[:, None] & (ts < fars[:, None])
+    t_exit = None
+    if sample_dt is not None:
+        valid = valid & (s < total_len)                       # budget inside occ
+        # t where the cumulative occupied length reaches the consumed budget
+        consumed = torch.minimum(Kf * sd[:, 0], total_len[:, 0])       # [N]
+        ce = torch.searchsorted(cdf, consumed[:, None].contiguous(),
+                                side="left")
+        cec = ce.clamp(max=Kc - 1)
+        e_cdf0 = torch.gather(cdf0, 1, cec)
+        hit = (ce < Kc) & (e_cdf0 < consumed[:, None])
+        e_t0 = torch.where(hit, torch.gather(t0c, 1, cec), 0.0)[:, 0]
+        e_cdf0 = torch.where(hit, e_cdf0, 0.0)[:, 0]
+        exhausted = Kf * sd[:, 0] >= total_len[:, 0]
+        t_exit = torch.where(exhausted | ~has_any, fars + 1.0,
+                             e_t0 + (consumed - e_cdf0))
 
     xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
     xyz = xyz.clamp(-bound, bound)
@@ -172,4 +227,5 @@ def sample_rays(
         xyzs=torch.where(valid[..., None], xyz, 0.0),
         valid=valid,
         total=valid.sum(),
+        t_exit=t_exit,
     )

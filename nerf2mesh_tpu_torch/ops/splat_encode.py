@@ -17,10 +17,24 @@ residual is a masked 8-corner gather (exact mode) or the position-hashed
 1-corner pick (stochastic training mode), both in PyTorch.  The JAX budget,
 ``jnp.nonzero`` compaction and ``lax.cond`` fallback around the exact
 residual, and ``gather_rows``' per-channel scatter, were TPU workarounds
-and give the same values as the masked gather.  The winsort kernels (K5/K6)
-are not ported yet (ROADMAP queue B).
+and give the same values as the masked gather.
 
 Points are expected morton-sorted (``morton_perm``) so that tiles are local.
+
+The *winsort* levels (exact encode of fine hashed levels, where 128-point
+tiles have no spatial locality) sort the points per level by the window id
+of their own 8^3 block (``winsort_meta``), so that a tile touches one or
+two windows: its first and last point's, the two clamped slots.  A point
+whose window is one of its tile's slots has its in-block corners computed
+by a kernel; corners that cross the block edge, and points outside the
+slots, ride an exact masked-gather residual.  Kernels (csrc/splat_winsort.cu):
+
+  K5 ``winsort_fwd`` - the in-block part, [N, Lw, 3] in the caller's order;
+  K6 ``winsort_bwd`` - its table gradient, atomic adds into [total, 3].
+
+``_InWinWS`` wraps both.  The JAX residual budget and ``lax.cond``
+full-gather fallback (splat_encode.py:840-865) were TPU workarounds that
+give the same values as the masked gather, and are dropped.
 """
 
 from __future__ import annotations
@@ -197,6 +211,187 @@ class _InWin(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# K5 / K6: window-sorted fine levels
+# ---------------------------------------------------------------------------
+
+def point_windows(xc: torch.Tensor, oob: torch.Tensor, spec: HashGridSpec,
+                  l: int) -> torch.Tensor:
+    """Level-local window id (int64) of each point's own block; -1 for
+    out-of-bounds points (JAX ``_point_windows``)."""
+    pg, _ = lattice(xc, spec, l)
+    win = block_window(pg.long() >> 3, spec, l)
+    return torch.where(oob, -1, win)
+
+
+def winsort_meta(xc: torch.Tensor, oob: torch.Tensor, spec: HashGridSpec,
+                 l: int):
+    """Window sort of level l: (perm [N] int64 stable sort by own-block
+    window id, oob points last; wins [N] int32 window ids in sorted order;
+    slots [T, 2] int32 each tile's first and last window, clamped to >= 0;
+    in_slot [N] bool in the input order: the point's window is one of its
+    tile's clamped slots, so the kernels take its in-block corners).
+
+    Membership is tested against the clamped slots, which the kernels match
+    on, so a slot clamped from -1 to 0 never counts a point twice."""
+    wp = point_windows(xc, oob, spec, l)
+    key = torch.where(wp < 0, 0x7FFFFFFF, wp)
+    perm = torch.argsort(key, stable=True)
+    tw = wp[perm].reshape(-1, TILE)                                 # [T, TILE]
+    slots = torch.stack([tw[:, 0], tw[:, -1]], 1).clamp(min=0)
+    hit = (tw == slots[:, :1]) | (tw == slots[:, 1:])
+    in_slot = torch.empty_like(hit.reshape(-1))
+    in_slot[perm] = hit.reshape(-1)
+    return (perm, tw.reshape(-1).to(torch.int32), slots.to(torch.int32),
+            in_slot)
+
+
+def _block_corners(x, spec, l):
+    """Own-block corner walk of a level: (local [N, 8, 3] int64 in-block
+    coords clamped to 7, in_block [N, 8] corners that do not cross the
+    block edge, w [N, 8] trilinear weights)."""
+    pg, frac = lattice(x, spec, l)
+    local = (pg.long() & 7)[:, None, :] + corner_bits(x.device)[None]
+    in_block = (local <= 7).all(dim=-1)
+    return local.clamp(max=7), in_block, corner_weights(frac)
+
+
+def _winsort_corners(x, perm, wins, slots, spec, levels):
+    """Plain corner walk of K5/K6 in the caller's point order: (row [N, Lw,
+    8] int64, w [N, Lw, 8]) with w = 0 on corners the kernels skip (their
+    row is then a valid dummy)."""
+    rows_out, w_out = [], []
+    for k, l in enumerate(levels):
+        p = perm[k].long()
+        s = slots[k].long().repeat_interleave(TILE, dim=0)          # [N, 2]
+        ws = wins[k].long()
+        hit_sorted = (ws == s[:, 0]) | (ws == s[:, 1])
+        hit = torch.empty_like(hit_sorted)
+        hit[p] = hit_sorted
+        win = torch.empty_like(ws)
+        win[p] = ws
+        local, in_block, w = _block_corners(x, spec, l)
+        row = (int(spec.offsets[l]) + win.clamp(min=0)[:, None] * 512
+               + local[..., 0] + 8 * local[..., 1] + 64 * local[..., 2])
+        rows_out.append(row)
+        w_out.append(torch.where(in_block & hit[:, None], w, 0.0))
+    return torch.stack(rows_out, 1), torch.stack(w_out, 1)
+
+
+def winsort_fwd_plain(table, x, perm, wins, slots, spec, levels):
+    """Plain version of K5: [N, Lw, 3] in-block features of slotted points."""
+    N, Lw = x.shape[0], len(levels)
+    row, w = _winsort_corners(x, perm, wins, slots, spec, levels)
+    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lw, 8, 3)
+    return (w[..., None] * vals).sum(dim=2)
+
+
+def winsort_bwd_plain(grad, x, perm, wins, slots, spec, levels, total):
+    """Plain version of K6: [total, 3] table gradient of K5."""
+    row, w = _winsort_corners(x, perm, wins, slots, spec, levels)
+    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, 3)
+    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    return dtab.index_add_(0, row.reshape(-1), contrib)
+
+
+def _check_winsort_args(x, perm, wins, slots, spec, levels, total):
+    N, Lw = x.shape[0], len(levels)
+    if total != spec.table_size:        # the kernels index rows by the spec
+        raise ValueError(f"winsort: table of {total} rows, spec has "
+                         f"{spec.table_size}")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError("winsort: x must be float32 [N, 3]")
+    if N % TILE:
+        raise ValueError(f"winsort: N={N} is not a multiple of {TILE}")
+    T = N // TILE
+    for name, t, shape in (("perm", perm, (Lw, N)), ("wins", wins, (Lw, N)),
+                           ("slots", slots, (Lw, T, 2))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"winsort: {name} must be int32 {list(shape)}")
+        if t.device != x.device:
+            raise ValueError("winsort: inputs on different devices")
+    return N, T, Lw
+
+
+def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out):
+    N, T, Lw = x.shape[0], x.shape[0] // TILE, len(levels)
+    scales = (ctypes.c_float * Lw)(*[spec.level_scale32(l) for l in levels])
+    offsets = (ctypes.c_int32 * Lw)(*[int(spec.offsets[l]) for l in levels])
+    lib = kernels.load()
+    fn = getattr(lib, f"n2m_{name}")
+    code = fn(src.data_ptr(), x.data_ptr(), perm.data_ptr(), wins.data_ptr(),
+              slots.data_ptr(), scales, offsets, float(spec.shift), N, T, Lw,
+              out.data_ptr(), kernels.current_stream_handle(x.device))
+    kernels.check(lib, f"n2m_{name}", code)
+    kernels.LAUNCHES[name] += 1
+
+
+def winsort_fwd(table, x, perm, wins, slots, spec: HashGridSpec,
+                levels: Tuple[int, ...]) -> torch.Tensor:
+    """In-block features [N, Lw, 3] of the winsort levels `levels`.
+
+    table [total, 3] f32 canonical block512; x [N, 3] f32 clipped to [0, 1]
+    (any order, N a multiple of TILE); perm, wins, slots from winsort_meta,
+    stacked over `levels` (perm and wins as int32).  A CPU tensor takes the
+    plain version; a CUDA tensor launches K5."""
+    N, T, Lw = _check_winsort_args(x, perm, wins, slots, spec, levels,
+                                   table.shape[0])
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != 3:
+        raise ValueError("winsort_fwd: table must be float32 [total, 3]")
+    if table.device != x.device:
+        raise ValueError("winsort_fwd: table and x on different devices")
+    if x.device.type == "cpu":
+        return winsort_fwd_plain(table, x, perm, wins, slots, spec, levels)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"winsort_fwd: no kernel for {x.device}")
+    table, x = table.contiguous(), x.contiguous()
+    perm, wins, slots = perm.contiguous(), wins.contiguous(), slots.contiguous()
+    out = torch.empty((N, Lw, 3), dtype=torch.float32, device=x.device)
+    _launch_winsort("winsort_fwd", table, x, perm, wins, slots, spec, levels,
+                    out)
+    return out
+
+
+def winsort_bwd(grad, x, perm, wins, slots, spec: HashGridSpec,
+                levels: Tuple[int, ...], total: int) -> torch.Tensor:
+    """Table gradient [total, 3] of winsort_fwd for output gradient grad
+    [N, Lw, 3].  A CPU tensor takes the plain version; a CUDA tensor
+    launches K6 (atomic adds into a zeroed buffer)."""
+    N, T, Lw = _check_winsort_args(x, perm, wins, slots, spec, levels, total)
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lw, 3):
+        raise ValueError(f"winsort_bwd: grad must be float32 [{N}, {Lw}, 3]")
+    if grad.device != x.device:
+        raise ValueError("winsort_bwd: grad and x on different devices")
+    if x.device.type == "cpu":
+        return winsort_bwd_plain(grad, x, perm, wins, slots, spec, levels,
+                                 total)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"winsort_bwd: no kernel for {x.device}")
+    grad, x = grad.contiguous(), x.contiguous()
+    perm, wins, slots = perm.contiguous(), wins.contiguous(), slots.contiguous()
+    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    _launch_winsort("winsort_bwd", grad, x, perm, wins, slots, spec, levels,
+                    dtab)
+    return dtab
+
+
+class _InWinWS(torch.autograd.Function):
+    """K5 forward, K6 backward; gradient flows to the table only."""
+
+    @staticmethod
+    def forward(ctx, table, x, perm, wins, slots, spec, levels):
+        ctx.save_for_backward(x, perm, wins, slots)
+        ctx.spec, ctx.levels, ctx.total = spec, levels, table.shape[0]
+        return winsort_fwd(table, x, perm, wins, slots, spec, levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, perm, wins, slots = ctx.saved_tensors
+        dtab = winsort_bwd(g.float().contiguous(), x, perm, wins, slots,
+                           ctx.spec, ctx.levels, ctx.total)
+        return dtab, None, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # corner geometry + the public op
 # ---------------------------------------------------------------------------
 
@@ -250,13 +445,16 @@ def _pick_one_corner(hsh, salt: int, w8, idx8):
 def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
                      spec: HashGridSpec,
                      gather_levels: Tuple[int, ...] = (),
-                     stochastic: bool = False):
+                     stochastic: bool = False,
+                     winsort_levels: Tuple[int, ...] = ()):
     """Hash encode of morton-sorted points with per-level routing.
 
     Levels in `gather_levels` use a plain gather (8 corners, or 1 sampled
-    corner when `stochastic`); the other levels use K2/K3 for their
-    in-window part plus a residual (exact masked gather, or 1 sampled
-    out-of-window corner when `stochastic`).  N must be a multiple of TILE.
+    corner when `stochastic`), except those also in `winsort_levels`, which
+    take K5/K6 for their in-block part plus an exact masked-gather residual;
+    the other levels use K2/K3 for their in-window part plus a residual
+    (exact masked gather, or 1 sampled out-of-window corner when
+    `stochastic`).  N must be a multiple of TILE.
 
     Returns (feat [N, L*C], resid_counts [L] int32: per level, the number of
     out-of-window corners with nonzero weight - the trainer's routing probe;
@@ -270,8 +468,11 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
         raise ValueError(f"splat_encode_raw: N={N} not a multiple of {TILE}")
     L, C = spec.num_levels, spec.level_dim
     T = N // TILE
-    gather_levels = tuple(l for l in gather_levels if 0 <= l < L)
-    k_levels = tuple(l for l in range(L) if l not in gather_levels)
+    winsort_levels = tuple(l for l in winsort_levels if l in gather_levels)
+    gather_levels = tuple(l for l in gather_levels
+                          if 0 <= l < L and l not in winsort_levels)
+    k_levels = tuple(l for l in range(L)
+                     if l not in gather_levels and l not in winsort_levels)
 
     xc = x01.float().clamp(0.0, 1.0).contiguous()
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
@@ -306,6 +507,27 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
         for i, l in enumerate(gl):
             by_level[l] = contrib[:, i]
 
+    if winsort_levels:
+        wl = list(winsort_levels)
+        metas_ws = [winsort_meta(xc, oob, spec, l) for l in wl]
+        perm = torch.stack([m[0] for m in metas_ws]).to(torch.int32)
+        wins = torch.stack([m[1] for m in metas_ws])
+        slots = torch.stack([m[2] for m in metas_ws])
+        kf = _InWinWS.apply(table, xc, perm, wins, slots, spec,
+                            winsort_levels)                         # [N, Lw, 3]
+        # residual: corners that cross the own block's edge, and every
+        # corner of a point outside its tile's slots
+        w_res = []
+        for i, l in enumerate(wl):
+            _, in_block, _ = _block_corners(xc, spec, l)
+            keep = in_block & metas_ws[i][3][:, None]
+            w_res.append(torch.where(keep, 0.0, w_all[:, l]))
+        idx_w = torch.stack([idx[:, l] for l in wl], 1)             # [N, Lw, 8]
+        vals = gather_rows(table, idx_w.reshape(-1)).reshape(N, len(wl), 8, C)
+        kf = kf + (torch.stack(w_res, 1)[..., None] * vals).sum(dim=2)
+        for i, l in enumerate(wl):
+            by_level[l] = kf[:, i]
+
     if k_levels:
         kl = list(k_levels)
         bases = torch.stack([metas[l][0] for l in kl]).contiguous()
@@ -334,7 +556,8 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
 
 def splat_encode(table, x01, spec: HashGridSpec, sort: bool = True,
                  gather_levels: Tuple[int, ...] = (),
-                 stochastic: bool = False):
+                 stochastic: bool = False,
+                 winsort_levels: Tuple[int, ...] = ()):
     """Drop-in replacement for hashgrid_encode on block512 specs: pads N to a
     TILE multiple (with out-of-bounds points) and, unless sort=False, morton
     sorts and unsorts around splat_encode_raw.  Returns (feat [N, L*C],
@@ -345,7 +568,8 @@ def splat_encode(table, x01, spec: HashGridSpec, sort: bool = True,
     if sort:
         perm, inv = morton_perm(xp)
         xp = permute(xp, perm, inv)
-    feat, cnt = splat_encode_raw(table, xp, spec, gather_levels, stochastic)
+    feat, cnt = splat_encode_raw(table, xp, spec, gather_levels, stochastic,
+                                 winsort_levels)
     if sort:
         feat = permute(feat, inv, perm)
     return feat[:N0], cnt

@@ -4,7 +4,9 @@ The JAX params are a nested dict/list pytree (nerf2mesh_tpu/models/
 network.py init_network): ``{"table": [total, 3], "sigma_net": [{"w":
 [in, out]}, ...], ...}``.  The port's ``NeRFField`` names the same arrays
 ``table`` and ``sigma_net.0.w``: the flattened pytree path.  Layouts are
-identical, so conversion is a rename and a copy.
+identical, so conversion is a rename and a copy.  The occupancy state
+(the JAX ``RenderState``) carries over the same way
+(``render_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..models.renderer import RenderState
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -70,3 +74,16 @@ def load_params(module: torch.nn.Module, named: Dict[str, torch.Tensor]) -> None
                 raise ValueError(f"{k}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
             p.copy_(src.to(p.device, p.dtype))
+
+
+def render_state_from_jax(density_grid, occ_grid, mean_density, iter_density,
+                          device=None) -> RenderState:
+    """The JAX ``RenderState`` arrays (nerf2mesh_tpu/models/renderer.py:
+    61-66; anything np.asarray takes) -> the port's RenderState: density
+    grid [CAS, H, H, H] f32, uint8 occupancy of the same shape, scalar mean
+    density, and the update count."""
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return RenderState(t(density_grid, torch.float32),
+                       t(occ_grid, torch.uint8),
+                       t(mean_density, torch.float32), int(iter_density))

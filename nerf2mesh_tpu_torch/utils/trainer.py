@@ -12,15 +12,23 @@ Randomness comes from ``torch.Generator``s on the training device seeded
 from ``cfg.seed``; ``train_step`` also accepts explicit draws (image and
 pixel ids, background, sampler noise) so tests can feed the JAX package's.
 
-Not ported yet (NotImplementedError, ROADMAP queue A): eval render and
-validation, checkpoints, mesh export, stage 1, SDF, cascades/contraction,
+``render_image`` renders a whole frame from the EMA weights with the
+early-exit segment march (``fused``: the alive-ray queue on the device;
+otherwise a host loop over rounds), and ``evaluate`` scores a dataset's
+frames with PSNR; ``train`` runs it every ``iters // n_eval`` steps when
+given a validation set.
+
+Not ported yet (NotImplementedError, ROADMAP queue A): checkpoints (and so
+the best-checkpoint save), mesh export, stage 1, SDF, cascades/contraction,
 depth supervision, patches, per-image codes, the entropy/sharpen phase,
 the trainable density grid and multi-device training.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -31,20 +39,24 @@ from ..config import Config
 from ..data.provider import Dataset
 from ..data.rays import get_rays
 from ..models.network import NeRFField, NetworkSpec
-from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec,
+from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
                                init_render_state, mark_untrained_grid,
+                               render_eval_segment, render_frame_queue,
                                render_train, update_density_grid)
 from ..ops.hashgrid import hashgrid_tv_loss
 from .losses import CRITERIA
+from .metrics import PSNRMeter
 
 
 def lr_schedule(cfg: Config):
     """Warmup 500 steps then exp decay to 0.1x (reference main.py:239);
     evaluated at the step count before the update, as optax does."""
     def fn(it: int) -> float:
-        warm = 0.01 + 0.99 * (it / 500.0)
-        decay = 0.1 ** ((it - 500.0) / max(cfg.iters - 500.0, 1.0))
-        return cfg.lr * (warm if it <= 500 else decay)
+        if it <= 500:
+            return cfg.lr * (0.01 + 0.99 * (it / 500.0))
+        # evaluated past the warmup only: with iters < 500 the exponent at
+        # a warmup step overflows a Python float
+        return cfg.lr * 0.1 ** ((it - 500.0) / max(cfg.iters - 500.0, 1.0))
     return fn
 
 
@@ -80,7 +92,6 @@ def check_supported(cfg: Config) -> None:
         "enable_cam_near_far": (cfg.enable_cam_near_far, "A11"),
         "trainable_density_grid": (cfg.trainable_density_grid, "A4"),
         "stage 1": (cfg.stage != 0, "A8"),
-        "winsort_fine": (cfg.winsort_fine, "queue B (K5/K6)"),
     }
     for name, (on, item) in unsupported.items():
         if on:
@@ -111,8 +122,10 @@ class Trainer:
         self.params = NeRFField(self.net_spec, init_gen).to(self.device)
         self.optimizer, self.lr_scheduler = make_optimizer(
             cfg, self.params.parameters())
-        self.ema_params = {k: p.detach().clone()
-                           for k, p in self.params.named_parameters()}
+        # the EMA weights live in a second field (eval renders from it);
+        # ema_params names its tensors
+        self.ema_field = copy.deepcopy(self.params).requires_grad_(False)
+        self.ema_params = dict(self.ema_field.named_parameters())
         self.ema_count = 0
         self.render = init_render_state(self.render_spec, self.device)
         self.step = 0
@@ -121,17 +134,22 @@ class Trainer:
             cfg.seed ^ 0x5EED)
         self.num_rays = cfg.num_rays
         # splat-encoder routing: fine levels (resolution > 128) start on the
-        # gather path; the residual-rate probe moves them as occupancy settles
+        # gather path; the residual-rate probe moves them as occupancy
+        # settles.  With winsort_fine the gather levels take the exact
+        # window-sorted kernels wherever the encode is not stochastic.
         gspec = self.net_spec.density_grid_spec
         default_gather = tuple(l for l in range(gspec.num_levels)
                                if gspec.resolutions[l] > 128)
         self.net_spec = dataclasses.replace(
-            self.net_spec, encode_gather_levels=default_gather)
+            self.net_spec, encode_gather_levels=default_gather,
+            encode_winsort_levels=default_gather if cfg.winsort_fine else ())
         self.pool_size = (int(-(-cfg.num_points // 128) * 128)
                           if cfg.pool_points else None)
         self._aabb = np.array([-cfg.bound] * 3 + [cfg.bound] * 3, np.float32)
         self._aabb_t = torch.from_numpy(self._aabb).to(self.device)
         self._train_arrays_for = None
+        self.metrics = [PSNRMeter()]
+        self.stats: Dict[str, object] = {"results": [], "best": None}
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -304,9 +322,12 @@ class Trainer:
             elif l not in cur and r > 0.35:
                 new.add(l)
         if new != cur:
+            gl = tuple(sorted(new))
             self.net_spec = dataclasses.replace(
-                self.net_spec, encode_gather_levels=tuple(sorted(new)))
-            self.log(f"[INFO] encode routing -> gather levels {sorted(new)} "
+                self.net_spec, encode_gather_levels=gl,
+                encode_winsort_levels=gl if self.cfg.winsort_fine else ())
+            self.log(f"[INFO] encode routing -> gather levels {sorted(new)}"
+                     f"{' (winsort)' if self.cfg.winsort_fine else ''} "
                      f"(resid rates {[round(float(r), 2) for r in rates]})")
 
     def _bucket(self, n: int, lo: int = 1024, hi: int = 32768) -> int:
@@ -365,16 +386,15 @@ class Trainer:
 
     def train(self, dataset: Dataset, valid_dataset: Optional[Dataset] = None,
               max_steps: Optional[int] = None):
-        """Train until step max_steps (default cfg.iters), logging ~10 times."""
-        if valid_dataset is not None:
-            raise NotImplementedError(
-                "validation needs the eval render, not ported yet (ROADMAP A6)")
+        """Train until step max_steps (default cfg.iters), logging ~10 times
+        and, given valid_dataset, evaluating every steps // n_eval steps."""
         cfg = self.cfg
         steps = max_steps if max_steps is not None else cfg.iters
         if cfg.mark_untrained:
             self.mark_untrained(dataset)
         images, poses, intrinsics = self._prep_train_arrays(dataset)
         log_interval = max(1, steps // 10)
+        eval_interval = max(1, steps // max(cfg.n_eval, 1))
         t0 = time.time()
         last = None
         while self.step < steps:
@@ -385,6 +405,144 @@ class Trainer:
                          f"psnr={float(last['psnr']):.2f} "
                          f"points={int(last['num_points'])} rays={nr} "
                          f"{time.time() - t0:.1f}s")
+            if valid_dataset is not None and self.step % eval_interval == 0:
+                self.evaluate(valid_dataset, name=f"step{self.step}")
         self.log(f"[INFO] training done: {steps} steps, "
                  f"{time.time() - t0:.1f}s")
         return last
+
+    # -------------------------------------------------------------- eval
+    @torch.no_grad()
+    def render_image(self, pose: np.ndarray, intrinsics, H: int, W: int,
+                     use_ema: bool = True, chunk: int = 8192,
+                     shading: str = "full", bg_color: float = 1.0,
+                     seg_samples: int = 32, stochastic: bool = False,
+                     fused: bool = True) -> Dict[str, np.ndarray]:
+        """Full-frame render by the early-exit segment march; returns host
+        image [H, W, 3] (background composited), depth and weights_sum
+        [H, W], and the number of march rounds.
+
+        Each round marches `seg_samples` samples per still-alive ray at a
+        fixed per-ray spacing (the occupied length over max(num_fine, 128)
+        samples), then drops finished rays (T below threshold or march
+        exhausted).  fused=True keeps the alive-ray queue on the device
+        (render_frame_queue, `chunk` rays a round); fused=False is the host
+        loop over rounds, all alive rays a round in `chunk`-ray pieces.
+        stochastic=True takes the 1-corner encode estimate of training (the
+        viewer's preview); metric evals keep it off."""
+        params = self.ema_field if use_ema else self.params
+        rspec = self.render_spec
+        nspec = self.net_spec
+        if stochastic:
+            nspec = dataclasses.replace(nspec, encode_stochastic=True)
+        fx, fy, cx, cy = (float(v) for v in np.asarray(intrinsics))
+        pose_t = torch.from_numpy(np.asarray(pose, np.float32)[None]).to(
+            self.device)
+        rays = get_rays(pose_t, (fx, fy, cx, cy), H, W)
+        rays_o, rays_d = rays["rays_o"].contiguous(), rays["rays_d"]
+        eval_fine = max(rspec.num_fine, 128)   # dense-equivalent sample count
+        seg_spec = dataclasses.replace(rspec, num_fine=seg_samples)
+        occ = self.render.occ_grid
+
+        if fused:
+            out = render_frame_queue(
+                params, occ, rays_o, rays_d, self._aabb_t, seg_spec, nspec,
+                chunk=chunk, shading=shading, eval_fine=eval_fine)
+            image, depth, T = (out["image"], out["depth"],
+                               1.0 - out["weights_sum"])
+            rounds = out["iters"]
+        else:
+            n = H * W
+            nears, fars, olen, spacing = eval_spacing(
+                rays_o, rays_d, occ, self._aabb_t, rspec, eval_fine)
+            image = torch.zeros((n, 3), device=self.device)
+            depth = torch.zeros((n,), device=self.device)
+            T = torch.ones((n,), device=self.device)
+            tcur = nears.clone()
+            alive = olen > 0
+            rounds = 0
+            for _ in range(max(8, 2 * rspec.max_steps // max(seg_samples, 1))):
+                idx = torch.nonzero(alive)[:, 0]
+                if idx.numel() == 0:
+                    break
+                segs = [render_eval_segment(
+                    params, occ, rays_o[sub], rays_d[sub], tcur[sub],
+                    fars[sub], spacing[sub], seg_spec, nspec, shading=shading)
+                    for sub in torch.split(idx, chunk)]
+                seg = {k: torch.cat([s_[k] for s_ in segs]) for k in segs[0]}
+                image[idx] += T[idx, None] * seg["image"]
+                depth[idx] += T[idx] * seg["depth"]
+                T[idx] *= 1.0 - seg["weights_sum"]
+                tcur[idx] = seg["t_exit"]
+                alive[idx] = (T[idx] > rspec.T_thresh) & (tcur[idx] <= fars[idx])
+                rounds += 1
+
+        image = image + T[:, None] * bg_color
+        return {
+            "image": image.reshape(H, W, 3).cpu().numpy(),
+            "depth": depth.reshape(H, W).cpu().numpy(),
+            "weights_sum": (1.0 - T).reshape(H, W).cpu().numpy(),
+            "rounds": rounds,
+        }
+
+    def evaluate(self, dataset: Dataset, name: str = "eval",
+                 write_images: bool = False,
+                 max_frames: Optional[int] = None,
+                 stage1: Optional[bool] = None,
+                 track_best: bool = True) -> Dict[str, float]:
+        """Render the dataset's frames and score them (PSNR); returns
+        {metric: value}.  track_best records the best first metric in
+        stats["best"] (saving that checkpoint waits for ROADMAP A7);
+        stats["eval_rounds"] holds each frame's march rounds."""
+        if stage1 is None:
+            stage1 = self.cfg.stage > 0
+        if stage1:
+            raise NotImplementedError(
+                "the stage-1 eval render is not ported yet (ROADMAP A8)")
+        for m in self.metrics:
+            m.clear()
+        self.stats["eval_rounds"] = []
+        B = dataset.num_frames if max_frames is None else min(
+            max_frames, dataset.num_frames)
+        for i in range(B):
+            out = self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
+                                    dataset.H, dataset.W)
+            self.stats["eval_rounds"].append(out["rounds"])
+            pred = out["image"]
+            if dataset.images is not None:
+                gt = dataset.images[i].astype(np.float32) / 255.0
+                if gt.shape[-1] == 4:
+                    gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
+                for m in self.metrics:
+                    m.update(pred, gt)
+            if write_images:
+                self._write_eval_images(name, i, out, pred,
+                                        gt if dataset.images is not None
+                                        else None)
+        results = {m.name: m.measure() for m in self.metrics if m.N > 0}
+        self.log(f"[eval {name}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in results.items()))
+        self.stats["results"].append(results)
+        if results and track_best:
+            first = list(results.values())[0]
+            if self.stats["best"] is None or first > self.stats["best"]:
+                self.stats["best"] = first
+                self.log(f"[INFO] new best eval ({first:.4f})")
+        return results
+
+    def _write_eval_images(self, name, i, out, pred, gt) -> None:
+        """rgb, normalised depth and 4x |error| PNGs under
+        <workspace>/validation (reference utils.py:1293-1317)."""
+        from PIL import Image
+        vdir = os.path.join(self.cfg.workspace, "validation")
+        os.makedirs(vdir, exist_ok=True)
+        Image.fromarray((np.clip(pred, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(vdir, f"{name}_{i:04d}_rgb.png"))
+        d = out["depth"]
+        dn = (d - d.min()) / max(float(d.max() - d.min()), 1e-9)
+        Image.fromarray((dn * 255).astype(np.uint8)).save(
+            os.path.join(vdir, f"{name}_{i:04d}_depth.png"))
+        if gt is not None:
+            err = np.abs(pred - gt).mean(-1)
+            Image.fromarray((np.clip(err * 4, 0, 1) * 255).astype(np.uint8)
+                            ).save(os.path.join(vdir, f"{name}_{i:04d}_error.png"))

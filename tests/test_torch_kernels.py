@@ -6,8 +6,8 @@ repository's conftest (which imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Tolerances: K1 exact; K2 atol 1e-5; K3 atol 1e-5 with rtol 1e-4 of each
-row's summed |contribution| (the atomics add in another order).
+Tolerances: K1 exact; K2 and K5 atol 1e-5; K3 and K6 atol 1e-5 with rtol
+1e-4 of each row's summed |contribution| (the atomics add in another order).
 """
 
 import numpy as np
@@ -122,6 +122,68 @@ def test_inwin_autograd_and_encode_on_card(dev):
                                  stochastic=True)
     torch.testing.assert_close(fs.cpu(), fc, atol=1e-5, rtol=0)
     assert torch.equal(cs.cpu(), cc) and torch.equal(cnt.cpu(), cc)
+
+
+WS_LEVELS = (3, 4, 5)          # the hashed levels of SPEC
+
+
+def _ws_inputs(dev, n=2048, seed=0):
+    """Uniform points plus 256 inside one level-5 block (a tile of the
+    window-sorted order whose two clamped slots are equal) and 40 out of
+    bounds (they sort last: the last tile ends with them, its last slot
+    clamps from -1 to 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, 3))
+    s5 = SPEC.level_scale32(5)
+    x[:256] = (8 * np.array([5, 6, 7]) + rng.uniform(0.01, 7.99, (256, 3))
+               - SPEC.shift) / s5
+    x[-40:, 0] = 1.5
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    xc = x.clamp(0, 1).contiguous()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    metas = [se.winsort_meta(xc, oob, SPEC, l) for l in WS_LEVELS]
+    perm = torch.stack([m[0] for m in metas]).to(torch.int32).contiguous()
+    wins = torch.stack([m[1] for m in metas]).contiguous()
+    slots = torch.stack([m[2] for m in metas]).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    table = (torch.rand((SPEC.table_size, 3), generator=g) * 2 - 1).to(dev)
+    return table, x, xc, perm, wins, slots
+
+
+def test_winsort_kernels_match_plain(dev):
+    table, _, xc, perm, wins, slots = _ws_inputs(dev)
+    assert bool((slots[2, :, 0] == slots[2, :, 1]).any())   # equal slots
+    assert int(wins[0, -1]) == -1 and int(slots[0, -1, 1]) == 0
+    before = dict(kernels.LAUNCHES)
+    out = se.winsort_fwd(table, xc, perm, wins, slots, SPEC, WS_LEVELS)
+    ref = se.winsort_fwd_plain(table, xc, perm, wins, slots, SPEC, WS_LEVELS)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float(ref.abs().max()) > 0.1
+    gr = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (xc, perm, wins, slots, SPEC, WS_LEVELS, SPEC.table_size)
+    dk = se.winsort_bwd(gr, *args)
+    dp = se.winsort_bwd_plain(gr, *args)
+    mag = se.winsort_bwd_plain(gr.abs(), *args)
+    assert bool(((dk - dp).abs() <= 1e-5 + 1e-4 * mag).all())
+    torch.testing.assert_close(se.winsort_bwd(gr.abs(), *args), mag,
+                               atol=1e-5, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["winsort_fwd"] == before["winsort_fwd"] + 1
+    assert kernels.LAUNCHES["winsort_bwd"] == before["winsort_bwd"] + 2
+
+
+def test_winsort_autograd_and_encode_on_card(dev):
+    table, x, _, _, _, _ = _ws_inputs(dev, seed=3)
+    t = table.clone().requires_grad_()
+    feat, _ = se.splat_encode_raw(t, x, SPEC, gather_levels=WS_LEVELS,
+                                  winsort_levels=WS_LEVELS)
+    feat.square().sum().backward()
+    t_ref = table.clone().requires_grad_()
+    ref = hashgrid_encode(t_ref, x, SPEC)
+    ref.square().sum().backward()
+    torch.testing.assert_close(feat, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(t.grad, t_ref.grad, atol=1e-4, rtol=1e-4)
+    assert not feat[-40:].any()
 
 
 def test_wrappers_reject_bad_inputs(dev):

@@ -45,6 +45,17 @@ REPO = Path(__file__).resolve().parent.parent
 SCENE = dict(H=32, W=32, n_train=6, n_val=0, n_test=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    worker processes side by side, and torch's default of a thread per core
+    in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny(cls, root="", **kw):
     base = dict(bound=1.0, scale=0.8, dt_gamma=0.0, num_rays=256,
                 num_points=4096, grid_size=32, num_levels=6,
@@ -184,8 +195,8 @@ def test_unported_options_raise():
             ttr.Trainer(tiny(TConfig, **kw), device="cpu")
     cfg = tiny(TConfig)
     ds = dataset_from_frames(cfg, render_synthetic_frames(**SCENE))
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(cfg, device="cpu").train(ds, ds, max_steps=1)
+    with pytest.raises(NotImplementedError):       # the stage-1 eval (A8)
+        ttr.Trainer(cfg, device="cpu").evaluate(ds, stage1=True)
 
 
 def test_port_imports_no_jax_source():
@@ -212,12 +223,13 @@ from nerf2mesh_tpu_torch.utils.trainer import Trainer
 cfg = dataclasses.replace(Config(), **{dict(bound=1.0, scale=0.8,
     num_rays=128, num_points=2048, grid_size=16, num_levels=4,
     log2_hashmap_size=12, mark_untrained=True)!r}).finalize()
-ds = dataset_from_frames(cfg, render_synthetic_frames(H=16, W=16, n_train=2,
-                                                      n_val=0, n_test=0))
+frames = render_synthetic_frames(H=16, W=16, n_train=2, n_val=1, n_test=0)
+ds = dataset_from_frames(cfg, frames)
 t = Trainer(cfg, device="cpu")
 t.mark_untrained(ds)
 m = t.train_steps(ds, 1)
 assert torch.isfinite(m["loss"])
+assert "PSNR" in t.evaluate(dataset_from_frames(cfg, frames, "val"))
 mods = [k for k in sys.modules if k.split(".")[0] in ("nerf2mesh_tpu", "jaxlib")]
 assert not mods, mods
 print("ok")
