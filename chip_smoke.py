@@ -10,11 +10,17 @@ Phases, in order; any failure exits non-zero:
      plus K2 + the residual against the plain hashgrid_encode; K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
-     plus K5 + its residual against hashgrid_encode; times from CUDA events
-     (median of 20);
+     plus K5 + its residual against hashgrid_encode; K4 sweep_fwd against
+     its plain version on 2^18 points at the ref slice's table (uniform,
+     out-of-bounds, on-edge and 1-ulp-from-edge points), and the ref path's
+     plain table gradient timed; times from CUDA events (the mean of 20
+     back-to-back runs), each beside its bound (bytes over 3.35 TB/s or
+     fp32 flops over 67 TFLOP/s, whichever is larger);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
      256x256 x 24-view sphere scene; every loss finite, the loss falls, and
-     K1-K3's launch counters are above 0 for the training run alone;
+     K1-K3's launch counters are above 0 for the training run alone; after
+     phase 5, 8 more steps and one eval frame under torch.profiler (device
+     busy time, idle share, kernels, top ops);
   5. eval: Trainer.evaluate on 4 val views at 256x256 before and after the
      phase-4 training; the PSNR after is finite and above the PSNR before,
      and K1 and K2 launch during each eval alone; ms per frame and march
@@ -23,11 +29,21 @@ Phases, in order; any failure exits non-zero:
      winsort_fine=True, stochastic_fine=False trains 64 steps (losses finite
      and falling, K5 and K6 launched by the training alone), then evaluates
      the val views (K5 launched by the eval alone); ms/step, rays/s,
-     ms/frame and PSNR.
+     ms/frame and PSNR;
+  7. cli: the ref small-table slice through nerf2mesh_tpu_torch.main on a
+     256x256 blender scene written to a temporary directory (24 train, 4
+     val, 2 test views): 128 steps at bench.py's flags with --grid_layout
+     ref --log2_hashmap_size 14, an eval and a checkpoint at step 128, the
+     final val and test evals (PSNR, SSIM, LPIPS proxy) and the test video;
+     every logged loss finite and falling, K1 and K4 launched by the
+     training, the block512 kernels never; then main --test reloads the
+     checkpoint, and a fresh Trainer loaded from it reproduces the step-128
+     val PSNR within 1e-4 dB.  ms/step, rays/s, eval ms/frame, peak memory;
+     8 more steps and one eval frame of the loaded trainer profiled.
 The line before the last is the kernels' JSON record (launch counts from
-each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6),
-the last line the device record.  Imports only the port, torch, numpy and
-the standard library.
+each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
+phase 7's CLI run for K4), the last line the device record.  Imports only
+the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -36,8 +52,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,9 +68,36 @@ WINSORT_STEPS = 64         # phase 6 (exact encode: K5/K6 in every step)
 N_VAL = 4                  # eval views (phases 5 and 6)
 WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
+CLI_STEPS = 128            # phase 7
+PROFILE_STEPS = 8          # profiled steps after phases 4 and 7
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
-       "winsort_bwd": (1e-5, 1e-4), "encode": (1e-5, 1e-5)}
+       "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
+       "encode": (1e-5, 1e-5)}
+# the H100 SXM's published peaks (device memory; fp32 outside the tensor
+# cores) for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def trilinear_flops(n_point_levels: int, channels: int = 3) -> int:
+    """fp32 operations of a trilinear encode (or its gradient) over n
+    (point, level) pairs, all 8 corners: the lattice position, fraction and
+    1 - fraction (12), each corner's weight (2) and its channels' multiply
+    and add (2C).  Integer index arithmetic is not counted."""
+    return n_point_levels * (12 + 8 * (2 + 2 * channels))
+
+
+def bound(nbytes: int, flops: int):
+    """(least ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the fp32 operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def level_rows(spec, levels) -> int:
+    return sum(int(spec.offsets[l + 1] - spec.offsets[l]) for l in levels)
 
 
 def log(msg: str) -> None:
@@ -60,19 +105,55 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Median over `reps` runs of fn's device time, from CUDA events."""
+    """Mean device time of fn over `reps` back-to-back runs between two CUDA
+    events, after a warm-up run: the host enqueues ahead of the card, so a
+    wrapper's own Python time shows only where it exceeds its kernel's."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profile_region(fn, label: str, per: int = 1, top: int = 6):
+    """Run fn once under torch.profiler and log the wall time, the device
+    busy time (the sum of the kernels' durations on the one stream), the
+    device's idle share, the kernel count and the ops with the most device
+    time (host ops, by the device time of their own kernels), each divided
+    by `per` (steps or frames); says so when the profiler records no
+    device time or is refused."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as e:
+        log(f"[profile] {label}: profiler refused ({e})")
+        return
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    if not kern or busy <= 0:
+        log(f"[profile] {label}: the profiler saw no device time")
+        return
+    ops = sorted(((getattr(a, "self_device_time_total", 0.0), a.key[:48])
+                  for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU), reverse=True)[:top]
+    log(f"[profile] {label}: wall {wall / per:.2f} ms, device busy "
+        f"{busy / per:.2f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{len(kern) / per:.0f} kernels, per {'step' if per > 1 else 'run'}"
+        f" (profiled); top device time: " + "; ".join(
+            f"{k} {t / 1e3 / per:.3f} ms ({t / 1e3 / busy:.1%})"
+            for t, k in ops))
 
 
 def phase_device():
@@ -170,7 +251,8 @@ def phase_kernels(dev):
         replaces="nerf2mesh_tpu/ops/occ_sweep.py:51",
         max_abs_err=0.0,
         ms=cuda_time_ms(lambda: occ_sweep.occ_lookup(words, idx)),
-        plain_ms=cuda_time_ms(lambda: occ_sweep.occ_lookup_plain(words, idx))))
+        plain_ms=cuda_time_ms(lambda: occ_sweep.occ_lookup_plain(words, idx)),
+        bound=bound(words.numel() * 4 + 2 * idx.numel() * 4, 0)))
 
     # K2/K3: the full merged table, 2^18 points, kernel levels 0-8 (the
     # trainer starts with 0-6 and its probe can move finer levels over; 8 is
@@ -235,23 +317,36 @@ def phase_kernels(dev):
     if not torch.allclose(feat, ref, atol=atol, rtol=rtol):
         raise AssertionError(f"K2 + residual != hashgrid_encode: {err_enc}")
 
+    # bytes: each input read once (the table rows of the kernel's levels),
+    # each output written once; the backward writes the whole [total, 3]
+    # gradient its wrapper zeroes
+    Lk = len(levels)
+    meta = bases.numel() * 4 + rows.numel() * 4 + x.numel() * 4
     results.append(dict(
         name="inwin_fwd", route="cuda",
         source="nerf2mesh_tpu_torch/csrc/splat_inwin.cu",
         replaces="nerf2mesh_tpu/ops/splat_encode.py:234", max_abs_err=err2,
         ms=cuda_time_ms(lambda: se.inwin_fwd(table, x, bases, rows, spec, levels)),
         plain_ms=cuda_time_ms(
-            lambda: se.inwin_fwd_plain(table, x, bases, rows, spec, levels))))
+            lambda: se.inwin_fwd_plain(table, x, bases, rows, spec, levels)),
+        bound=bound(level_rows(spec, levels) * 12 + meta + N * Lk * 12,
+                    trilinear_flops(N * Lk))))
     results.append(dict(
         name="inwin_bwd", route="cuda",
         source="nerf2mesh_tpu_torch/csrc/splat_inwin.cu",
         replaces="nerf2mesh_tpu/ops/splat_encode.py:263", max_abs_err=err3,
         ms=cuda_time_ms(lambda: se.inwin_bwd(g, *bargs)),
-        plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs))))
+        plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs)),
+        bound=bound(N * Lk * 12 + meta + spec.table_size * 12,
+                    trilinear_flops(N * Lk))))
     results += winsort_kernels(dev, spec, table, rng)
+    results += sweep_kernel(dev, rng)
     for r in results:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        r["library_ms"] = None      # no one PyTorch call computes these
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
     return results
 
 
@@ -318,19 +413,100 @@ def winsort_kernels(dev, spec, table, rng):
         raise AssertionError(f"K5 + residual != hashgrid_encode: {err_enc}")
 
     fwd = (table, xc, perm, wins, slots, spec, wl)
+    Lw = len(wl)
+    meta = (perm.numel() + wins.numel() + slots.numel()) * 4 + xc.numel() * 4
     return [
         dict(name="winsort_fwd", route="cuda",
              source="nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
              replaces="nerf2mesh_tpu/ops/splat_encode.py:365",
              max_abs_err=err5,
              ms=cuda_time_ms(lambda: se.winsort_fwd(*fwd)),
-             plain_ms=cuda_time_ms(lambda: se.winsort_fwd_plain(*fwd))),
+             plain_ms=cuda_time_ms(lambda: se.winsort_fwd_plain(*fwd)),
+             bound=bound(level_rows(spec, wl) * 12 + meta + N * Lw * 12,
+                         trilinear_flops(N * Lw))),
         dict(name="winsort_bwd", route="cuda",
              source="nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
              replaces="nerf2mesh_tpu/ops/splat_encode.py:397",
              max_abs_err=err6,
              ms=cuda_time_ms(lambda: se.winsort_bwd(g, *args)),
-             plain_ms=cuda_time_ms(lambda: se.winsort_bwd_plain(g, *args)))]
+             plain_ms=cuda_time_ms(lambda: se.winsort_bwd_plain(g, *args)),
+             bound=bound(N * Lw * 12 + meta + spec.table_size * 12,
+                         trilinear_flops(N * Lw)))]
+
+
+def ref_spec():
+    """The ref slice's table: 16 levels at resolutions 16..2048, levels 0-1
+    dense, 2-15 hashed at 2^14 rows (bench_config(grid_layout="ref",
+    log2_hashmap_size=14))."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec
+    return HashGridSpec(num_levels=16, level_dim=3, log2_hashmap_size=14,
+                        desired_resolution=2048, layout="ref")
+
+
+def sweep_kernel(dev, rng):
+    """K4 on 2^18 points at the ref slice's table: uniform points, lattice
+    edges (exact and 1 ulp off) at every level, coordinates 0 and 1, the
+    1-ulp denormal below 0, 1 ulp above 1 and far outside; K4 at 40 levels
+    and on a tiled grid (whose dense levels wrap) on 4096 of those points;
+    and the ref path's plain table gradient (sweep_bwd; no kernel), timed."""
+    from nerf2mesh_tpu_torch.ops import pallas_encode as pe
+    from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec
+    spec = ref_spec()
+    if not pe.sweep_supported(spec) or spec.table_size != 248120:
+        raise AssertionError(f"ref slice spec: {spec}")
+    N, L = KERNEL_POINTS, spec.num_levels
+    pts = rng.uniform(0, 1, (N, 3))
+    k = 0
+    for l in range(L):
+        s = np.float32(spec.level_scale32(l))
+        for _ in range(64):
+            v = np.float32((rng.integers(1, int(s)) - np.float32(spec.shift)) / s)
+            if rng.random() < 0.6:
+                v = np.nextafter(v, np.float32(rng.choice([-1, 2])))
+            pts[k, rng.integers(3)] = v
+            k += 1
+    tail = pts[N - 64:]
+    tail[:8, 0], tail[8:16, 1] = 0.0, 1.0
+    tail[16:24, 2] = np.nextafter(np.float32(0), np.float32(-1))
+    tail[24:32, 0] = np.nextafter(np.float32(1), np.float32(2))
+    tail[32:40, 1], tail[40:48, 2], tail[48:56] = 1.5, -0.2, 2.0
+    x = torch.from_numpy(pts[rng.permutation(N)].astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.uniform(-1, 1, (spec.table_size, 3))
+                             .astype(np.float32)).to(dev)
+    out_k = pe.sweep_fwd(table, x, spec)
+    out_p = pe.sweep_fwd_plain(table, x, spec)
+    err4 = float((out_k - out_p).abs().max())
+    oob = ((x < 0) | (x > 1)).any(-1)
+    log(f"[kernels] K4 max|err| {err4:.3e} over {N} points "
+        f"({int(oob.sum())} out of bounds, all zero: "
+        f"{not bool(out_k[oob].any())})")
+    if not err4 <= TOL["sweep_fwd"][0] or bool(out_k[oob].any()):
+        raise AssertionError(f"K4 sweep_fwd disagrees: {err4}")
+    for var in (dict(num_levels=40, log2_hashmap_size=14),
+                dict(num_levels=6, log2_hashmap_size=12, gridtype="tiled")):
+        vspec = HashGridSpec(**{**dict(level_dim=3, desired_resolution=2048,
+                                       layout="ref"), **var})
+        vt = torch.from_numpy(rng.uniform(-1, 1, (vspec.table_size, 3))
+                              .astype(np.float32)).to(dev)
+        verr = float((pe.sweep_fwd(vt, x[:4096], vspec)
+                      - pe.sweep_fwd_plain(vt, x[:4096], vspec)).abs().max())
+        log(f"[kernels] K4 at {var}: max|err| {verr:.3e}")
+        if not verr <= TOL["sweep_fwd"][0]:
+            raise AssertionError(f"K4 sweep_fwd disagrees at {var}: {verr}")
+    g = torch.from_numpy(rng.normal(size=(N, L * 3)).astype(np.float32)).to(dev)
+    bwd_ms = cuda_time_ms(lambda: pe.sweep_bwd(table, x, g, spec,
+                                               need_dx=False))
+    log(f"[kernels] ref table gradient (plain sweep_bwd, no kernel): "
+        f"{bwd_ms:.4f} ms at {N} points")
+    return [dict(name="sweep_fwd", route="cuda",
+                 source="nerf2mesh_tpu_torch/csrc/sweep_encode.cu",
+                 replaces="nerf2mesh_tpu/ops/pallas_encode.py:68",
+                 max_abs_err=err4,
+                 ms=cuda_time_ms(lambda: pe.sweep_fwd(table, x, spec)),
+                 plain_ms=cuda_time_ms(lambda: pe.sweep_fwd_plain(table, x,
+                                                                  spec)),
+                 bound=bound(N * 12 + spec.table_size * 12 + N * L * 12,
+                             trilinear_flops(N * L)))]
 
 
 # --------------------------------------------------------------------------
@@ -400,7 +576,7 @@ def run_eval(trainer, val, name, must_launch):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = trainer.evaluate(val, name=name)
+    res = trainer.evaluate(val, name=name, track_best=False)
     ms_frame = (time.perf_counter() - t0) / val.num_frames * 1e3
     launches = dict(kernels.LAUNCHES)
     psnr = float(res["PSNR"])
@@ -457,6 +633,12 @@ def phase_slice(dev):
         raise AssertionError(f"eval PSNR did not rise: {psnr0} -> {psnr1}")
     log(f"[eval] PSNR {psnr0:.4f} -> {psnr1:.4f} over {SLICE_STEPS} steps; "
         f"{ms0:.1f} -> {ms1:.1f} ms/frame")
+    profile_region(lambda: trainer.train_steps(ds, PROFILE_STEPS),
+                   f"block512 steps {SLICE_STEPS}-{SLICE_STEPS + PROFILE_STEPS}",
+                   per=PROFILE_STEPS)
+    profile_region(lambda: trainer.render_image(
+        val.poses[0], val.intrinsics_for(0), val.H, val.W),
+        "block512 eval frame")
     return launches
 
 
@@ -490,6 +672,155 @@ def phase_winsort(dev):
     return launches
 
 
+def cli_argv(scene_dir, workspace, **kw):
+    """The CLI flags of bench_config(**kw) (path and workspace given)."""
+    from nerf2mesh_tpu_torch.config import Config
+    cfg, default = bench_config(**kw), Config()
+    argv = [scene_dir, "--workspace", workspace]
+    for f in dataclasses.fields(Config):
+        v = getattr(cfg, f.name)
+        if f.name in ("path", "workspace", "refine_steps") or v == getattr(
+                default, f.name):
+            continue
+        if isinstance(v, bool):
+            argv.append(f"--{f.name}" if v else f"--no-{f.name}")
+        else:
+            argv += [f"--{f.name}", str(v)]
+    return argv
+
+
+def phase_cli(dev):
+    """Phase 7: the ref small-table slice through nerf2mesh_tpu_torch.main;
+    returns the launch counts of the whole first CLI run."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.data.provider import load_nerf_dataset
+    from nerf2mesh_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.utils.convert import read_jax_checkpoint
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        scene_dir = generate_synthetic_dataset(
+            os.path.join(tmp, "scene"), H=256, W=256, n_train=24,
+            n_val=N_VAL, n_test=2)
+        ws = os.path.join(tmp, "ws")
+        flags = dict(grid_layout="ref", log2_hashmap_size=14,
+                     iters=CLI_STEPS, n_eval=1, n_ckpt=1, test_no_mesh=True)
+        argv = cli_argv(scene_dir, ws, **flags)
+        cfg = parse_args(argv)
+        want = dataclasses.replace(bench_config(**flags), path=scene_dir,
+                                   workspace=ws)
+        if dataclasses.asdict(cfg) != dataclasses.asdict(want):
+            raise AssertionError(f"CLI flags {argv} != bench_config")
+        log(f"[cli] scene written in {time.perf_counter() - t0:.1f} s; "
+            f"main {' '.join(argv[1:])}")
+
+        train_launches = {}
+        real_train = Trainer.train
+
+        def counted_train(self, *a, **k):      # launches of training alone
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            out = real_train(self, *a, **k)
+            torch.cuda.synchronize()
+            for key, v in kernels.LAUNCHES.items():
+                train_launches[key] = train_launches.get(key, 0) + v - before[key]
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        Trainer.train = counted_train
+        try:
+            t0 = time.perf_counter()
+            trainer = cli_main(argv, device=dev)
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+        finally:
+            Trainer.train = real_train
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        tl = trainer.train_log
+        losses = [e["loss"] for e in tl]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite logged loss: {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"loss did not fall: {losses}")
+        a = next(e for e in tl if e["step"] >= CLI_STEPS // 2)
+        b = tl[-1]
+        ms_step = (b["seconds"] - a["seconds"]) / (b["step"] - a["step"]) * 1e3
+        rays_s = (b["rays"] - a["rays"]) / (b["seconds"] - a["seconds"])
+        log(f"[cli] main ran {t_main:.1f} s; logged losses "
+            f"{np.round(losses, 5).tolist()}")
+        log(f"[cli] steps {a['step']}-{b['step']}: {ms_step:.2f} ms/step, "
+            f"{rays_s:.1f} rays/s; peak memory {peak:.2f} GiB; launches: "
+            f"training {train_launches}, whole run {launches}")
+        for key in ("occ_lookup", "sweep_fwd"):
+            if train_launches.get(key, 0) <= 0:
+                raise AssertionError(f"{key} was not launched by training")
+        for key in ("inwin_fwd", "inwin_bwd", "winsort_fwd", "winsort_bwd"):
+            if launches[key]:
+                raise AssertionError(f"{key} launched on the ref path")
+        results = trainer.stats["results"]
+        log(f"[cli] evals (step {CLI_STEPS} val, final val, test): {results}")
+        if len(results) != 3 or not all(math.isfinite(v) for r in results
+                                        for v in r.values()):
+            raise AssertionError(f"evals: {results}")
+
+        ckpt = os.path.join(ws, "checkpoints", "ngp_stage0_latest.ckpt")
+        step_ckpt = os.path.join(ws, "checkpoints",
+                                 f"ngp_stage0_{CLI_STEPS:07d}.ckpt")
+        videos = [v for v in ("test_frames.npz", "test_rgb.gif",
+                              "test_rgb.mp4")
+                  if os.path.exists(os.path.join(ws, v))]
+        if not (os.path.exists(ckpt) and os.path.exists(step_ckpt)
+                and videos):
+            raise AssertionError(f"workspace lacks a checkpoint or video: "
+                                 f"{sorted(os.listdir(ws))}")
+        saved = read_jax_checkpoint(ckpt)
+        psnr_saved = float(saved["stats"]["results"][0]["PSNR"])
+        log(f"[cli] wrote {os.path.basename(step_ckpt)} "
+            f"({os.path.getsize(step_ckpt) / 2 ** 20:.1f} MiB), video "
+            f"{videos}; step-{CLI_STEPS} val PSNR {psnr_saved:.6f}")
+
+        tester = cli_main(argv + ["--test"], device=dev)
+        if tester.step != CLI_STEPS or not all(
+                math.isfinite(v) for v in tester.stats["results"][0].values()):
+            raise AssertionError(f"--test: step {tester.step}, "
+                                 f"{tester.stats['results']}")
+
+        fresh = Trainer(cfg, device=dev)
+        if not fresh.load_checkpoint():
+            raise AssertionError("no checkpoint to load")
+        val = load_nerf_dataset(cfg, "val")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = fresh.evaluate(val, name="reload", track_best=False)
+        ms_frame = (time.perf_counter() - t0) / val.num_frames * 1e3
+        log(f"[cli] reloaded step {fresh.step}: val PSNR {res['PSNR']:.6f} vs "
+            f"{psnr_saved:.6f} recorded; {ms_frame:.1f} ms/frame "
+            f"({val.H}x{val.W}), march rounds {fresh.stats['eval_rounds']}, "
+            f"launches {dict(kernels.LAUNCHES)}")
+        if not abs(res["PSNR"] - psnr_saved) <= 1e-4:
+            raise AssertionError(f"reloaded PSNR {res['PSNR']} != "
+                                 f"{psnr_saved}")
+        train = load_nerf_dataset(cfg, "train")
+        profile_region(lambda: fresh.train_steps(train, PROFILE_STEPS),
+                       f"ref steps {CLI_STEPS}-{CLI_STEPS + PROFILE_STEPS}",
+                       per=PROFILE_STEPS)
+        profile_region(lambda: fresh.render_image(
+            val.poses[0], val.intrinsics_for(0), val.H, val.W),
+            "ref eval frame")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -501,11 +832,13 @@ def main() -> int:
     results = phase_kernels(dev)
     launches = phase_slice(dev)
     ws_launches = phase_winsort(dev)
+    cli_launches = phase_cli(dev)
     for r in results:
-        r["launches"] = (ws_launches if r["name"].startswith("winsort")
-                         else launches)[r["name"]]
+        path = (ws_launches if r["name"].startswith("winsort") else
+                cli_launches if r["name"] == "sweep_fwd" else launches)
+        r["launches"] = path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,9 +7,12 @@ ported path reaches is a hand-written CUDA kernel under ``csrc/``, built for
 sm_90a at first use (``kernels/build.py``).  A wrapper runs its kernel for a
 CUDA tensor and its plain PyTorch version for a CPU tensor.
 
-Ported so far: stage-0 training (``utils.trainer.Trainer``).  Not yet
-ported (ROADMAP queue A): the CLI, eval render, checkpoints, mesh export,
-stage 1, SDF mode, cascades/contraction and multi-device.
+Ported so far: stage 0 through the CLI (``python -m
+nerf2mesh_tpu_torch.main``) and ``utils.trainer.Trainer``: training, the
+eval render and metrics, checkpoints (the JAX package's load too), the
+test video, on the block512 and the small ref tables.  Not yet ported
+(ROADMAP queue A): mesh export, stage 1, SDF mode, cascades/contraction and
+multi-device.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,10 @@
 
 The dataset is host numpy, materialized once; the trainer moves it to the
 device and samples rays there.  ``load_nerf_dataset`` reads a blender-format
-directory (Pillow imported inside it); ``dataset_from_frames`` builds the
-identical Dataset from in-memory frames (data/synthetic.py), so a run
-needs no Pillow.  The colmap / dtu formats are not ported yet (ROADMAP A11).
+directory (its PNGs with Pillow where it is importable, else with the
+port's codec, data/png.py); ``dataset_from_frames`` builds the identical
+Dataset from in-memory frames (data/synthetic.py).  The colmap / dtu
+formats are not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..config import Config
+from .png import read_image
 from .rays import make_mvps, make_projection, nerf_matrix_to_ngp
 
 
@@ -41,6 +43,10 @@ class Dataset:
         intr = np.asarray(self.intrinsics)
         return intr[i] if intr.ndim == 2 else intr
 
+    @property
+    def has_gt(self) -> bool:
+        return self.images is not None
+
 
 def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
             camera_angle_x: float, split: str) -> Dataset:
@@ -61,8 +67,6 @@ def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
 
 def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
     """Load one split of a nerf-synthetic / blender directory."""
-    from PIL import Image
-
     root = cfg.path
     if cfg.downscale != 1:
         raise NotImplementedError("downscale is not ported yet (ROADMAP A11)")
@@ -70,7 +74,7 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
     if not os.path.exists(path):
         raise NotImplementedError(
             f"{path} not found: only the blender split-file format is ported "
-            "(colmap/dtu: ROADMAP A11)")
+            "(colmap/dtu and the trainval/all splits: ROADMAP A11)")
     with open(path) as f:
         transform = json.load(f)
     if "camera_angle_x" not in transform or "fl_x" in transform:
@@ -82,7 +86,7 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
             f_path += ".png"
         if not os.path.exists(f_path):
             continue
-        img = np.asarray(Image.open(f_path))
+        img = read_image(f_path)
         if img.ndim == 2:
             img = img[..., None].repeat(3, axis=-1)
         poses.append(np.array(fr["transform_matrix"], np.float32))

@@ -4,7 +4,8 @@
 uint8 RGBA frames as the JAX package's ``generate_synthetic_dataset``, but
 returns them in memory, so a run needs neither disk nor Pillow;
 ``generate_synthetic_dataset`` writes them as a nerf-synthetic directory
-(transforms_{split}.json + PNGs, Pillow imported inside it).
+(transforms_{split}.json + PNGs, written by Pillow where it is importable,
+else by the port's codec, data/png.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from .png import write_image
 from .rays import orbit_pose
 
 
@@ -132,16 +134,13 @@ def generate_synthetic_dataset(root: str, scene: SphereScene | None = None,
                                **kw) -> str:
     """Write a nerf-synthetic-format dataset under `root` (see
     render_synthetic_frames for the keywords). Returns root."""
-    from PIL import Image
-
     os.makedirs(root, exist_ok=True)
     for split, fr in render_synthetic_frames(scene, **kw).items():
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for k, (img, pose) in enumerate(zip(fr["images"], fr["poses"])):
             fname = f"./{split}/r_{k}"
-            Image.fromarray(img, "RGBA").save(
-                os.path.join(root, fname[2:] + ".png"))
+            write_image(os.path.join(root, fname[2:] + ".png"), img)
             frames.append({"file_path": fname,
                            "transform_matrix": pose.tolist()})
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:

@@ -56,6 +56,8 @@ _SIGNATURES = {
     # n_points, n_tiles, n_levels, dtable, stream
     "n2m_winsort_bwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
                         _I64, _I32, _P, _P),
+    # table, x, levels (device), shift, n_points, n_levels, out, stream
+    "n2m_sweep_fwd": (_P, _P, _P, _F32, _I64, _I32, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -8,14 +8,17 @@ Architecture (as the JAX package's merged-table default):
   * specular: MLP(3 dir + spec -> 32 -> 3) -> sigmoid; full color =
     clamp(diffuse + specular, 0, 1) once full shading is on.
 
-The encode always takes the splat path (ops/splat_encode.py): points are
-morton-sorted once around the whole field, and only the narrow [N, 7]
-(sigma, color, specular) output is unsorted.  Parameters keep the JAX
-pytree layout: ``table`` [total, 3] and ``*_net.<layer>.w`` [in, out]
-(utils/convert.py maps between the two).
+The encode is routed by the table spec, as the JAX package's ``_encode``:
+a block512 table takes the splat path (ops/splat_encode.py), with the points
+morton-sorted once around the whole field and only the narrow [N, 7]
+(sigma, color, specular) output unsorted; a small "ref" table takes the
+sweep encode (ops/pallas_encode.py, kernel K4), unsorted; any other ref
+table the plain ``hashgrid_encode``.  Parameters keep the JAX pytree layout:
+``table`` [total, 3] and ``*_net.<layer>.w`` [in, out] (utils/convert.py
+maps between the two).
 
 Not ported yet (NotImplementedError): SDF mode, per-image codes, separate
-tables, the "ref" table layout (ROADMAP queue A and kernel K4).
+tables (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ import torch
 from torch import nn
 
 from ..ops.activation import trunc_exp
-from ..ops.hashgrid import HashGridSpec, init_hashgrid
-from ..ops.splat_encode import morton_perm, permute, splat_encode
+from ..ops.hashgrid import HashGridSpec, hashgrid_encode, init_hashgrid
+from ..ops.pallas_encode import sweep_encode, sweep_supported
+from ..ops.splat_encode import (morton_perm, permute, splat_encode,
+                                splat_supported)
 from .mlp import MLP
 
 
@@ -74,10 +79,9 @@ def check_supported(spec: NetworkSpec) -> None:
     if spec.ind_dim > 0:
         raise NotImplementedError(
             "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A11)")
-    if spec.separate_tables or spec.grid_layout != "block512":
+    if spec.separate_tables:
         raise NotImplementedError(
-            "only the merged block512 table is ported; the 'ref' layout's "
-            "small-table kernel is ROADMAP queue B (pallas_encode K4)")
+            "separate density/color tables are not ported yet (ROADMAP A2)")
 
 
 class NeRFField(nn.Module):
@@ -101,18 +105,33 @@ def _mask_levels(h, max_level, gspec: HashGridSpec):
     return (h.reshape(-1, L, C) * keep[None, :, None]).reshape(-1, L * C)
 
 
+def _encode(table, x01, gspec: HashGridSpec, max_level, spec: NetworkSpec,
+            pre_sorted: bool = False):
+    """Hash encode routed by the table spec (JAX network._encode): block512
+    -> the splat path with its per-level routing; a small ref table -> the
+    sweep encode (K4); any other -> hashgrid_encode.  Returns (features,
+    per-level residual counts, or None off the splat path)."""
+    if splat_supported(gspec):
+        h, cnt = splat_encode(table, x01, gspec, sort=not pre_sorted,
+                              gather_levels=spec.encode_gather_levels,
+                              stochastic=spec.encode_stochastic,
+                              winsort_levels=(() if spec.encode_stochastic
+                                              else spec.encode_winsort_levels))
+        return _mask_levels(h, max_level, gspec), cnt
+    if sweep_supported(gspec):
+        return _mask_levels(sweep_encode(table, x01, gspec), max_level,
+                            gspec), None
+    return hashgrid_encode(table, x01, gspec, max_level), None
+
+
 def encode_fields(params: NeRFField, x01: torch.Tensor, spec: NetworkSpec,
                   max_level: Optional[int] = None, pre_sorted: bool = False):
     """One pass over the merged table -> (density feats [N, L], color feats
-    [N, 2L], per-level residual counts [L])."""
+    [N, 2L], per-level residual counts [L] or None)."""
     L = spec.num_levels
-    gspec = spec.density_grid_spec
-    h, cnt = splat_encode(params.table, x01, gspec, sort=not pre_sorted,
-                          gather_levels=spec.encode_gather_levels,
-                          stochastic=spec.encode_stochastic,
-                          winsort_levels=(() if spec.encode_stochastic
-                                          else spec.encode_winsort_levels))
-    h = _mask_levels(h, max_level, gspec).reshape(x01.shape[0], L, 3)
+    h, cnt = _encode(params.table, x01, spec.density_grid_spec, max_level,
+                     spec, pre_sorted)
+    h = h.reshape(x01.shape[0], L, 3)
     return h[:, :, 0], h[:, :, 1:].reshape(x01.shape[0], 2 * L), cnt
 
 
@@ -132,6 +151,10 @@ def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
             max_level: Optional[int] = None) -> torch.Tensor:
     """sigma (after trunc_exp). x: [N, 3] in [-bound, bound]."""
     b = spec.bound
+    if not splat_supported(spec.density_grid_spec):
+        hd, _, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level)
+        return _density_from_feat(params, x, hd, spec)
+    # the splat path sorts the points once around the whole field
     perm, inv = morton_perm((x + b) / (2 * b))
     xs = permute(x, perm, inv)
     hd, _, _ = encode_fields(params, (xs + b) / (2 * b), spec, max_level,
@@ -144,15 +167,17 @@ def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
                   spec: NetworkSpec, full_flag: bool,
                   max_level: Optional[int] = None):
     """Hot-path forward: ONE hash-table pass -> (sigma [N], color [N, 3],
-    specular [N, 3], encode residual counts [L]).  full_flag selects full
-    (diffuse + specular) shading over diffuse-only."""
+    specular [N, 3], encode residual counts [L] or None).  full_flag selects
+    full (diffuse + specular) shading over diffuse-only."""
     b = spec.bound
-    perm, inv = morton_perm((x + b) / (2 * b))
-    x = permute(x, perm, inv)
-    d = permute(d, perm, inv)
+    splat = splat_supported(spec.density_grid_spec)
+    if splat:
+        perm, inv = morton_perm((x + b) / (2 * b))
+        x = permute(x, perm, inv)
+        d = permute(d, perm, inv)
 
     hd, hc, cnt = encode_fields(params, (x + b) / (2 * b), spec, max_level,
-                                pre_sorted=True)
+                                pre_sorted=splat)
     sigma = _density_from_feat(params, x, hd, spec)
     gf = _geo_feat_from_feat(params, x, hc, spec)
     diffuse = gf[..., :3]
@@ -164,6 +189,8 @@ def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
         color = diffuse
         specular = torch.zeros_like(specular)
 
+    if not splat:
+        return sigma, color, specular, cnt
     packed = torch.cat([sigma[:, None], color, specular], dim=-1)  # [N, 7]
     packed = permute(packed, inv, perm)
     return packed[:, 0], packed[:, 1:4], packed[:, 4:7], cnt

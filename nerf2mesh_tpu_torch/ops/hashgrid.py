@@ -13,9 +13,11 @@ against.  ``hashgrid_tv_loss`` is the stage-0 TV regularizer.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +125,18 @@ class HashGridSpec:
     @property
     def output_dim(self) -> int:
         return self.num_levels * self.level_dim
+
+
+@lru_cache(maxsize=64)
+def level_arrays(spec: HashGridSpec, levels: Tuple[int, ...]):
+    """Host arrays of the levels' float32 lattice scales and first table
+    rows, the per-level constants of the kernel launches.  Computed once a
+    (spec, levels): the spec's properties recompute their per-level tables
+    in Python on every access."""
+    offs = spec.offsets
+    return ((ctypes.c_float * len(levels))(*[spec.level_scale32(l)
+                                            for l in levels]),
+            (ctypes.c_int32 * len(levels))(*[int(offs[l]) for l in levels]))
 
 
 def init_hashgrid(generator: torch.Generator, spec: HashGridSpec,

@@ -39,14 +39,14 @@ give the same values as the masked gather, and are dropped.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
 
 from .. import kernels
 from .hashgrid import (HashGridSpec, _MASK32, _PRIMES, block_window,
-                       corner_bits, corner_weights, gather_rows, lattice, mul32)
+                       corner_bits, corner_weights, gather_rows, lattice,
+                       level_arrays, mul32)
 
 TILE = 128          # points per tile
 
@@ -55,7 +55,7 @@ _GOLDEN = 0x9E3779B9
 
 def splat_supported(spec: HashGridSpec) -> bool:
     return (spec.layout == "block512" and spec.input_dim == 3
-            and spec.interpolation == "linear" and spec.level_dim == 3)
+            and spec.interpolation == "linear")
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +137,7 @@ def _check_inwin_args(x, bases, rows, levels):
 
 def _launch_inwin(name, src, x, bases, rows, spec, levels, out):
     N, T, Lk = x.shape[0], x.shape[0] // TILE, len(levels)
-    # per-level constants travel by value in the launch (host arrays)
-    scales = (ctypes.c_float * Lk)(*[spec.level_scale32(l) for l in levels])
-    offsets = (ctypes.c_int32 * Lk)(*[int(spec.offsets[l]) for l in levels])
+    scales, offsets = level_arrays(spec, tuple(levels))
     lib = kernels.load()
     fn = getattr(lib, f"n2m_{name}")
     code = fn(src.data_ptr(), x.data_ptr(), bases.data_ptr(), rows.data_ptr(),
@@ -314,8 +312,7 @@ def _check_winsort_args(x, perm, wins, slots, spec, levels, total):
 
 def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out):
     N, T, Lw = x.shape[0], x.shape[0] // TILE, len(levels)
-    scales = (ctypes.c_float * Lw)(*[spec.level_scale32(l) for l in levels])
-    offsets = (ctypes.c_int32 * Lw)(*[int(spec.offsets[l]) for l in levels])
+    scales, offsets = level_arrays(spec, tuple(levels))
     lib = kernels.load()
     fn = getattr(lib, f"n2m_{name}")
     code = fn(src.data_ptr(), x.data_ptr(), perm.data_ptr(), wins.data_ptr(),
@@ -461,7 +458,10 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
     gather-routed levels report what their kernel residual would be).  No
     gradient flows to x01."""
     if not splat_supported(spec):
-        raise ValueError("splat_encode needs a block512, linear, C=3 spec")
+        raise ValueError("splat_encode needs a block512, 3-D, linear spec")
+    if spec.level_dim != 3:
+        raise ValueError("splat_encode: the kernels read a merged table of 3 "
+                         f"channels, not level_dim={spec.level_dim}")
     x01 = x01.detach()
     N = x01.shape[0]
     if N % TILE:

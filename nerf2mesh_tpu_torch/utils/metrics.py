@@ -1,9 +1,10 @@
 """Evaluation metrics (port of nerf2mesh_tpu/utils/metrics.py): PSNR
-(reference nerf/utils.py:351-387) and SSIM, on host numpy images in [0, 1].
+(reference nerf/utils.py:351-387), SSIM and LPIPS, on host numpy images in
+[0, 1].
 
-``LPIPSMeter`` is not ported: lpips-vgg needs downloaded weights that the
-repository does not carry, and the JAX package's weight-free fallback runs
-through JAX (ROADMAP A8).
+``LPIPSMeter`` uses the ``lpips`` package (vgg) where it is importable, and
+otherwise the weight-free perceptual proxy of utils/losses.py, reported as
+"LPIPS (proxy)" so that the two are never conflated.
 """
 
 from __future__ import annotations
@@ -75,7 +76,24 @@ class LPIPSMeter(Meter):
     name = "LPIPS (vgg)"
 
     def __init__(self):
-        raise NotImplementedError(
-            "LPIPSMeter is not ported yet (ROADMAP A8): lpips-vgg needs "
-            "weights the repository does not carry, and the JAX package's "
-            "weight-free proxy runs through JAX")
+        super().__init__()
+        try:
+            import lpips
+        except ImportError:
+            self.fn = None
+            self.name = "LPIPS (proxy)"
+        else:
+            self.fn = lpips.LPIPS(net="vgg")
+
+    def update(self, preds: np.ndarray, truths: np.ndarray):
+        import torch
+        p = torch.from_numpy(np.asarray(preds, np.float32))
+        g = torch.from_numpy(np.asarray(truths, np.float32))
+        with torch.no_grad():
+            if self.fn is None:
+                from .losses import perceptual_loss
+                self.V += float(perceptual_loss(p, g))
+            else:
+                self.V += float(self.fn(p.permute(2, 0, 1)[None] * 2 - 1,
+                                        g.permute(2, 0, 1)[None] * 2 - 1))
+        self.N += 1

@@ -15,13 +15,18 @@ pixel ids, background, sampler noise) so tests can feed the JAX package's.
 ``render_image`` renders a whole frame from the EMA weights with the
 early-exit segment march (``fused``: the alive-ray queue on the device;
 otherwise a host loop over rounds), and ``evaluate`` scores a dataset's
-frames with PSNR; ``train`` runs it every ``iters // n_eval`` steps when
-given a validation set.
+frames with the trainer's meters; ``train`` runs it every
+``iters // n_eval`` steps when given a validation set, and saves a
+checkpoint every ``iters // n_ckpt`` steps and at the end.  Checkpoints are
+the JAX package's format-2 pickle payload in plain data (utils/convert.py
+reads the JAX package's too); ``test_video`` writes the test trajectory.
 
-Not ported yet (NotImplementedError, ROADMAP queue A): checkpoints (and so
-the best-checkpoint save), mesh export, stage 1, SDF, cascades/contraction,
-depth supervision, patches, per-image codes, the entropy/sharpen phase,
-the trainable density grid and multi-device training.
+The trainer runs on the card unless the caller asks for another device.
+
+Not ported yet (NotImplementedError, ROADMAP queue A): orbax checkpoints,
+mesh export, stage 1, SDF, cascades/contraction, depth supervision, patches,
+per-image codes, linear color space, the trainable density grid and
+multi-device training.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import pickle
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.png import write_image
 from ..data.provider import Dataset
 from ..data.rays import get_rays
 from ..models.network import NeRFField, NetworkSpec
@@ -44,6 +51,8 @@ from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
                                render_eval_segment, render_frame_queue,
                                render_train, update_density_grid)
 from ..ops.hashgrid import hashgrid_tv_loss
+from .convert import (flatten_params, params_to_numpy, read_jax_checkpoint,
+                      render_state_from_jax)
 from .losses import CRITERIA
 from .metrics import PSNRMeter
 
@@ -60,14 +69,19 @@ def lr_schedule(cfg: Config):
     return fn
 
 
-def make_optimizer(cfg: Config, params):
-    """Adam(eps=1e-15) + LambdaLR: torch's scheduler reads the factor at the
-    pre-increment step count, like optax's scale_by_schedule."""
-    opt = torch.optim.Adam(params, lr=cfg.lr, eps=1e-15)
+def make_lr_scheduler(cfg: Config, opt, step: int = 0):
+    """LambdaLR over lr_schedule, positioned at `step` optimizer steps:
+    torch's scheduler reads the factor at the pre-increment step count, like
+    optax's scale_by_schedule."""
     sched = lr_schedule(cfg)
-    lr_sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda it: sched(it) / cfg.lr)
-    return opt, lr_sched
+    return torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda it: sched(it) / cfg.lr, last_epoch=step - 1)
+
+
+def make_optimizer(cfg: Config, params):
+    """Adam(eps=1e-15) + the lr schedule."""
+    opt = torch.optim.Adam(params, lr=cfg.lr, eps=1e-15)
+    return opt, make_lr_scheduler(cfg, opt)
 
 
 class StepDynamics(NamedTuple):
@@ -86,8 +100,6 @@ def check_supported(cfg: Config) -> None:
         "bound > 1 (cascades)": (cfg.cascades > 1, "A11"),
         "patch_size > 1": (cfg.patch_size > 1, "A4"),
         "ind_dim > 0": (cfg.ind_dim > 0, "A11"),
-        "lambda_entropy / sharpen_steps": (
-            cfg.lambda_entropy > 0 or cfg.sharpen_steps > 0, "A4"),
         "color_space=linear": (cfg.color_space == "linear", "A4"),
         "enable_cam_near_far": (cfg.enable_cam_near_far, "A11"),
         "trainable_density_grid": (cfg.trainable_density_grid, "A4"),
@@ -100,11 +112,21 @@ def check_supported(cfg: Config) -> None:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device: Optional[torch.device] = None):
+    def __init__(self, cfg: Config, device: Optional[torch.device] = None,
+                 workspace: Optional[str] = None):
+        """device: default the current CUDA card (RuntimeError without
+        one); pass "cpu" to run on the CPU.  workspace: default
+        cfg.workspace; checkpoints, eval images and videos go there."""
         check_supported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else (
-            "cuda" if torch.cuda.is_available() else "cpu"))
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Trainer: no CUDA device found.  The port runs on the "
+                    "card; pass device='cpu' to run it on the CPU.")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.workspace = workspace or cfg.workspace
         self.net_spec = NetworkSpec(
             bound=cfg.grid_bound, sdf=cfg.sdf, ind_dim=cfg.ind_dim,
             ind_num=cfg.ind_num, fp16=cfg.fp16, num_levels=cfg.num_levels,
@@ -150,6 +172,9 @@ class Trainer:
         self._train_arrays_for = None
         self.metrics = [PSNRMeter()]
         self.stats: Dict[str, object] = {"results": [], "best": None}
+        # one entry per logged training step: step, loss, psnr, the rays
+        # drawn since train() started, and its seconds
+        self.train_log: List[Dict[str, float]] = []
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -161,12 +186,20 @@ class Trainer:
         full = ((cfg.stage > 0 or step >= cfg.diffuse_step)
                 and not cfg.diffuse_only)
         ml = 4 + int(12 * min(1.0, step / half)) if cfg.progressive_level else 16
+        if cfg.sharpen_steps > 0 and step >= cfg.iters:
+            # the sharpen phase: 0.1x sharpen_entropy, then the full weight
+            # over its second half
+            lam_e = (cfg.sharpen_entropy
+                     if step >= cfg.iters + cfg.sharpen_steps // 2
+                     else 0.1 * cfg.sharpen_entropy)
+        else:
+            lam_e = cfg.lambda_entropy
         return StepDynamics(
             full_shading=bool(full), max_level=ml,
             cos_anneal_ratio=min(1.0, step / half),
             normal_epsilon=1e-1 * (1 - min(0.999, step / half)),
             lambda_depth_ramp=min(1.0, step / 1000.0),
-            lambda_entropy=cfg.lambda_entropy,
+            lambda_entropy=lam_e,
         )
 
     def draw(self, num_rays: int, B: int, H: int, W: int) -> Dict[str, torch.Tensor]:
@@ -226,6 +259,18 @@ class Trainer:
         # rays whose samples overflowed the point pool carry no loss
         kept = out["ray_kept"].float()
         loss = (loss_per_ray * kept).sum() / kept.sum().clamp(min=1)
+
+        if cfg.lambda_entropy > 0 or cfg.sharpen_steps > 0:
+            # binary entropy of each sample's weight (padded samples masked)
+            # and of each ray's opacity
+            w = out["weights"].clamp(1e-5, 1 - 1e-5)
+            ent = -(w * torch.log2(w) + (1 - w) * torch.log2(1 - w))
+            ent = torch.where(out["valid"], ent, 0.0)
+            n_valid = out["valid"].sum().clamp(min=1)
+            w2 = out["weights_sum"].clamp(1e-5, 1 - 1e-5)
+            ent2 = -(w2 * torch.log2(w2) + (1 - w2) * torch.log2(1 - w2))
+            loss = loss + dyn.lambda_entropy * (ent.sum() / n_valid
+                                                + ent2.mean())
 
         if cfg.lambda_specular > 0:
             spec_l = (out["speculars"] ** 2).sum(dim=-1)
@@ -386,8 +431,9 @@ class Trainer:
 
     def train(self, dataset: Dataset, valid_dataset: Optional[Dataset] = None,
               max_steps: Optional[int] = None):
-        """Train until step max_steps (default cfg.iters), logging ~10 times
-        and, given valid_dataset, evaluating every steps // n_eval steps."""
+        """Train until step max_steps (default cfg.iters), logging ~10 times,
+        evaluating valid_dataset (if given) every steps // n_eval steps, and
+        saving a checkpoint every steps // n_ckpt steps and at the end."""
         cfg = self.cfg
         steps = max_steps if max_steps is not None else cfg.iters
         if cfg.mark_untrained:
@@ -395,20 +441,27 @@ class Trainer:
         images, poses, intrinsics = self._prep_train_arrays(dataset)
         log_interval = max(1, steps // 10)
         eval_interval = max(1, steps // max(cfg.n_eval, 1))
-        t0 = time.time()
-        last = None
+        save_interval = max(1, steps // max(cfg.n_ckpt, 1))
+        t0 = time.perf_counter()
+        last, rays = None, 0
         while self.step < steps:
             last, nr = self._one_step(images, poses, intrinsics)
+            rays += nr
             if self.step % log_interval == 0 or self.step == steps:
+                entry = dict(step=self.step, loss=float(last["loss"]),
+                             psnr=float(last["psnr"]), rays=rays,
+                             seconds=time.perf_counter() - t0)
+                self.train_log.append(entry)
                 self.log(f"[step {self.step}/{steps}] "
-                         f"loss={float(last['loss']):.6f} "
-                         f"psnr={float(last['psnr']):.2f} "
+                         f"loss={entry['loss']:.6f} psnr={entry['psnr']:.2f} "
                          f"points={int(last['num_points'])} rays={nr} "
-                         f"{time.time() - t0:.1f}s")
+                         f"{entry['seconds']:.1f}s")
             if valid_dataset is not None and self.step % eval_interval == 0:
                 self.evaluate(valid_dataset, name=f"step{self.step}")
+            if self.step % save_interval == 0 or self.step == steps:
+                self.save_checkpoint()
         self.log(f"[INFO] training done: {steps} steps, "
-                 f"{time.time() - t0:.1f}s")
+                 f"{time.perf_counter() - t0:.1f}s")
         return last
 
     # -------------------------------------------------------------- eval
@@ -490,9 +543,9 @@ class Trainer:
                  max_frames: Optional[int] = None,
                  stage1: Optional[bool] = None,
                  track_best: bool = True) -> Dict[str, float]:
-        """Render the dataset's frames and score them (PSNR); returns
-        {metric: value}.  track_best records the best first metric in
-        stats["best"] (saving that checkpoint waits for ROADMAP A7);
+        """Render the dataset's frames and score them with self.metrics;
+        returns {metric: value}.  track_best keeps the best first metric in
+        stats["best"] and saves the "best" checkpoint when it improves;
         stats["eval_rounds"] holds each frame's march rounds."""
         if stage1 is None:
             stage1 = self.cfg.stage > 0
@@ -527,22 +580,214 @@ class Trainer:
             first = list(results.values())[0]
             if self.stats["best"] is None or first > self.stats["best"]:
                 self.stats["best"] = first
-                self.log(f"[INFO] new best eval ({first:.4f})")
+                self.save_checkpoint(tag="best")
+                self.log(f"[INFO] new best checkpoint ({first:.4f})")
         return results
 
     def _write_eval_images(self, name, i, out, pred, gt) -> None:
         """rgb, normalised depth and 4x |error| PNGs under
         <workspace>/validation (reference utils.py:1293-1317)."""
-        from PIL import Image
-        vdir = os.path.join(self.cfg.workspace, "validation")
+        vdir = os.path.join(self.workspace, "validation")
         os.makedirs(vdir, exist_ok=True)
-        Image.fromarray((np.clip(pred, 0, 1) * 255).astype(np.uint8)).save(
-            os.path.join(vdir, f"{name}_{i:04d}_rgb.png"))
+        write_image(os.path.join(vdir, f"{name}_{i:04d}_rgb.png"),
+                    (np.clip(pred, 0, 1) * 255).astype(np.uint8))
         d = out["depth"]
         dn = (d - d.min()) / max(float(d.max() - d.min()), 1e-9)
-        Image.fromarray((dn * 255).astype(np.uint8)).save(
-            os.path.join(vdir, f"{name}_{i:04d}_depth.png"))
+        write_image(os.path.join(vdir, f"{name}_{i:04d}_depth.png"),
+                    (dn * 255).astype(np.uint8))
         if gt is not None:
             err = np.abs(pred - gt).mean(-1)
-            Image.fromarray((np.clip(err * 4, 0, 1) * 255).astype(np.uint8)
-                            ).save(os.path.join(vdir, f"{name}_{i:04d}_error.png"))
+            write_image(os.path.join(vdir, f"{name}_{i:04d}_error.png"),
+                        (np.clip(err * 4, 0, 1) * 255).astype(np.uint8))
+
+    def test_video(self, dataset: Dataset, name: str = "test",
+                   fps: int = 24) -> str:
+        """Render the dataset's trajectory and write it as an mp4 (imageio
+        with an ffmpeg backend), else a GIF (Pillow), else the uint8 frames
+        [B, H, W, 3] as an .npz; returns the path written."""
+        frames = []
+        for i in range(dataset.num_frames):
+            out = self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
+                                    dataset.H, dataset.W)
+            frames.append((np.clip(out["image"], 0, 1) * 255).astype(np.uint8))
+        os.makedirs(self.workspace, exist_ok=True)
+        path = os.path.join(self.workspace, f"{name}_rgb.mp4")
+        try:
+            import imageio
+            imageio.mimwrite(path, frames, fps=fps, quality=8,
+                             macro_block_size=1)
+        except (ImportError, ValueError, RuntimeError, OSError):
+            try:
+                from PIL import Image
+                path = os.path.join(self.workspace, f"{name}_rgb.gif")
+                ims = [Image.fromarray(f) for f in frames]
+                ims[0].save(path, save_all=True, append_images=ims[1:],
+                            duration=int(1000 / fps), loop=0)
+                self.log("[WARN] no mp4 codec; wrote GIF instead")
+            except ImportError as e:
+                path = os.path.join(self.workspace, f"{name}_frames.npz")
+                np.savez_compressed(path, frames=np.stack(frames))
+                self.log(f"[WARN] video writers unavailable ({e}); wrote "
+                         f"{path}")
+        self.log(f"[INFO] wrote test video: {path}")
+        return path
+
+    def save_mesh(self, resolution: int = 512, decimate_target: float = 3e5,
+                  dataset: Optional[Dataset] = None):
+        raise NotImplementedError(
+            "stage-0 mesh export is not ported yet (ROADMAP A13); pass "
+            "--test_no_mesh")
+
+    def export_stage1(self, resolution: int = 4096):
+        raise NotImplementedError(
+            "the stage-1 export is not ported yet (ROADMAP A8)")
+
+    # ------------------------------------------------------------ checkpoints
+    def _ckpt_path(self, tag: str) -> str:
+        if self.cfg.ckpt_backend == "orbax":
+            raise NotImplementedError(
+                "orbax checkpoints are not ported yet (ROADMAP A7); use "
+                "--ckpt_backend pickle")
+        return os.path.join(self.workspace, "checkpoints",
+                            f"ngp_stage{self.cfg.stage}_{tag}.ckpt")
+
+    def _payload(self) -> Dict[str, object]:
+        """The JAX format-2 payload in plain dicts, lists and numpy arrays
+        (see convert.read_jax_checkpoint), plus the torch generators."""
+        named = dict(self.params.named_parameters())
+        mu, nu, count = {}, {}, 0
+        for k, p in named.items():
+            st = self.optimizer.state.get(p)
+            if st:
+                mu[k], nu[k] = st["exp_avg"], st["exp_avg_sq"]
+                count = int(st["step"])
+            else:
+                mu[k] = nu[k] = torch.zeros_like(p)
+        r = self.render
+        state = {
+            "params": params_to_numpy(named),
+            "opt_state": {"count": count, "mu": params_to_numpy(mu),
+                          "nu": params_to_numpy(nu)},
+            "ema_params": params_to_numpy(self.ema_params),
+            "ema_count": self.ema_count,
+            "render": {"density_grid": r.density_grid.cpu().numpy(),
+                       "occ_grid": r.occ_grid.cpu().numpy(),
+                       "mean_density": r.mean_density.cpu().numpy(),
+                       "iter_density": int(r.iter_density)},
+            "step": self.step,
+            "key": None,
+        }
+        return {
+            "state": state, "num_rays": self.num_rays,
+            "stage": self.cfg.stage, "stats": copy.deepcopy(self.stats),
+            "format": 2, "framework": "torch", "net_spec": repr(self.net_spec),
+            "rng": {"device": self.device.type,
+                    "generator": self.generator.get_state().numpy(),
+                    "grid_generator": self.grid_generator.get_state().numpy()},
+        }
+
+    def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """Write <workspace>/checkpoints/ngp_stage<s>_<tag>.ckpt (tag: the
+        step, 7 digits) and the _latest copy; keep the newest 2 step
+        checkpoints (reference utils.py:1373-1379).  Returns the path."""
+        tag = tag or f"{self.step:07d}"
+        path = self._ckpt_path(tag)
+        cdir = os.path.dirname(path)
+        os.makedirs(cdir, exist_ok=True)
+        payload = self._payload()
+        for p in (path, self._ckpt_path("latest")):
+            with open(p + ".tmp", "wb") as f:
+                pickle.dump(payload, f)
+            os.replace(p + ".tmp", p)
+        prefix = f"ngp_stage{self.cfg.stage}"
+        steps = sorted(p for p in os.listdir(cdir)
+                       if p.startswith(prefix) and p.endswith(".ckpt")
+                       and "latest" not in p and "best" not in p)
+        for p in steps[:-2]:
+            os.remove(os.path.join(cdir, p))
+        return path
+
+    def _merge(self, own: Dict[str, torch.Tensor], loaded, scope: str) -> bool:
+        """Non-strict copy of a loaded pytree into own tensors: entries
+        missing from it or of another shape keep their fresh value, entries
+        it has beyond own are dropped, each logged.  Returns True when every
+        entry matched."""
+        flat = flatten_params(loaded)
+        clean = True
+        with torch.no_grad():
+            for k, t in own.items():
+                if k not in flat:
+                    self.log(f"[WARN] checkpoint {scope}.{k}: missing - "
+                             "keeping fresh init")
+                    clean = False
+                elif tuple(np.shape(flat[k])) != tuple(t.shape):
+                    self.log(f"[WARN] checkpoint {scope}.{k}: shape "
+                             f"{tuple(np.shape(flat[k]))} vs "
+                             f"{tuple(t.shape)} - keeping fresh init")
+                    clean = False
+                else:
+                    t.copy_(torch.from_numpy(np.asarray(flat[k])))
+        for k in flat:
+            if k not in own:
+                self.log(f"[WARN] checkpoint {scope}.{k}: unexpected - "
+                         "dropped")
+                clean = False
+        return clean
+
+    def load_checkpoint(self, path: Optional[str] = None) -> bool:
+        """Load a format-2 pickle checkpoint of the port or of the JAX
+        package (default: this stage's _latest); False if there is none.
+        Parameters, EMA and the density grid merge non-strictly (see
+        _merge); the optimizer, step and EMA count carry over only from a
+        clean checkpoint of the same stage, otherwise they restart."""
+        if path is None:
+            base = os.path.join(self.workspace, "checkpoints",
+                                f"ngp_stage{self.cfg.stage}_latest")
+            path = base + ".ckpt"
+            if not os.path.exists(path) and os.path.exists(base + ".ocp"):
+                path = base + ".ocp"
+        if not os.path.exists(path):
+            return False
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path}: orbax checkpoints are not ported yet (ROADMAP A7)")
+        payload = read_jax_checkpoint(path)
+        st = payload["state"]
+        named = dict(self.params.named_parameters())
+        clean = self._merge(named, st["params"], "params")
+        clean = self._merge(self.ema_params, st["ema_params"], "ema") and clean
+        r = st["render"]
+        if tuple(np.shape(r["density_grid"])) == tuple(
+                self.render.density_grid.shape):
+            self.render = render_state_from_jax(
+                r["density_grid"], r["occ_grid"], r["mean_density"],
+                r["iter_density"], device=self.device)
+        else:
+            self.log("[WARN] checkpoint render state shape drift; keeping "
+                     "fresh occupancy grid")
+        if payload.get("stage", 0) == self.cfg.stage and clean:
+            self._load_optimizer(named, st["opt_state"])
+            self.step = int(st["step"])
+            self.ema_count = int(st["ema_count"])
+            rng = payload.get("rng")
+            if rng is not None and rng["device"] == self.device.type:
+                self.generator.set_state(torch.from_numpy(rng["generator"]))
+                self.grid_generator.set_state(
+                    torch.from_numpy(rng["grid_generator"]))
+        self.num_rays = int(payload.get("num_rays", self.cfg.num_rays))
+        self.log(f"[INFO] loaded checkpoint {path} (step {self.step})")
+        return True
+
+    def _load_optimizer(self, named: Dict[str, torch.Tensor], opt) -> None:
+        """Adam moments and count -> torch Adam state, and the lr schedule
+        positioned at that count (optax and torch agree on the update, eps
+        outside the square root in both)."""
+        mu, nu = flatten_params(opt["mu"]), flatten_params(opt["nu"])
+        count = int(opt["count"])
+        for k, p in named.items():
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.tensor(np.asarray(mu[k]), device=p.device),
+                "exp_avg_sq": torch.tensor(np.asarray(nu[k]), device=p.device),
+            }
+        self.lr_scheduler = make_lr_scheduler(self.cfg, self.optimizer, count)

@@ -88,7 +88,8 @@ def pair(tmp_path_factory):
     occ = np.asarray(r.occ_grid)
     assert 0.02 < occ.mean() < 0.98               # a grid with structure
 
-    pt = ttr.Trainer(tiny(TConfig), device="cpu")
+    pt = ttr.Trainer(tiny(TConfig), device="cpu",
+                     workspace=str(tmp_path_factory.mktemp("port_ws")))
     load_params(pt.params, params_from_jax(params))
     load_params(pt.ema_field, params_from_jax(params))
     pt.render = render_state_from_jax(r.density_grid, r.occ_grid,
@@ -255,5 +256,11 @@ def test_metrics_match_jax():
             tm.update(a, b)
         np.testing.assert_allclose(tm.measure(), jm.measure(), rtol=1e-6)
         assert tm.name == jm.name
-    with pytest.raises(NotImplementedError):
-        tmet.LPIPSMeter()
+    # no lpips package on either side: both report the weight-free proxy
+    jm, tm = jmet.LPIPSMeter(), tmet.LPIPSMeter()
+    for _ in range(2):
+        jm.update(a, b)
+        tm.update(a, b)
+    assert tm.name == jm.name == "LPIPS (proxy)"
+    np.testing.assert_allclose(tm.measure(), jm.measure(), atol=1e-5)
+    assert tm.measure() > 0

@@ -6,8 +6,9 @@ repository's conftest (which imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Tolerances: K1 exact; K2 and K5 atol 1e-5; K3 and K6 atol 1e-5 with rtol
-1e-4 of each row's summed |contribution| (the atomics add in another order).
+Tolerances: K1 exact; K2, K4 and K5 atol 1e-5; K3 and K6 atol 1e-5 with
+rtol 1e-4 of each row's summed |contribution| (the atomics add in another
+order).
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from nerf2mesh_tpu_torch import kernels
 from nerf2mesh_tpu_torch.ops import occ_sweep
+from nerf2mesh_tpu_torch.ops import pallas_encode as pe
 from nerf2mesh_tpu_torch.ops import splat_encode as se
 from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
 
@@ -195,3 +197,71 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         occ_sweep.occ_lookup(torch.zeros(8, dtype=torch.int32, device=dev),
                              torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+# the slice's ref table: levels 0-1 dense, 2-15 hashed at 2^14 rows
+REF_SPEC = HashGridSpec(num_levels=16, level_dim=3, log2_hashmap_size=14,
+                        desired_resolution=2048, layout="ref")
+
+
+def _ref_points(n, seed=0):
+    """Uniform points, lattice-edge points (exact and 1 ulp off) at every
+    level, coordinates 0 and 1, and points just and far out of bounds."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, 3))
+    for l in range(16):
+        s = REF_SPEC.level_scale32(l)
+        g = rng.integers(1, int(s), 16)
+        v = ((g - 0.5) / np.float32(s)).astype(np.float32)
+        v[4:10] = np.nextafter(v[4:10], np.float32(2))
+        v[10:] = np.nextafter(v[10:], np.float32(-1))
+        x[16 * l:16 * l + 16, l % 3] = v
+    x[-6:] = rng.uniform(0, 1, (6, 3))
+    x[-6, 0], x[-5, 1] = 0.0, 1.0
+    x[-4, 2] = np.nextafter(np.float32(0), np.float32(-1))
+    x[-3, 0] = np.nextafter(np.float32(1), np.float32(2))
+    x[-2, 1], x[-1] = 1.5, 2.0
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def test_sweep_kernel_matches_plain(dev):
+    x = _ref_points(4096).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    table = (torch.rand((REF_SPEC.table_size, 3), generator=g) * 2 - 1).to(dev)
+    before = kernels.LAUNCHES["sweep_fwd"]
+    out = pe.sweep_fwd(table, x, REF_SPEC)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_fwd"] == before + 1
+    ref = pe.sweep_fwd_plain(table, x, REF_SPEC)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert not out[-4:].any() and float(out[:-4].abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("kw", [dict(num_levels=40, log2_hashmap_size=14),
+                                dict(num_levels=6, log2_hashmap_size=12,
+                                     gridtype="tiled")])
+def test_sweep_kernel_level_count_and_tiled(dev, kw):
+    """K4 at more levels than the 16 of the slice and on a tiled grid, whose
+    dense levels wrap modulo their size."""
+    spec = HashGridSpec(**{**dict(level_dim=3, desired_resolution=2048,
+                                  layout="ref"), **kw})
+    x = _ref_points(4096, seed=4).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    table = (torch.rand((spec.table_size, 3), generator=g) * 2 - 1).to(dev)
+    torch.testing.assert_close(pe.sweep_fwd(table, x, spec),
+                               pe.sweep_fwd_plain(table, x, spec),
+                               atol=1e-5, rtol=0)
+
+
+def test_sweep_autograd_on_card(dev):
+    x = _ref_points(2048, seed=2).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    table = (torch.rand((REF_SPEC.table_size, 3), generator=g) * 2 - 1).to(dev)
+    t = table.clone().requires_grad_()
+    feat = pe.sweep_encode(t, x, REF_SPEC)
+    feat.square().sum().backward()
+    t_ref = table.clone().requires_grad_()
+    ref = hashgrid_encode(t_ref, x, REF_SPEC)
+    ref.square().sum().backward()
+    torch.testing.assert_close(feat, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(t.grad, t_ref.grad, atol=1e-4, rtol=1e-4)

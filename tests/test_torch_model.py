@@ -76,9 +76,12 @@ def _field_inputs(n=600, seed=2):
     return x, d
 
 
+@pytest.mark.parametrize("layout", ["block512", "ref"])
 @pytest.mark.parametrize("full", [True, False])
-def test_field_forward_parity(full):
-    jspec, tspec = net_specs()
+def test_field_forward_parity(full, layout):
+    """block512: the splat path (sorted, residual counts); ref at a 2^14
+    table: the sweep encode (unsorted, no counts)."""
+    jspec, tspec = net_specs(grid_layout=layout)
     params, field = jax_field(jspec, tspec)
     x, d = _field_inputs()
     js, jc, jsp, _ = jnet.field_forward(params, jnp.asarray(x), jnp.asarray(d),
@@ -89,25 +92,33 @@ def test_field_forward_parity(full):
                                **TOL)
     np.testing.assert_allclose(tc.detach().numpy(), np.asarray(jc), **TOL)
     np.testing.assert_allclose(tsp.detach().numpy(), np.asarray(jsp), **TOL)
-    assert cnt.shape == (6,) and cnt.dtype == torch.int32
+    if layout == "ref":
+        assert cnt is None
+    else:
+        assert cnt.shape == (6,) and cnt.dtype == torch.int32
 
 
-def test_density_parity_stochastic_off_and_on():
-    jspec, tspec = net_specs()
+@pytest.mark.parametrize("layout", ["block512", "ref"])
+def test_density_parity_stochastic_off_and_on(layout):
+    jspec, tspec = net_specs(grid_layout=layout)
     params, field = jax_field(jspec, tspec)
     x, _ = _field_inputs(500, seed=3)
     want = np.asarray(jnet.density(params, jnp.asarray(x), jspec))
     got = tnet.density(field, T(x), tspec).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, **TOL)
-    # unbiased 1-corner estimate: close to the exact density on average
     sto = tnet.density(field, T(x), dataclasses.replace(
         tspec, encode_stochastic=True)).detach().numpy()
+    if layout == "ref":
+        # the 1-corner estimate exists only on the splat path: ref is exact
+        np.testing.assert_array_equal(sto, got)
+        return
+    # unbiased 1-corner estimate: close to the exact density on average
     assert np.isfinite(sto).all() and abs(sto.mean() / want.mean() - 1) < 0.05
 
 
 def test_unsupported_modes_raise():
     _, tspec = net_specs()
-    for kw in (dict(sdf=True), dict(ind_dim=4), dict(grid_layout="ref")):
+    for kw in (dict(sdf=True), dict(ind_dim=4), dict(separate_tables=True)):
         with pytest.raises(NotImplementedError):
             tnet.NeRFField(dataclasses.replace(tspec, **kw),
                            torch.Generator().manual_seed(0))

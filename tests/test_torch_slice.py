@@ -104,20 +104,25 @@ def test_adam_and_schedule_match_optax():
                                        atol=1e-7, rtol=0, err_msg=k)
 
 
-def test_one_step_loss_and_grads_match_jax(tmp_path):
+@pytest.mark.parametrize("layout,lambda_entropy", [
+    ("block512", 0.0), ("ref", 0.0), ("ref", 0.1)])
+def test_one_step_loss_and_grads_match_jax(tmp_path, layout, lambda_entropy):
+    """block512: the splat path; ref (2^14 table): the sweep encode; with
+    lambda_entropy the weight-entropy term (a tenth of the loss or more)."""
+    kw = dict(stochastic_fine=False, grid_layout=layout,
+              lambda_entropy=lambda_entropy)
     root = str(tmp_path / "scene")
     jgen(root, **SCENE)
-    jcfg = tiny(JConfig, root, stochastic_fine=False,
-                workspace=str(tmp_path / "ws"))
+    jcfg = tiny(JConfig, root, workspace=str(tmp_path / "ws"), **kw)
     jds = jload(jcfg, "train")
     jt = jtr.Trainer(jcfg)
     jt.mark_untrained(jds)
     jt.update_grid(0)
 
-    tcfg = tiny(TConfig, stochastic_fine=False)
+    tcfg = tiny(TConfig, **kw)
     tds = dataset_from_frames(tcfg, render_synthetic_frames(**SCENE))
     np.testing.assert_array_equal(tds.images, jds.images)
-    pt = ttr.Trainer(tcfg, device="cpu")
+    pt = ttr.Trainer(tcfg, device="cpu", workspace=str(tmp_path / "tws"))
     load_params(pt.params, params_from_jax(jt.state.params))
     r = jt.state.render
     pt.render = RenderState(torch.tensor(np.asarray(r.density_grid)),
@@ -169,13 +174,31 @@ def test_one_step_loss_and_grads_match_jax(tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=atol,
                                    err_msg=name)
         assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want), name
+    if layout == "ref":
+        # the stochastic 1-corner estimate exists only on the splat path: a
+        # ref run with stochastic_fine computes the exact encode
+        pt.cfg = dataclasses.replace(pt.cfg, stochastic_fine=True)
+        loss2, _ = pt._loss_and_metrics(pt.params, pt.render, images_t,
+                                        poses_t, intr_t, pt.dynamics(0), N,
+                                        draws)
+        assert float(loss2.detach()) == float(loss.detach())
+
+
+def test_sharpen_schedule_matches_jax(tmp_path):
+    kw = dict(iters=100, sharpen_steps=40, sharpen_entropy=0.02,
+              lambda_entropy=0.001)
+    jt = jtr.Trainer(tiny(JConfig, workspace=str(tmp_path), **kw))
+    pt = ttr.Trainer(tiny(TConfig, **kw), device="cpu")
+    for step in (0, 99, 100, 119, 120, 139, 200):
+        assert pt.dynamics(step).lambda_entropy == pytest.approx(
+            float(jt.dynamics(step).lambda_entropy), rel=1e-6), step
 
 
 
-def test_port_training_loss_falls():
+def test_port_training_loss_falls(tmp_path):
     """30 port steps (stochastic encode, as trained on the card) on the CPU:
     finite, falling loss; the grid, ray and routing probes run."""
-    cfg = tiny(TConfig, lr=0.2)
+    cfg = tiny(TConfig, lr=0.2, n_ckpt=1, workspace=str(tmp_path))
     ds = dataset_from_frames(cfg, render_synthetic_frames(**SCENE))
     t = ttr.Trainer(cfg, device="cpu")
     t.mark_untrained(ds)
@@ -186,11 +209,13 @@ def test_port_training_loss_falls():
     assert t.ema_count == 30 and t.num_rays != cfg.num_rays
     last = t.train(ds, None, max_steps=32)
     assert t.step == 32 and np.isfinite(float(last["loss"]))
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "ngp_stage0_0000032.ckpt", "ngp_stage0_latest.ckpt"]
 
 
 def test_unported_options_raise():
     for kw in (dict(sdf=True), dict(bound=2.0), dict(patch_size=4),
-               dict(lambda_entropy=1e-3)):
+               dict(color_space="linear")):
         with pytest.raises(NotImplementedError):
             ttr.Trainer(tiny(TConfig, **kw), device="cpu")
     cfg = tiny(TConfig)
@@ -200,8 +225,13 @@ def test_unported_options_raise():
 
 
 def test_port_imports_no_jax_source():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|nerf2mesh_tpu)\b(?!_torch)")
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|optax|nerf2mesh_tpu)\b(?!_torch)")
     files = sorted((REPO / "nerf2mesh_tpu_torch").rglob("*.py"))
+    names = {f.relative_to(REPO / "nerf2mesh_tpu_torch").as_posix()
+             for f in files}
+    assert {"main.py", "ops/pallas_encode.py", "utils/convert.py",
+            "utils/losses.py", "data/png.py"} <= names
     files.append(REPO / "chip_smoke.py")
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -209,7 +239,7 @@ def test_port_imports_no_jax_source():
     assert files and not bad, bad
 
 
-def test_port_runs_with_jax_and_pil_blocked():
+def test_port_runs_with_jax_and_pil_blocked(tmp_path):
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -222,7 +252,8 @@ from nerf2mesh_tpu_torch.data.synthetic import render_synthetic_frames
 from nerf2mesh_tpu_torch.utils.trainer import Trainer
 cfg = dataclasses.replace(Config(), **{dict(bound=1.0, scale=0.8,
     num_rays=128, num_points=2048, grid_size=16, num_levels=4,
-    log2_hashmap_size=12, mark_untrained=True)!r}).finalize()
+    log2_hashmap_size=12, mark_untrained=True,
+    workspace=str(tmp_path))!r}).finalize()
 frames = render_synthetic_frames(H=16, W=16, n_train=2, n_val=1, n_test=0)
 ds = dataset_from_frames(cfg, frames)
 t = Trainer(cfg, device="cpu")

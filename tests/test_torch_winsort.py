@@ -229,7 +229,7 @@ def test_winsort_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.parametrize("stochastic_fine", [False, True])
-def test_trainer_winsort_trains_and_evaluates(stochastic_fine):
+def test_trainer_winsort_trains_and_evaluates(stochastic_fine, tmp_path):
     """winsort_fine no longer raises; with the exact encode the training
     step runs K5/K6 (plain here), and train(ds, val_ds) evaluates."""
     cfg = dataclasses.replace(
@@ -237,7 +237,8 @@ def test_trainer_winsort_trains_and_evaluates(stochastic_fine):
         num_points=4096, grid_size=32, num_levels=6, log2_hashmap_size=14,
         random_image_batch=True, background="random", mark_untrained=True,
         adaptive_num_rays=True, diffuse_step=1000, lr=0.2, n_eval=1,
-        winsort_fine=True, stochastic_fine=stochastic_fine).finalize()
+        winsort_fine=True, stochastic_fine=stochastic_fine, n_ckpt=1,
+        workspace=str(tmp_path)).finalize()
     frames = render_synthetic_frames(H=24, W=24, n_train=4, n_val=1, n_test=0)
     ds = dataset_from_frames(cfg, frames, "train")
     val = dataset_from_frames(cfg, frames, "val")
