@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
   2. build: compile the port's kernels (nerf2mesh_tpu_torch/csrc) with nvcc;
   3. kernels: K1 occ_lookup, K2 inwin_fwd and K3 inwin_bwd against their
      plain PyTorch versions at the shapes the training step gives them,
-     plus K2 + the residual against the plain hashgrid_encode; K5
+     plus K2 + the residual against the plain hashgrid_encode; K3's global
+     vector adds counted, and K3 on a hot spot (16 tiles inside one level-0
+     lattice cell); K6 on a long run (2048 points in one level-15 block); K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
      plus K5 + its residual against hashgrid_encode; K4 sweep_fwd against
@@ -29,7 +31,7 @@ Phases, in order; any failure exits non-zero:
      winsort_fine=True, stochastic_fine=False trains 64 steps (losses finite
      and falling, K5 and K6 launched by the training alone), then evaluates
      the val views (K5 launched by the eval alone); ms/step, rays/s,
-     ms/frame and PSNR;
+     ms/frame and PSNR; 8 more steps profiled;
   7. cli: the ref small-table slice through nerf2mesh_tpu_torch.main on a
      256x256 blender scene written to a temporary directory (24 train, 4
      val, 2 test views): 128 steps at bench.py's flags with --grid_layout
@@ -69,7 +71,7 @@ N_VAL = 4                  # eval views (phases 5 and 6)
 WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
 CLI_STEPS = 128            # phase 7
-PROFILE_STEPS = 8          # profiled steps after phases 4 and 7
+PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -305,6 +307,7 @@ def phase_kernels(dev):
                      .abs().sum(-1).gt(0).sum())
     log(f"[kernels] same-window tile at level {sl}: rows {last.tolist()}, "
         f"{n_win_rows} table rows of the level touched")
+    inwin_bwd_extra(dev, spec, levels, g, bargs)
 
     # K2 + residual == plain exact encode (kernel levels 0-8, gather 9-15)
     gather = tuple(range(9, 16))
@@ -363,6 +366,81 @@ def atomic_tol_margin(kernel, plain, g, args):
                       .abs()).min()))
 
 
+def touched_tol_share(kernel, plain, g, args):
+    """The largest |kernel - plain| over its tolerance (atomic_tol_margin's)
+    among the gradient entries some term reaches (the plain gradient of |g|
+    above 0): how near the entries the kernel writes came to failing."""
+    atol, rtol = TOL[kernel.__name__]
+    mag = plain(g.abs(), *args)
+    err = (kernel(g, *args) - plain(g, *args)).abs()
+    hit = mag > 0
+    return float((err[hit] / (atol + rtol * mag[hit])).max())
+
+
+def inwin_bwd_extra(dev, spec, levels, g, bargs):
+    """K3's global vector adds on the main input, counted by the plain
+    corner walk; then K3 on the hot spot, 16 morton tiles inside one
+    lattice cell of level 0, where every lane of every warp adds into the
+    same 8 rows."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    plain = se.inwin_bwd_plain
+    adds = se.inwin_bwd_vector_adds(g, *bargs[:-1])
+    inw = se._inwin_corners(*bargs[:-1])[2]
+    scalar = 3 * int((inw & (g != 0).any(-1)[..., None]).sum())
+    log(f"[kernels] K3 global vector adds {adds} (the scalar atomics they "
+        f"replace: {scalar})")
+
+    rng = np.random.default_rng(SEED + 1)
+    s0 = spec.level_scale32(0)
+    xh = torch.from_numpy(((7 + rng.uniform(0.01, 0.99, (2048, 3)) - spec.shift)
+                           / s0).astype(np.float32)).to(dev)
+    if not bool((torch.floor(xh * s0 + spec.shift) == 7).all()):
+        raise AssertionError("hot spot left its level-0 cell")
+    metas = [se.tile_meta(xh.reshape(-1, se.TILE, 3), spec, l) for l in levels]
+    hargs = (xh, torch.stack([m[0] for m in metas]).contiguous(),
+             torch.stack([m[1] for m in metas]).contiguous(), spec, levels,
+             spec.table_size)
+    gh = torch.from_numpy(rng.normal(size=(2048, len(levels), 3))
+                          .astype(np.float32)).to(dev)
+    margin = atomic_tol_margin(se.inwin_bwd, plain, gh, hargs)
+    err = float((se.inwin_bwd(gh, *hargs) - plain(gh, *hargs)).abs().max())
+    share = touched_tol_share(se.inwin_bwd, plain, gh, hargs)
+    log(f"[kernels] K3 hot spot (16 tiles in one level-0 cell): max|err| "
+        f"{err:.3e}; largest error over tolerance among touched entries "
+        f"{share:.3f}")
+    if margin < 0:
+        raise AssertionError(f"K3 disagrees on the hot spot: {err}")
+
+
+def winsort_long_run(dev, spec):
+    """K6 on a long run: 2048 points inside one level-15 block (a window
+    whose run spans 16 tiles, one owner block) and 2048 uniform points."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    rng = np.random.default_rng(SEED + 2)
+    s = np.float32(spec.level_scale32(15))
+    pts = np.concatenate([(8 * 100 + rng.uniform(0.01, 7.99, (2048, 3))
+                           - spec.shift) / s, rng.uniform(0, 1, (2048, 3))])
+    xc = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    oob = torch.zeros(4096, dtype=torch.bool, device=dev)
+    metas = [se.winsort_meta(xc, oob, spec, l) for l in WINSORT_LEVELS]
+    perm = torch.stack([m[0] for m in metas]).to(torch.int32).contiguous()
+    wins = torch.stack([m[1] for m in metas]).contiguous()
+    slots = torch.stack([m[2] for m in metas]).contiguous()
+    run = int((wins[-1] == wins[-1, perm[-1].long().argsort()[0]]).sum())
+    g = torch.from_numpy(rng.normal(size=(4096, len(WINSORT_LEVELS), 3))
+                         .astype(np.float32)).to(dev)
+    args = (xc, perm, wins, slots, spec, WINSORT_LEVELS, spec.table_size)
+    err = float((se.winsort_bwd(g, *args) - se.winsort_bwd_plain(g, *args))
+                .abs().max())
+    share = touched_tol_share(se.winsort_bwd, se.winsort_bwd_plain, g, args)
+    log(f"[kernels] K6 long run ({run} points in one level-15 window): "
+        f"max|err| {err:.3e}; largest error over tolerance among touched "
+        f"entries {share:.3f}")
+    if run < 2048 or atomic_tol_margin(se.winsort_bwd, se.winsort_bwd_plain,
+                                       g, args) < 0:
+        raise AssertionError(f"K6 disagrees on the long run: {err}")
+
+
 def winsort_kernels(dev, spec, table, rng):
     """K5/K6 on 2^18 uniform points (the fine-level regime: no spatial
     locality) at winsort levels 7-15, with out-of-bounds points and points on
@@ -401,6 +479,7 @@ def winsort_kernels(dev, spec, table, rng):
         raise AssertionError(f"K5 winsort_fwd disagrees: {err5}")
     if tol6 < 0:
         raise AssertionError(f"K6 winsort_bwd disagrees: {err6}")
+    winsort_long_run(dev, spec)
 
     feat, _ = se.splat_encode_raw(table, x, spec, gather_levels=wl,
                                   winsort_levels=wl)
@@ -669,6 +748,9 @@ def phase_winsort(dev):
             raise AssertionError(f"kernel {k} was not launched by training")
     psnr, ms_frame, _ = run_eval(trainer, val, "winsort", ("winsort_fwd",))
     log(f"[winsort] eval PSNR {psnr:.4f}, {ms_frame:.1f} ms/frame")
+    profile_region(lambda: trainer.train_steps(ds, PROFILE_STEPS),
+                   f"winsort steps {WINSORT_STEPS}-"
+                   f"{WINSORT_STEPS + PROFILE_STEPS}", per=PROFILE_STEPS)
     return launches
 
 

@@ -4,7 +4,9 @@
 // Replaces: nerf2mesh_tpu/ops/splat_encode.py `_fwd_kernel` (via
 // _level_pallas_fwd / _inwin) and `_bwd_kernel` (via _level_pallas_bwd).
 // On the TPU those contract VMEM-resident 2x2x2 windows of 8^3 table blocks
-// against separable one-hot weights on the MXU, one 128-point tile at a time.
+// against separable one-hot weights on the MXU, one 128-point tile at a time;
+// the backward's sequential grid reads, modifies and writes the tile's
+// windows in VMEM, one [48, 64] product per slot pair.
 //
 // Contract (that of windowed_reference): a tile of 128 points has a base
 // block `base` per level (tile_meta); a corner whose local lattice coordinate
@@ -15,27 +17,45 @@
 // splat_encode_raw computes in PyTorch.  Reading the canonical table directly
 // removes the [Wtot, 24, 64] splat transpose of the whole table per step.
 //
-// Bound on the H100: memory latency of the random table reads.  Per
-// (point, level) the kernel reads 12 B of position, does ~60 flops and up to
-// 8 corner reads of 12 B each from a table of up to 2^19 * 3 * 4 B = 6 MB per
-// level, all of which fit the 50 MB L2 together; the forward is bound by L2
-// latency, the backward by the throughput of its float atomics.
+// The lattice position x*scale + shift is computed with __fmul_rn/__fadd_rn
+// so that nvcc cannot contract it into an FMA: PyTorch decides which corners
+// are out of window (the residual) with a separately rounded multiply and
+// add, and one floor that differed would count a corner twice or drop it.
 //
-// Design: one thread per (point, kernel level), threads ordered point-major so
-// that a warp's 32 lanes read neighbouring morton-sorted points whose corners
-// share table lines.  No shared-memory window staging yet (later work).  The
-// lattice position x*scale + shift is computed with __fmul_rn/__fadd_rn so
-// that nvcc cannot contract it into an FMA: PyTorch decides which corners are
-// out of window (the residual) with a separately rounded multiply and add, and
-// one floor that differed would count a corner twice or drop it silently.
-// The backward adds with atomicAdd into a zeroed fp32 [total, 3] gradient: on
-// the TPU K3's read-modify-writes were race-free only because its grid ran in
-// order; here tiles run in parallel and two slots of one tile, or two tiles,
-// can share a window (hashed levels), so the adds must be atomic.
+// K2, bound on the H100: memory latency of the random table reads.  Per
+// (point, level) it reads 12 B of position, does ~60 flops and up to 8
+// corner reads of 12 B each from a level of up to 2^19 * 12 B = 6 MB, all
+// L2-resident.  One thread per (point, kernel level), point-major, so a
+// warp's 32 lanes read neighbouring morton-sorted points whose corners share
+// table lines.
+//
+// K3, bound on the H100: the adds into the [total, 3] gradient.  One float
+// atomic per (point, corner, channel) in device memory was ~46M contended
+// L2 atomics at 2^18 points and 9 levels (the 32 lanes of a warp mostly hit
+// the same 8 rows; level 0 has 27 windows).  The design reduces on chip, as
+// the TPU kernel did in VMEM: one thread block takes one tile at one kernel
+// level, two threads a point (corners 0-3 and 4-7).  Warp 0 gives each
+// distinct window id among the tile's 8 slots one shared [512, 3] f32
+// accumulator (6 KiB); slots of one id (hashed collisions) share it.  A
+// float atomicAdd on shared memory is a compare-and-swap loop, so the lanes
+// of a warp that add into one row would serialise: warp_add3 sums them with
+// shuffles first (warp_peers.cuh), and the row's lowest lane adds the sum
+// and marks the row's 16-byte chunks in a bitmask.  After a barrier the block adds each
+// touched chunk into device memory as one 16-byte vector atomic
+// (atomicAdd(float4*), red.global.add.v4.f32 on sm_90): ~2.6M adds at 2^18
+// points in place of ~46M.  What bounds it now is not measured (PERF.md):
+// the vector adds into the coarse windows that every block shares, or the
+// shared CAS loops.  A window starts at row offsets[l] + win*512 with
+// offsets[l] a multiple of 512 (level sizes are), so its first float is
+// 16-byte aligned when the gradient is; the launcher checks both.  Dynamic
+// shared memory: 48 KiB + 384 B, so four blocks fit an SM.  (Blocks of 2
+// and 4 consecutive tiles, which share their coarse windows, issued 12% and
+// 20% fewer vector adds but ran 3-10% slower: PERF.md.)
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "level_params.cuh"
+#include "warp_peers.cuh"
 
 namespace {
 
@@ -43,21 +63,20 @@ using n2m::blocks_for;
 using n2m::kTile;
 using n2m::LevelParams;
 using n2m::pack_levels;
+using n2m::peer_sum;
 
-// Walks the 8 corners of point p at kernel level k; calls fn(row, w) for each
-// in-window corner.  Returns nothing: out-of-window corners are skipped.
-template <typename Fn>
-__device__ __forceinline__ void for_inwin_corners(
+constexpr int kWinFloats = 512 * 3;          // one window of the table
+constexpr int kWinChunks = kWinFloats / 4;   // its 16-byte chunks: 384
+constexpr int kWinWords = kWinChunks / 32;   // its touched-mask words: 12
+
+// Lattice cell of point p at kernel level k: lg its coordinate relative to
+// the tile's base block (8 * base), fr the fractions.
+__device__ __forceinline__ void inwin_lattice(
     const float* __restrict__ x, const int32_t* __restrict__ bases,
-    const int32_t* __restrict__ rows, const LevelParams& lp, float shift,
-    int64_t p, int k, int64_t n_tiles, Fn fn) {
-  const int64_t t = p / kTile;
+    const LevelParams& lp, float shift, int64_t p, int k, int64_t n_tiles,
+    int lg[3], float fr[3]) {
   const float s = lp.scale[k];
-  const int32_t* b = bases + (static_cast<int64_t>(k) * n_tiles + t) * 3;
-  const int32_t* r = rows + (static_cast<int64_t>(k) * n_tiles + t) * 8;
-  const int64_t off = lp.offset[k];
-  int lg[3];
-  float fr[3];
+  const int32_t* b = bases + (static_cast<int64_t>(k) * n_tiles + p / kTile) * 3;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const float pos = __fadd_rn(__fmul_rn(x[p * 3 + d], s), shift);
@@ -65,21 +84,25 @@ __device__ __forceinline__ void for_inwin_corners(
     fr[d] = __fsub_rn(pos, g);
     lg[d] = static_cast<int>(g) - 8 * b[d];
   }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-    const int lx = lg[0] + bx, ly = lg[1] + by, lz = lg[2] + bz;
-    if (lx < 0 || lx >= 16 || ly < 0 || ly >= 16 || lz < 0 || lz >= 16)
-      continue;
-    const float wx = bx ? fr[0] : __fsub_rn(1.0f, fr[0]);
-    const float wy = by ? fr[1] : __fsub_rn(1.0f, fr[1]);
-    const float wz = bz ? fr[2] : __fsub_rn(1.0f, fr[2]);
-    const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-    const int slot = (lx >> 3) + 2 * (ly >> 3) + 4 * (lz >> 3);
-    const int64_t row = off + static_cast<int64_t>(r[slot]) * 512 +
-                        (lx & 7) + 8 * (ly & 7) + 64 * (lz & 7);
-    fn(row, w);
-  }
+}
+
+// Corner c of the cell (bit d = offset along axis d): false if it lies out
+// of the tile's 16^3 window neighbourhood; else its window slot, its row
+// `cell` = (cx&7) + 8*(cy&7) + 64*(cz&7) in the slot's window, and weight w.
+__device__ __forceinline__ bool inwin_corner(const int lg[3], const float fr[3],
+                                             int c, int& slot, int& cell,
+                                             float& w) {
+  const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+  const int lx = lg[0] + bx, ly = lg[1] + by, lz = lg[2] + bz;
+  if (lx < 0 || lx >= 16 || ly < 0 || ly >= 16 || lz < 0 || lz >= 16)
+    return false;
+  const float wx = bx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+  const float wy = by ? fr[1] : __fsub_rn(1.0f, fr[1]);
+  const float wz = bz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+  w = __fmul_rn(__fmul_rn(wx, wy), wz);
+  slot = (lx >> 3) + 2 * (ly >> 3) + 4 * (lz >> 3);
+  cell = (lx & 7) + 8 * (ly & 7) + 64 * (lz & 7);
+  return true;
 }
 
 __global__ void inwin_fwd_kernel(const float* __restrict__ table,
@@ -94,38 +117,124 @@ __global__ void inwin_fwd_kernel(const float* __restrict__ table,
   if (tid >= n_points * n_levels) return;
   const int64_t p = tid / n_levels;
   const int k = static_cast<int>(tid - p * n_levels);
+  const int32_t* r = rows + (static_cast<int64_t>(k) * n_tiles + p / kTile) * 8;
+  const int64_t off = lp.offset[k];
+  int lg[3];
+  float fr[3];
+  inwin_lattice(x, bases, lp, shift, p, k, n_tiles, lg, fr);
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for_inwin_corners(x, bases, rows, lp, shift, p, k, n_tiles,
-                    [&](int64_t row, float w) {
-                      a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(table + row * 3)));
-                      a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(table + row * 3 + 1)));
-                      a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(table + row * 3 + 2)));
-                    });
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int slot, cell;
+    float w;
+    if (!inwin_corner(lg, fr, c, slot, cell, w)) continue;
+    const int64_t row = off + static_cast<int64_t>(r[slot]) * 512 + cell;
+    a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(table + row * 3)));
+    a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(table + row * 3 + 1)));
+    a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(table + row * 3 + 2)));
+  }
   out[tid * 3] = a0;
   out[tid * 3 + 1] = a1;
   out[tid * 3 + 2] = a2;
 }
 
-__global__ void inwin_bwd_kernel(const float* __restrict__ grad,
-                                 const float* __restrict__ x,
-                                 const int32_t* __restrict__ bases,
-                                 const int32_t* __restrict__ rows,
-                                 const __grid_constant__ LevelParams lp,
-                                 float shift, int64_t n_points,
-                                 int64_t n_tiles, int n_levels,
-                                 float* __restrict__ dtable) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_points * n_levels) return;
-  const int64_t p = tid / n_levels;
-  const int k = static_cast<int>(tid - p * n_levels);
-  const float g0 = grad[tid * 3], g1 = grad[tid * 3 + 1], g2 = grad[tid * 3 + 2];
-  if (g0 == 0.f && g1 == 0.f && g2 == 0.f) return;   // e.g. out-of-bounds points
-  for_inwin_corners(x, bases, rows, lp, shift, p, k, n_tiles,
-                    [&](int64_t row, float w) {
-                      atomicAdd(dtable + row * 3, __fmul_rn(g0, w));
-                      atomicAdd(dtable + row * 3 + 1, __fmul_rn(g1, w));
-                      atomicAdd(dtable + row * 3 + 2, __fmul_rn(g2, w));
-                    });
+// Adds (v0, v1, v2) into the shared acc[3*row .. 3*row+2] for each lane
+// with `valid`, the lanes of one row summed first (peer_sum).  Every lane of
+// the warp must call it (the caller's loop is warp-uniform).  Returns true
+// on the lane that made its row's adds.
+__device__ __forceinline__ bool warp_add3(float* acc, int row, bool valid,
+                                          float v0, float v1, float v2) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? row : -1 - lane);
+  float v[3] = {v0, v1, v2};
+  if (!(peer_sum(peers, v) && valid)) return false;
+  atomicAdd(acc + 3 * row, v[0]);
+  atomicAdd(acc + 3 * row + 1, v[1]);
+  atomicAdd(acc + 3 * row + 2, v[2]);
+  return true;
+}
+
+__device__ __forceinline__ void mark_chunk(uint32_t* touched, int c) {
+  atomicOr(touched + (c >> 5), 1u << (c & 31));
+}
+
+// Block (t, k) = blockIdx.x as t * n_levels + k, so the blocks of one tile
+// at all levels run together and share the tile's x and grad lines.
+// Thread (h, i) = threadIdx.x as h * 128 + i takes the corners 4h..4h+3 of
+// point i of the tile: two threads a point, so that twice the warps hide
+// the loads' latency at the same shared memory.
+__global__ void __launch_bounds__(2 * kTile)
+inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
+                 const int32_t* __restrict__ bases,
+                 const int32_t* __restrict__ rows,
+                 const __grid_constant__ LevelParams lp, float shift,
+                 int64_t n_tiles, int n_levels, float* __restrict__ dtable) {
+  extern __shared__ float4 acc4[];                      // [n_win][384] float4
+  float* acc = reinterpret_cast<float*>(acc4);
+  uint32_t* touched = reinterpret_cast<uint32_t*>(acc4 + 8 * kWinChunks);
+  __shared__ int32_t win_id[8];         // window id of each shared window
+  __shared__ int32_t win_of[8];         // slot -> shared window
+  __shared__ int n_win;
+
+  const int k = static_cast<int>(blockIdx.x % n_levels);
+  const int64_t t = blockIdx.x / n_levels;
+
+  // one shared window per distinct window id among the tile's slots
+  if (threadIdx.x < 32) {
+    const int i = threadIdx.x;
+    const bool live = i < 8;
+    const int32_t id = live ? rows[(static_cast<int64_t>(k) * n_tiles + t) * 8 + i]
+                            : -1 - i;             // window ids are >= 0
+    const unsigned same = __match_any_sync(0xffffffffu, id);
+    const int leader = __ffs(same) - 1;
+    const unsigned firsts = __ballot_sync(0xffffffffu, live && leader == i);
+    const int u = __popc(firsts & ((1u << leader) - 1u));
+    if (live) {
+      win_of[i] = u;
+      if (leader == i) win_id[u] = id;
+    }
+    if (i == 0) n_win = __popc(firsts);
+  }
+  __syncthreads();
+  const int nw = n_win;
+  for (int c = threadIdx.x; c < nw * kWinChunks; c += blockDim.x)
+    acc4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = threadIdx.x; c < nw * kWinWords; c += blockDim.x) touched[c] = 0u;
+  __syncthreads();
+
+  const int h = threadIdx.x / kTile;
+  const int64_t p = t * kTile + threadIdx.x % kTile;
+  const float* gp = grad + (p * n_levels + k) * 3;
+  const float g0 = gp[0], g1 = gp[1], g2 = gp[2];
+  const bool live = g0 != 0.f || g1 != 0.f || g2 != 0.f;   // e.g. oob points
+  int lg[3] = {-64, -64, -64};
+  float fr[3] = {0.f, 0.f, 0.f};
+  if (live) inwin_lattice(x, bases, lp, shift, p, k, n_tiles, lg, fr);
+#pragma unroll
+  for (int c = 4 * h; c < 4 * h + 4; ++c) {   // warp-uniform: h is
+    int slot = 0, cell = 0;
+    float w = 0.f;
+    const bool in = live && inwin_corner(lg, fr, c, slot, cell, w);
+    const int u = in ? win_of[slot] : 0;
+    if (warp_add3(acc, u * 512 + cell, in, __fmul_rn(g0, w), __fmul_rn(g1, w),
+                  __fmul_rn(g2, w))) {
+      const int c0 = u * kWinChunks + ((cell * 3) >> 2);
+      const int c1 = u * kWinChunks + ((cell * 3 + 2) >> 2);
+      mark_chunk(touched, c0);
+      if (c1 != c0) mark_chunk(touched, c1);
+    }
+  }
+  __syncthreads();
+
+  // one 16-byte vector add into device memory per touched chunk
+  const int64_t off3 = static_cast<int64_t>(lp.offset[k]) * 3;
+  for (int c = threadIdx.x; c < nw * kWinChunks; c += blockDim.x) {
+    if (!((touched[c >> 5] >> (c & 31)) & 1u)) continue;
+    const int u = c / kWinChunks;
+    float* dst = dtable + off3 + static_cast<int64_t>(win_id[u]) * kWinFloats +
+                 4 * (c - u * kWinChunks);
+    atomicAdd(reinterpret_cast<float4*>(dst), acc4[c]);
+  }
 }
 
 }  // namespace
@@ -155,8 +264,9 @@ extern "C" int n2m_inwin_fwd(const void* table, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// grad: [n_points, n_levels, 3] f32; dtable: [total, 3] f32, zeroed by the
-// caller and accumulated into.  Other arguments as n2m_inwin_fwd.
+// grad: [n_points, n_levels, 3] f32; dtable: [total, 3] f32, 16-byte aligned,
+// zeroed by the caller and accumulated into; every offsets[k] a multiple of
+// 4 rows.  Other arguments as n2m_inwin_fwd.
 extern "C" int n2m_inwin_bwd(const void* grad, const void* x,
                              const void* bases, const void* rows,
                              const float* scales, const int32_t* offsets,
@@ -165,14 +275,20 @@ extern "C" int n2m_inwin_bwd(const void* grad, const void* x,
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = n_points * n_levels;
-  if (n > 0) {
-    const int threads = 256;
-    inwin_bwd_kernel<<<blocks_for(n, threads), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grad), static_cast<const float*>(x),
-        static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows),
-        lp, shift, n_points, n_tiles, n_levels, static_cast<float*>(dtable));
-  }
+  if (reinterpret_cast<uintptr_t>(dtable) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int k = 0; k < n_levels; ++k)
+    if (offsets[k] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_points != n_tiles * kTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const int smem = 8 * kWinFloats * 4 + 8 * kWinWords * 4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      inwin_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  inwin_bwd_kernel<<<static_cast<unsigned>(n_tiles * n_levels), 2 * kTile, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(x),
+      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows), lp,
+      shift, n_tiles, n_levels, static_cast<float*>(dtable));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@
 // _ws_level_fwd / _inwin_ws) and `_ws_bwd_kernel` (via _ws_level_bwd).  On
 // the TPU those contract one VMEM-resident [24, 64] window per slot against
 // the separable weights of a 128-point tile, masked by each point's window
-// id, on the MXU.
+// id, on the MXU; the backward's sequential grid reads, modifies and writes
+// the slot's window in VMEM, one [24, 64] product per slot.
 //
 // Contract (that of splat_encode_raw's winsort branch): per winsort level,
 // the points are sorted by the window id of their own 8^3 block (`perm`,
@@ -18,28 +19,47 @@
 // corner, and every corner of a point outside the slots (oob points have
 // window -1 and never match), adds 0 here and is left to the residual that
 // splat_encode_raw computes in PyTorch.  The result is written at the
-// point's position in the caller's order, out[perm[i], k].
+// point's position in the caller's order, out[perm[i], k].  The lattice
+// position is __fadd_rn(__fmul_rn(x, s), shift), as in K2: PyTorch decides
+// which corners cross the block edge with a separately rounded multiply and
+// add, and one floor that differed would count a corner twice or drop it.
 //
-// Bound on the H100: memory latency.  Per (point, level) the kernel reads
-// 12 B of position at a scattered index, 3 ints of sort metadata, does ~60
-// flops and up to 8 corner reads of 12 B from one 6 KB window; the window-
-// sorted order puts a warp's 32 points on one or two windows, so the corner
-// reads share L2 lines.  The backward is bound by its float atomics: with
-// 2^18 points and 1024 windows a level, ~256 points add into each window's
-// 512 rows, and the lanes of a warp add into the same window.
+// K5, bound on the H100: memory latency.  Per (point, level) it reads 12 B
+// of position at a scattered index, 3 ints of sort metadata, does ~60 flops
+// and up to 8 corner reads of 12 B from one 6 KB window; the window-sorted
+// order puts a warp's 32 points on one or two windows, so the corner reads
+// share L2 lines.  One thread per (winsort level, sorted point), level-major.
 //
-// Design: one thread per (winsort level, sorted point), level-major, so a
-// warp walks 32 neighbours in the window-sorted order.  The lattice position
-// is __fadd_rn(__fmul_rn(x, s), shift), as in K2: PyTorch decides which
-// corners cross the block edge (the residual) with a separately rounded
-// multiply and add, and one floor that differed would count a corner twice
-// or drop it silently.  The backward adds with atomicAdd into a zeroed fp32
-// [total, 3] gradient: the TPU's sequential grid made its read-modify-write
-// of a window race-free, the GPU's blocks run in parallel.
+// K6, bound on the H100: the gradient's bytes, once the adds stay on chip.
+// With 2^18 points and 1024 windows a level, ~256 points add into each
+// window's 512 rows; one device-memory float atomic per (point, corner,
+// channel) serialised the lanes of a warp on one window.  Instead each
+// window has one owner block and no global atomic is made.  Ownership:
+// `wins[k]` ascends (the -1 tail sorts last), so a window id's points form
+// one run; a run that spans several tiles is the first or last window of
+// each of them, so all its points are slotted, and a run strictly inside one
+// tile has none slotted.  So every in-block corner of level k that lands in
+// window w comes from w's run.  Block (w, k) finds the run by binary search
+// (the -1 tail as +inf), walks it with the same membership test, reads x and
+// grad through perm, adds into a 6 KiB shared [512, 3] window with shared
+// atomics, and writes the window with coalesced 16-byte stores (zeros when
+// none of the run is slotted).  A window id with no run is not written: it
+// keeps the zeros of the caller's buffer.  A long run is a loop in its block.
+// Shared float atomics are compare-and-swap loops: clustered points, whose
+// runs are long and whose lanes share lattice cells, made the block's adds
+// into one row serialise and retry (slower than the device-memory atomics
+// they replaced).  So in a run of 8 or more blockfuls, or in a warp in which
+// two neighbouring lanes share a cell, the lanes of each cell sum each
+// corner's terms with shuffles first (peer_sum) and add once a cell; other
+// warps (the uniform case) add directly, paying one shuffle and one vote a
+// point for the test.  The run
+// is found by a block-wide search (block_run), not one thread's binary
+// search: every block searches, and most own no run when points cluster.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "level_params.cuh"
+#include "warp_peers.cuh"
 
 namespace {
 
@@ -47,24 +67,27 @@ using n2m::blocks_for;
 using n2m::kTile;
 using n2m::LevelParams;
 using n2m::pack_levels;
+using n2m::peer_sum;
 
-// For sorted point i of winsort level k: does nothing if the point's window
-// is not one of its tile's slots; otherwise reads the point through perm and
-// calls fn(row, w) for each of its in-block corners.
-template <typename Fn>
-__device__ __forceinline__ void for_inblock_corners(
-    const float* __restrict__ x, const int32_t* __restrict__ perm,
-    const int32_t* __restrict__ wins, const int32_t* __restrict__ slots,
-    const LevelParams& lp, float shift, int64_t n_points, int64_t n_tiles,
-    int k, int64_t i, Fn fn) {
-  const int64_t ki = static_cast<int64_t>(k) * n_points + i;
-  const int32_t win = wins[ki];
+constexpr int kWinFloats = 512 * 3;          // one window of the table
+constexpr int kWsBwdThreads = 256;
+
+// Is sorted point i of winsort level k, of window win, in one of its tile's
+// two slots?
+__device__ __forceinline__ bool in_slots(const int32_t* __restrict__ slots,
+                                         int64_t n_tiles, int k, int64_t i,
+                                         int32_t win) {
   const int32_t* s = slots + (static_cast<int64_t>(k) * n_tiles + i / kTile) * 2;
-  if (win != s[0] && win != s[1]) return;
-  const int64_t p = perm[ki];
+  return win == s[0] || win == s[1];
+}
+
+// Lattice cell of point p at winsort level k: lg its coordinate in its own
+// 8^3 block, fr the fractions.
+__device__ __forceinline__ void block_lattice(const float* __restrict__ x,
+                                              const LevelParams& lp, float shift,
+                                              int64_t p, int k, int lg[3],
+                                              float fr[3]) {
   const float sc = lp.scale[k];
-  int lg[3];
-  float fr[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const float pos = __fadd_rn(__fmul_rn(x[p * 3 + d], sc), shift);
@@ -72,17 +95,22 @@ __device__ __forceinline__ void for_inblock_corners(
     fr[d] = __fsub_rn(pos, g);
     lg[d] = static_cast<int>(g) & 7;
   }
-  const int64_t base = lp.offset[k] + static_cast<int64_t>(win) * 512;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-    const int lx = lg[0] + bx, ly = lg[1] + by, lz = lg[2] + bz;
-    if (lx > 7 || ly > 7 || lz > 7) continue;   // crosses the block edge
-    const float wx = bx ? fr[0] : __fsub_rn(1.0f, fr[0]);
-    const float wy = by ? fr[1] : __fsub_rn(1.0f, fr[1]);
-    const float wz = bz ? fr[2] : __fsub_rn(1.0f, fr[2]);
-    fn(base + lx + 8 * ly + 64 * lz, __fmul_rn(__fmul_rn(wx, wy), wz));
-  }
+}
+
+// Corner c of the cell (bit d = offset along axis d): false if it crosses
+// the block's edge; else its row `cell` = lx + 8*ly + 64*lz in the point's
+// window and its weight w.
+__device__ __forceinline__ bool inblock_corner(const int lg[3], const float fr[3],
+                                               int c, int& cell, float& w) {
+  const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+  const int lx = lg[0] + bx, ly = lg[1] + by, lz = lg[2] + bz;
+  if (lx > 7 || ly > 7 || lz > 7) return false;
+  const float wx = bx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+  const float wy = by ? fr[1] : __fsub_rn(1.0f, fr[1]);
+  const float wz = bz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+  w = __fmul_rn(__fmul_rn(wx, wy), wz);
+  cell = lx + 8 * ly + 64 * lz;
+  return true;
 }
 
 __global__ void winsort_fwd_kernel(const float* __restrict__ table,
@@ -98,41 +126,136 @@ __global__ void winsort_fwd_kernel(const float* __restrict__ table,
   if (tid >= n_points * n_levels) return;
   const int k = static_cast<int>(tid / n_points);
   const int64_t i = tid - static_cast<int64_t>(k) * n_points;
+  const int32_t win = wins[tid];
+  const int64_t p = perm[tid];
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for_inblock_corners(x, perm, wins, slots, lp, shift, n_points, n_tiles, k, i,
-                      [&](int64_t row, float w) {
-                        a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(table + row * 3)));
-                        a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(table + row * 3 + 1)));
-                        a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(table + row * 3 + 2)));
-                      });
-  const int64_t o = (static_cast<int64_t>(perm[tid]) * n_levels + k) * 3;
+  if (in_slots(slots, n_tiles, k, i, win)) {
+    const float* tw = table + (lp.offset[k] + static_cast<int64_t>(win) * 512) * 3;
+    int lg[3];
+    float fr[3];
+    block_lattice(x, lp, shift, p, k, lg, fr);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      int cell;
+      float w;
+      if (!inblock_corner(lg, fr, c, cell, w)) continue;
+      a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(tw + cell * 3)));
+      a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(tw + cell * 3 + 1)));
+      a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(tw + cell * 3 + 2)));
+    }
+  }
+  const int64_t o = (p * n_levels + k) * 3;
   out[o] = a0;
   out[o + 1] = a1;
   out[o + 2] = a2;
 }
 
-__global__ void winsort_bwd_kernel(const float* __restrict__ grad,
-                                   const float* __restrict__ x,
-                                   const int32_t* __restrict__ perm,
-                                   const int32_t* __restrict__ wins,
-                                   const int32_t* __restrict__ slots,
-                                   const __grid_constant__ LevelParams lp,
-                                   float shift, int64_t n_points,
-                                   int64_t n_tiles, int n_levels,
-                                   float* __restrict__ dtable) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_points * n_levels) return;
-  const int k = static_cast<int>(tid / n_points);
-  const int64_t i = tid - static_cast<int64_t>(k) * n_points;
-  const int64_t o = (static_cast<int64_t>(perm[tid]) * n_levels + k) * 3;
-  const float g0 = grad[o], g1 = grad[o + 1], g2 = grad[o + 2];
-  if (g0 == 0.f && g1 == 0.f && g2 == 0.f) return;   // e.g. out-of-bounds points
-  for_inblock_corners(x, perm, wins, slots, lp, shift, n_points, n_tiles, k, i,
-                      [&](int64_t row, float w) {
-                        atomicAdd(dtable + row * 3, __fmul_rn(g0, w));
-                        atomicAdd(dtable + row * 3 + 1, __fmul_rn(g1, w));
-                        atomicAdd(dtable + row * 3 + 2, __fmul_rn(g2, w));
-                      });
+// [lo, hi) of window w's run in wk[0, n) (ascending, the -1 tail last: as
+// uint32 it is the largest key), by a block-wide 256-ary search for both
+// ends.  Each round every thread tests the last entry of its 1/256th of the
+// interval and __syncthreads_count says how many lie below the target, so
+// 2^18 entries take 3 rounds of one load where a binary search took 18
+// dependent loads (most blocks of a small or clustered input own no run,
+// and the search was most of their time).  Every thread must call it.
+__device__ __forceinline__ void block_run(const int32_t* __restrict__ wk,
+                                          int64_t n, int32_t w, int64_t& lo_out,
+                                          int64_t& hi_out) {
+  int64_t lo[2] = {0, 0}, hi[2] = {n, n};
+  const uint32_t target[2] = {static_cast<uint32_t>(w),
+                              static_cast<uint32_t>(w) + 1u};
+  while (hi[0] > lo[0] || hi[1] > lo[1]) {              // block-uniform
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t step = (hi[e] - lo[e] + blockDim.x - 1) / blockDim.x;
+      const int64_t j = lo[e] + (threadIdx.x + 1) * step - 1;
+      const bool below = hi[e] > lo[e] && j < hi[e] &&
+                         static_cast<uint32_t>(wk[j]) < target[e];
+      const int c = __syncthreads_count(below);   // a prefix of the threads
+      if (hi[e] > lo[e]) {
+        const int64_t last = lo[e] + (c + 1) * step - 1;
+        lo[e] += c * step;
+        hi[e] = hi[e] < last ? hi[e] : last;
+      }
+    }
+  }
+  lo_out = lo[0];
+  hi_out = lo[1];
+}
+
+// Block (w, k) = (blockIdx.x, blockIdx.y) owns window w of winsort level k.
+__global__ void __launch_bounds__(kWsBwdThreads)
+winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
+                   const int32_t* __restrict__ perm,
+                   const int32_t* __restrict__ wins,
+                   const int32_t* __restrict__ slots,
+                   const __grid_constant__ LevelParams lp, float shift,
+                   int64_t n_points, int64_t n_tiles, int n_levels,
+                   float* __restrict__ dtable) {
+  __shared__ float4 acc4[kWinFloats / 4];
+  float* acc = reinterpret_cast<float*>(acc4);
+  const int k = blockIdx.y;
+  const int32_t w = static_cast<int32_t>(blockIdx.x);
+  const int64_t kn = static_cast<int64_t>(k) * n_points;
+  int64_t lo, hi;
+  block_run(wins + kn, n_points, w, lo, hi);
+  if (lo == hi) return;                  // no point of this window
+  for (int c = threadIdx.x; c < kWinFloats / 4; c += blockDim.x)
+    acc4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  // a run of 8 or more blockfuls (~8x the points of a window at 2^18
+  // uniform points) is a cluster: sum over the lanes of a cell always
+  const bool crowded = hi - lo >= 8 * static_cast<int64_t>(blockDim.x);
+  for (int64_t i0 = lo; i0 < hi; i0 += blockDim.x) {     // block-uniform
+    const int64_t i = i0 + threadIdx.x;
+    float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+    int lg[3] = {0, 0, 0};
+    float fr[3] = {0.f, 0.f, 0.f};
+    bool live = i < hi && in_slots(slots, n_tiles, k, i, w);
+    if (live) {
+      const int64_t p = perm[kn + i];
+      const float* gp = grad + (p * n_levels + k) * 3;
+      g0 = gp[0];
+      g1 = gp[1];
+      g2 = gp[2];
+      live = g0 != 0.f || g1 != 0.f || g2 != 0.f;      // e.g. oob points
+      if (live) block_lattice(x, lp, shift, p, k, lg, fr);
+    }
+    // Lanes whose points share a lattice cell add into the same 8 rows.  A
+    // long run, or a neighbour lane in the same cell, is the cheap test for
+    // clustered points; then the lanes of each cell sum their terms first.
+    const int key = live ? lg[0] + 8 * lg[1] + 64 * lg[2] : -1 - lane;
+    if (crowded ||
+        __any_sync(0xffffffffu, __shfl_xor_sync(0xffffffffu, key, 1) == key)) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int cell = 0;
+        float wt = 0.f;
+        const bool in = live && inblock_corner(lg, fr, c, cell, wt);
+        float v[3] = {in ? __fmul_rn(g0, wt) : 0.f, in ? __fmul_rn(g1, wt) : 0.f,
+                      in ? __fmul_rn(g2, wt) : 0.f};
+        if (!(peer_sum(peers, v) && in)) continue;
+        atomicAdd(acc + cell * 3, v[0]);
+        atomicAdd(acc + cell * 3 + 1, v[1]);
+        atomicAdd(acc + cell * 3 + 2, v[2]);
+      }
+    } else if (live) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int cell;
+        float wt;
+        if (!inblock_corner(lg, fr, c, cell, wt)) continue;
+        atomicAdd(acc + cell * 3, __fmul_rn(g0, wt));
+        atomicAdd(acc + cell * 3 + 1, __fmul_rn(g1, wt));
+        atomicAdd(acc + cell * 3 + 2, __fmul_rn(g2, wt));
+      }
+    }
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(
+      dtable + (lp.offset[k] + static_cast<int64_t>(w) * 512) * 3);
+  for (int c = threadIdx.x; c < kWinFloats / 4; c += blockDim.x) dst[c] = acc4[c];
 }
 
 }  // namespace
@@ -167,22 +290,27 @@ extern "C" int n2m_winsort_fwd(const void* table, const void* x,
 }
 
 // grad: [n_points, n_levels, 3] f32 in x's order; dtable: [total, 3] f32,
-// zeroed by the caller and accumulated into.  Other arguments as
-// n2m_winsort_fwd.
+// 16-byte aligned, zeroed by the caller (the kernel writes whole windows of
+// the levels, each once); n_windows: the most windows of any of the levels;
+// every offsets[k] a multiple of 4 rows.  Other arguments as n2m_winsort_fwd.
 extern "C" int n2m_winsort_bwd(const void* grad, const void* x,
                                const void* perm, const void* wins,
                                const void* slots, const float* scales,
                                const int32_t* offsets, float shift,
                                int64_t n_points, int64_t n_tiles, int n_levels,
-                               void* dtable, void* stream) {
+                               int64_t n_windows, void* dtable, void* stream) {
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = n_points * n_levels;
-  if (n > 0) {
-    const int threads = 256;
-    winsort_bwd_kernel<<<blocks_for(n, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(dtable) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int k = 0; k < n_levels; ++k)
+    if (offsets[k] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_windows < 0 || n_windows > 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_points > 0 && n_windows > 0) {
+    winsort_bwd_kernel<<<dim3(static_cast<unsigned>(n_windows), n_levels),
+                         kWsBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(grad), static_cast<const float*>(x),
         static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),
         static_cast<const int32_t*>(slots), lp, shift, n_points, n_tiles,

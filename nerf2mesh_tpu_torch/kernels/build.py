@@ -53,9 +53,9 @@ _SIGNATURES = {
     "n2m_winsort_fwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
                         _I64, _I32, _P, _P),
     # grad, x, perm, wins, slots, scales (host), offsets (host), shift,
-    # n_points, n_tiles, n_levels, dtable, stream
+    # n_points, n_tiles, n_levels, n_windows, dtable, stream
     "n2m_winsort_bwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
-                        _I64, _I32, _P, _P),
+                        _I64, _I32, _I64, _P, _P),
     # table, x, levels (device), shift, n_points, n_levels, out, stream
     "n2m_sweep_fwd": (_P, _P, _P, _F32, _I64, _I32, _P, _P),
 }

@@ -9,8 +9,9 @@ exactly, and replaces the kernels:
 
   K2 ``inwin_fwd`` (csrc/splat_inwin.cu) - in-window part, read straight from
      the canonical [total, 3] table (no splat-layout transpose);
-  K3 ``inwin_bwd`` - its table gradient, atomic adds into a zeroed
-     [total, 3] buffer.
+  K3 ``inwin_bwd`` - its table gradient: a thread block reduces one tile's
+     slot windows at one level in shared memory and adds each touched
+     16-byte chunk into a zeroed [total, 3] buffer with one vector atomic.
 
 ``_InWin`` wraps both as one autograd Function (no gradient to x).  The
 residual is a masked 8-corner gather (exact mode) or the position-hashed
@@ -30,7 +31,9 @@ by a kernel; corners that cross the block edge, and points outside the
 slots, ride an exact masked-gather residual.  Kernels (csrc/splat_winsort.cu):
 
   K5 ``winsort_fwd`` - the in-block part, [N, Lw, 3] in the caller's order;
-  K6 ``winsort_bwd`` - its table gradient, atomic adds into [total, 3].
+  K6 ``winsort_bwd`` - its table gradient: one thread block owns each
+     (level, window), reduces the window's run of sorted points in shared
+     memory and writes the window once, with no global atomic.
 
 ``_InWinWS`` wraps both.  The JAX residual budget and ``lax.cond``
 full-gather fallback (splat_encode.py:840-865) were TPU workarounds that
@@ -39,6 +42,7 @@ give the same values as the masked gather, and are dropped.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, Tuple
 
 import torch
@@ -80,10 +84,11 @@ def tile_meta(x_tiles: torch.Tensor, spec: HashGridSpec, l: int):
 # ---------------------------------------------------------------------------
 
 def _inwin_corners(x, bases, rows, spec, levels):
-    """Plain corner walk of K2/K3: (row [N, Lk, 8] int64, w [N, Lk, 8]) with
-    w = 0 on out-of-window corners (their row is then a valid dummy)."""
+    """Plain corner walk of K2/K3: (row [N, Lk, 8] int64, w [N, Lk, 8],
+    inw [N, Lk, 8] bool) with w = 0 on out-of-window corners (~inw; their
+    row is then a valid dummy)."""
     corners = corner_bits(x.device)
-    rows_out, w_out = [], []
+    rows_out, w_out, inw_out = [], [], []
     for k, l in enumerate(levels):
         pg, frac = lattice(x, spec, l)
         base = bases[k].long().repeat_interleave(TILE, dim=0)       # [N, 3]
@@ -99,23 +104,45 @@ def _inwin_corners(x, bases, rows, spec, levels):
                + 8 * loc[..., 1] + 64 * loc[..., 2])
         rows_out.append(row)
         w_out.append(torch.where(inw, corner_weights(frac), 0.0))
-    return torch.stack(rows_out, 1), torch.stack(w_out, 1)
+        inw_out.append(inw)
+    return (torch.stack(rows_out, 1), torch.stack(w_out, 1),
+            torch.stack(inw_out, 1))
 
 
 def inwin_fwd_plain(table, x, bases, rows, spec, levels):
     """Plain version of K2: [N, Lk, 3] in-window features."""
     N, Lk = x.shape[0], len(levels)
-    row, w = _inwin_corners(x, bases, rows, spec, levels)
+    row, w, _ = _inwin_corners(x, bases, rows, spec, levels)
     vals = gather_rows(table, row.reshape(-1)).reshape(N, Lk, 8, 3)
     return (w[..., None] * vals).sum(dim=2)
 
 
 def inwin_bwd_plain(grad, x, bases, rows, spec, levels, total):
     """Plain version of K3: [total, 3] table gradient of K2."""
-    row, w = _inwin_corners(x, bases, rows, spec, levels)
+    row, w, _ = _inwin_corners(x, bases, rows, spec, levels)
     contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, 3)
     dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
     return dtab.index_add_(0, row.reshape(-1), contrib)
+
+
+def inwin_bwd_vector_adds(grad, x, bases, rows, spec, levels) -> int:
+    """The 16-byte vector adds into device memory that K3 makes for these
+    inputs, counted by the plain corner walk: the distinct (thread block,
+    gradient chunk) pairs over the in-window corners of points with a
+    nonzero gradient, a block being one tile at one level (slots of one
+    window id share a chunk in a block)."""
+    row, _, inw = _inwin_corners(x, bases, rows, spec, levels)      # [N, Lk, 8]
+    N, Lk = row.shape[:2]
+    live = inw & (grad != 0).any(-1)[:, :, None]
+    ar = torch.arange(N, device=x.device)
+    blk = ((ar // TILE)[:, None] * Lk
+           + torch.arange(Lk, device=x.device)[None, :])            # [N, Lk]
+    blk = blk[:, :, None].expand_as(row)[live]
+    r3 = 3 * row[live]
+    n_chunks = (int(spec.table_size) * 3 + 3) // 4
+    keys = torch.cat([blk * n_chunks + (r3 >> 2),
+                      blk * n_chunks + ((r3 + 2) >> 2)])
+    return int(torch.unique(keys).numel())
 
 
 def _check_inwin_args(x, bases, rows, levels):
@@ -174,12 +201,15 @@ def inwin_bwd(grad, x, bases, rows, spec: HashGridSpec,
               levels: Tuple[int, ...], total: int) -> torch.Tensor:
     """Table gradient [total, 3] of inwin_fwd for output gradient grad
     [N, Lk, 3].  A CPU tensor takes the plain version; a CUDA tensor
-    launches K3 (atomic adds into a zeroed buffer)."""
+    launches K3 into a zeroed buffer."""
     N, T, Lk = _check_inwin_args(x, bases, rows, levels)
     if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lk, 3):
         raise ValueError(f"inwin_bwd: grad must be float32 [{N}, {Lk}, 3]")
     if grad.device != x.device:
         raise ValueError("inwin_bwd: grad and x on different devices")
+    if total != table_rows(spec):       # the kernel indexes rows by the spec
+        raise ValueError(f"inwin_bwd: table of {total} rows, spec has "
+                         f"{spec.table_size}")
     if x.device.type == "cpu":
         return inwin_bwd_plain(grad, x, bases, rows, spec, levels, total)
     if x.device.type != "cuda":
@@ -291,9 +321,23 @@ def winsort_bwd_plain(grad, x, perm, wins, slots, spec, levels, total):
     return dtab.index_add_(0, row.reshape(-1), contrib)
 
 
+@lru_cache(maxsize=64)
+def table_rows(spec: HashGridSpec) -> int:
+    """spec.table_size, computed once a spec (its properties recompute the
+    per-level tables on every access, ~20 us: more than a small kernel)."""
+    return int(spec.table_size)
+
+
+@lru_cache(maxsize=64)
+def max_windows(spec: HashGridSpec, levels: Tuple[int, ...]) -> int:
+    """The most 512-row windows of any of the levels: K6's grid width."""
+    sizes = spec.level_sizes
+    return max(int(sizes[l]) // 512 for l in levels)
+
+
 def _check_winsort_args(x, perm, wins, slots, spec, levels, total):
     N, Lw = x.shape[0], len(levels)
-    if total != spec.table_size:        # the kernels index rows by the spec
+    if total != table_rows(spec):       # the kernels index rows by the spec
         raise ValueError(f"winsort: table of {total} rows, spec has "
                          f"{spec.table_size}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
@@ -310,14 +354,15 @@ def _check_winsort_args(x, perm, wins, slots, spec, levels, total):
     return N, T, Lw
 
 
-def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out):
+def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out,
+                    *extra):
     N, T, Lw = x.shape[0], x.shape[0] // TILE, len(levels)
     scales, offsets = level_arrays(spec, tuple(levels))
     lib = kernels.load()
     fn = getattr(lib, f"n2m_{name}")
     code = fn(src.data_ptr(), x.data_ptr(), perm.data_ptr(), wins.data_ptr(),
               slots.data_ptr(), scales, offsets, float(spec.shift), N, T, Lw,
-              out.data_ptr(), kernels.current_stream_handle(x.device))
+              *extra, out.data_ptr(), kernels.current_stream_handle(x.device))
     kernels.check(lib, f"n2m_{name}", code)
     kernels.LAUNCHES[name] += 1
 
@@ -352,7 +397,7 @@ def winsort_bwd(grad, x, perm, wins, slots, spec: HashGridSpec,
                 levels: Tuple[int, ...], total: int) -> torch.Tensor:
     """Table gradient [total, 3] of winsort_fwd for output gradient grad
     [N, Lw, 3].  A CPU tensor takes the plain version; a CUDA tensor
-    launches K6 (atomic adds into a zeroed buffer)."""
+    launches K6, one thread block a (level, window), into a zeroed buffer."""
     N, T, Lw = _check_winsort_args(x, perm, wins, slots, spec, levels, total)
     if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lw, 3):
         raise ValueError(f"winsort_bwd: grad must be float32 [{N}, {Lw}, 3]")
@@ -367,7 +412,7 @@ def winsort_bwd(grad, x, perm, wins, slots, spec: HashGridSpec,
     perm, wins, slots = perm.contiguous(), wins.contiguous(), slots.contiguous()
     dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
     _launch_winsort("winsort_bwd", grad, x, perm, wins, slots, spec, levels,
-                    dtab)
+                    dtab, max_windows(spec, tuple(levels)))
     return dtab
 
 

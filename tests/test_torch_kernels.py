@@ -7,8 +7,8 @@ repository's conftest (which imports jax):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
 Tolerances: K1 exact; K2, K4 and K5 atol 1e-5; K3 and K6 atol 1e-5 with
-rtol 1e-4 of each row's summed |contribution| (the atomics add in another
-order).
+rtol 1e-4 of each row's summed |contribution| (their shared-memory atomics
+add in another order, which changes from run to run).
 """
 
 import numpy as np
@@ -172,6 +172,149 @@ def test_winsort_kernels_match_plain(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["winsort_fwd"] == before["winsort_fwd"] + 1
     assert kernels.LAUNCHES["winsort_bwd"] == before["winsort_bwd"] + 2
+
+
+def _assert_grad_matches(kernel, plain, gr, args):
+    """kernel(g, *args) against plain(g, *args) within atol 1e-5 + rtol 1e-4
+    of each row's summed |terms| (the plain gradient of |g|), for g and |g|."""
+    mag = plain(gr.abs(), *args)
+    assert bool(((kernel(gr, *args) - plain(gr, *args)).abs()
+                 <= 1e-5 + 1e-4 * mag).all())
+    torch.testing.assert_close(kernel(gr.abs(), *args), mag, atol=1e-5,
+                               rtol=1e-4)
+
+
+def _meta(x, levels):
+    tiles = x.reshape(-1, se.TILE, 3)
+    metas = [se.tile_meta(tiles, SPEC, l) for l in levels]
+    return (torch.stack([m[0] for m in metas]).contiguous(),
+            torch.stack([m[1] for m in metas]).contiguous())
+
+
+def test_inwin_bwd_hot_spot(dev):
+    """16 tiles inside one lattice cell of level 0: every lane of every warp
+    adds into the same 8 rows there."""
+    rng = np.random.default_rng(7)
+    s0 = SPEC.level_scale32(0)
+    x = ((7 + rng.uniform(0.01, 0.99, (2048, 3)) - SPEC.shift) / s0)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    levels = tuple(range(6))
+    bases, rows = _meta(x, levels)
+    pg = torch.floor(x * s0 + SPEC.shift)
+    assert bool((pg == 7).all())
+    gr = torch.randn((2048, 6, 3), generator=torch.Generator().manual_seed(8)).to(dev)
+    before = kernels.LAUNCHES["inwin_bwd"]
+    _assert_grad_matches(se.inwin_bwd, se.inwin_bwd_plain, gr,
+                         (x, bases, rows, SPEC, levels, SPEC.table_size))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["inwin_bwd"] == before + 2
+
+
+def test_inwin_bwd_tiles_share_windows(dev):
+    """Consecutive morton tiles share their coarse windows, so the blocks of
+    neighbouring tiles add into the same gradient chunks with their vector
+    atomics; the same-window slot pair of the last tile stays."""
+    table, x, bases, rows, levels = _inputs(dev, n=4096)
+    gr = torch.randn((4096, 6, 3), generator=torch.Generator().manual_seed(9)).to(dev)
+    args = (x, bases, rows, SPEC, levels, SPEC.table_size)
+    r = se.inwin_bwd_plain(gr.abs(), *args).sum(-1).nonzero()[:, 0]
+    chunks = torch.unique(torch.cat([(3 * r) >> 2, (3 * r + 2) >> 2])).numel()
+    assert se.inwin_bwd_vector_adds(gr, *args[:-1]) > chunks
+    _assert_grad_matches(se.inwin_bwd, se.inwin_bwd_plain, gr, args)
+
+
+def test_inwin_bwd_rejects_misaligned_buffer(dev):
+    """K3's launcher refuses a gradient buffer that is not 16-byte aligned
+    (its vector adds need one), and kernels.check raises on its code."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import level_arrays
+    table, x, bases, rows, levels = _inputs(dev)
+    gr = torch.ones((x.shape[0], 6, 3), device=dev)
+    buf = torch.zeros(SPEC.table_size * 3 + 1, device=dev)
+    scales, offsets = level_arrays(SPEC, levels)
+    lib = kernels.load()
+
+    def launch(out):
+        return lib.n2m_inwin_bwd(
+            gr.data_ptr(), x.data_ptr(), bases.data_ptr(), rows.data_ptr(),
+            scales, offsets, float(SPEC.shift), x.shape[0],
+            x.shape[0] // se.TILE, len(levels), out.data_ptr(),
+            kernels.current_stream_handle(dev))
+
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kernels.check(lib, "n2m_inwin_bwd", launch(buf[1:]))
+    kernels.check(lib, "n2m_inwin_bwd", launch(buf[:-1]))
+    torch.testing.assert_close(buf[:-1].view(-1, 3),
+                               se.inwin_bwd(gr, x, bases, rows, SPEC, levels,
+                                            SPEC.table_size),
+                               atol=1e-5, rtol=1e-4)
+
+
+def _ws_meta(x):
+    xc = x.clamp(0, 1).contiguous()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    metas = [se.winsort_meta(xc, oob, SPEC, l) for l in WS_LEVELS]
+    return (xc, torch.stack([m[0] for m in metas]).to(torch.int32).contiguous(),
+            torch.stack([m[1] for m in metas]).contiguous(),
+            torch.stack([m[2] for m in metas]).contiguous(), metas)
+
+
+def _block_points(rng, l, blocks, counts):
+    """counts[i] points inside 8^3 block blocks[i] of level l."""
+    s = np.float32(SPEC.level_scale32(l))
+    return np.concatenate([(8 * np.asarray(b) + rng.uniform(0.01, 7.99, (n, 3))
+                            - SPEC.shift) / s for b, n in zip(blocks, counts)])
+
+
+def test_winsort_bwd_long_run(dev):
+    """One level-5 window whose run spans 16 tiles (2048 points): one owner
+    block loops over it."""
+    rng = np.random.default_rng(10)
+    x = np.concatenate([_block_points(rng, 5, [(9, 9, 9)], [2048]),
+                        rng.uniform(0, 1, (2048, 3))])
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    xc, perm, wins, slots, _ = _ws_meta(x)
+    w = int(wins[2, perm[2].long().argsort()[0]])     # point 0's window
+    assert int((wins[2] == w).sum()) >= 2048
+    gr = torch.randn((4096, 3, 3), generator=torch.Generator().manual_seed(11)).to(dev)
+    _assert_grad_matches(se.winsort_bwd, se.winsort_bwd_plain, gr,
+                         (xc, perm, wins, slots, SPEC, WS_LEVELS, SPEC.table_size))
+
+
+def test_winsort_bwd_points_in_one_cell(dev):
+    """512 points inside one lattice cell of level 5 (and 512 uniform): at
+    every winsort level each warp of their run has all its lanes in one
+    cell, so it sums the cell's terms over its lanes before its shared adds."""
+    rng = np.random.default_rng(14)
+    s5 = np.float32(SPEC.level_scale32(5))
+    x = np.concatenate([(8 * 9 + 3 + rng.uniform(0.01, 0.99, (512, 3))
+                         - SPEC.shift) / s5, rng.uniform(0, 1, (512, 3))])
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    assert bool((torch.floor(x[:512] * s5 + SPEC.shift) == 75).all())
+    xc, perm, wins, slots, _ = _ws_meta(x)
+    gr = torch.randn((1024, 3, 3), generator=torch.Generator().manual_seed(15)).to(dev)
+    _assert_grad_matches(se.winsort_bwd, se.winsort_bwd_plain, gr,
+                         (xc, perm, wins, slots, SPEC, WS_LEVELS, SPEC.table_size))
+
+
+def test_winsort_bwd_run_inside_one_tile(dev):
+    """A level-5 window whose run lies strictly inside one tile: its points
+    are not slotted and add nothing; its window stays zero."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import block_window
+    rng = np.random.default_rng(12)
+    blocks = [(3, 4, 5), (10, 11, 12), (20, 5, 7), (25, 26, 1), (2, 30, 9)]
+    win = block_window(torch.tensor(blocks), SPEC, 5).tolist()
+    order = sorted(range(len(blocks)), key=lambda i: win[i])[:4]
+    x = _block_points(rng, 5, [blocks[i] for i in order], [40, 48, 40, 128])
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    xc, perm, wins, slots, metas = _ws_meta(x)
+    wb = int(wins[2, 40])
+    assert int(wins[2, 39]) < wb < int(wins[2, 88]) and int(wins[2, 87]) == wb
+    assert not bool(metas[2][3][perm[2, 40:88].long()].any())
+    gr = torch.randn((256, 3, 3), generator=torch.Generator().manual_seed(13)).to(dev)
+    args = (xc, perm, wins, slots, SPEC, WS_LEVELS, SPEC.table_size)
+    _assert_grad_matches(se.winsort_bwd, se.winsort_bwd_plain, gr, args)
+    off = int(SPEC.offsets[5]) + wb * 512
+    assert not se.winsort_bwd(gr, *args)[off:off + 512].any()
 
 
 def test_winsort_autograd_and_encode_on_card(dev):
