@@ -12,10 +12,12 @@ Phases, in order; any failure exits non-zero:
      lattice cell); K6 on a long run (2048 points in one level-15 block); K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
-     plus K5 + its residual against hashgrid_encode; K4 sweep_fwd against
-     its plain version on 2^18 points at the ref slice's table (uniform,
-     out-of-bounds, on-edge and 1-ulp-from-edge points), and the ref path's
-     plain table gradient timed; times from CUDA events (the mean of 20
+     plus K5 + its residual against hashgrid_encode; K4 sweep_fwd and K4b
+     sweep_bwd (the ref table gradient) against their plain versions on
+     2^18 points at the ref slice's table (uniform, out-of-bounds, on-edge
+     and 1-ulp-from-edge points), K4b also on 2^18 points in 16 tight
+     clusters, both at 40 and 70 levels and on a tiled grid; times from CUDA
+     events (the mean of 20
      back-to-back runs), each beside its bound (bytes over 3.35 TB/s or
      fp32 flops over 67 TFLOP/s, whichever is larger);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
@@ -37,14 +39,14 @@ Phases, in order; any failure exits non-zero:
      val, 2 test views): 128 steps at bench.py's flags with --grid_layout
      ref --log2_hashmap_size 14, an eval and a checkpoint at step 128, the
      final val and test evals (PSNR, SSIM, LPIPS proxy) and the test video;
-     every logged loss finite and falling, K1 and K4 launched by the
+     every logged loss finite and falling, K1, K4 and K4b launched by the
      training, the block512 kernels never; then main --test reloads the
      checkpoint, and a fresh Trainer loaded from it reproduces the step-128
      val PSNR within 1e-4 dB.  ms/step, rays/s, eval ms/frame, peak memory;
      8 more steps and one eval frame of the loaded trainer profiled.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
-phase 7's CLI run for K4), the last line the device record.  Imports only
+phase 7's CLI run for K4 and K4b), the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
 
@@ -75,7 +77,7 @@ PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
-       "encode": (1e-5, 1e-5)}
+       "sweep_bwd": (1e-5, 1e-4), "encode": (1e-5, 1e-5)}
 # the H100 SXM's published peaks (device memory; fp32 outside the tensor
 # cores) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -357,7 +359,7 @@ def atomic_tol_margin(kernel, plain, g, args):
     """Least margin of a gradient kernel against its plain version: atol +
     rtol of each row's summed |terms| (the plain gradient of |g|), for g and
     for |g| (where every term is >= 0 and the bound is the plain allclose).
-    Negative means a row disagrees."""
+    Negative means a row disagrees.  The tolerance is TOL[kernel's name]."""
     atol, rtol = TOL[kernel.__name__]
     mag = plain(g.abs(), *args)
     return min(float((atol + rtol * mag - (kernel(g, *args) - plain(g, *args))
@@ -522,12 +524,24 @@ def ref_spec():
                         desired_resolution=2048, layout="ref")
 
 
+def sweep_bwd(g, table, x, spec):
+    """K4b: the ref table gradient (kernels' call order, as in TOL)."""
+    from nerf2mesh_tpu_torch.ops import pallas_encode as pe
+    return pe.sweep_bwd(table, x, g, spec, need_dx=False)[0]
+
+
+def sweep_bwd_plain(g, table, x, spec):
+    from nerf2mesh_tpu_torch.ops import pallas_encode as pe
+    return pe.sweep_bwd_plain(table, x, g, spec, need_dx=False)[0]
+
+
 def sweep_kernel(dev, rng):
-    """K4 on 2^18 points at the ref slice's table: uniform points, lattice
-    edges (exact and 1 ulp off) at every level, coordinates 0 and 1, the
-    1-ulp denormal below 0, 1 ulp above 1 and far outside; K4 at 40 levels
-    and on a tiled grid (whose dense levels wrap) on 4096 of those points;
-    and the ref path's plain table gradient (sweep_bwd; no kernel), timed."""
+    """K4 and K4b on 2^18 points at the ref slice's table: uniform points,
+    lattice edges (exact and 1 ulp off) at every level, coordinates 0 and
+    1, the 1-ulp denormal below 0, 1 ulp above 1 and far outside; K4b also
+    on 2^18 points in 16 tight clusters (thousands of adds to each coarse
+    row); both at 40 and 70 levels (two launches: 64 levels, then 6) and on
+    a tiled grid (whose dense levels wrap) on 4096 of those points."""
     from nerf2mesh_tpu_torch.ops import pallas_encode as pe
     from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec
     spec = ref_spec()
@@ -561,7 +575,27 @@ def sweep_kernel(dev, rng):
         f"{not bool(out_k[oob].any())})")
     if not err4 <= TOL["sweep_fwd"][0] or bool(out_k[oob].any()):
         raise AssertionError(f"K4 sweep_fwd disagrees: {err4}")
+
+    g = torch.from_numpy(rng.normal(size=(N, L * 3)).astype(np.float32)).to(dev)
+    bargs = (table, x, spec)
+    err4b = float((sweep_bwd(g, *bargs) - sweep_bwd_plain(g, *bargs))
+                  .abs().max())
+    margin = atomic_tol_margin(sweep_bwd, sweep_bwd_plain, g, bargs)
+    centres = rng.uniform(0.2, 0.8, (16, 3))
+    xc = torch.from_numpy(np.clip(centres[rng.integers(0, 16, N)]
+                                  + rng.normal(0, 0.002, (N, 3)), 0, 1)
+                          .astype(np.float32)).to(dev)
+    cargs = (table, xc, spec)
+    share_c = touched_tol_share(sweep_bwd, sweep_bwd_plain, g, cargs)
+    margin_c = atomic_tol_margin(sweep_bwd, sweep_bwd_plain, g, cargs)
+    log(f"[kernels] K4b max|err| {err4b:.3e} (uniform and boundary points); "
+        f"16 clusters: largest error over tolerance among touched entries "
+        f"{share_c:.3f}")
+    if margin < 0 or margin_c < 0:
+        raise AssertionError(f"K4b sweep_bwd disagrees: {err4b}, clusters "
+                             f"{share_c}")
     for var in (dict(num_levels=40, log2_hashmap_size=14),
+                dict(num_levels=70, log2_hashmap_size=14),
                 dict(num_levels=6, log2_hashmap_size=12, gridtype="tiled")):
         vspec = HashGridSpec(**{**dict(level_dim=3, desired_resolution=2048,
                                        layout="ref"), **var})
@@ -569,14 +603,19 @@ def sweep_kernel(dev, rng):
                               .astype(np.float32)).to(dev)
         verr = float((pe.sweep_fwd(vt, x[:4096], vspec)
                       - pe.sweep_fwd_plain(vt, x[:4096], vspec)).abs().max())
-        log(f"[kernels] K4 at {var}: max|err| {verr:.3e}")
+        vg = torch.from_numpy(rng.normal(size=(4096, vspec.num_levels * 3))
+                              .astype(np.float32)).to(dev)
+        vshare = touched_tol_share(sweep_bwd, sweep_bwd_plain, vg,
+                                   (vt, x[:4096], vspec))
+        log(f"[kernels] K4 at {var}: max|err| {verr:.3e}; K4b largest error "
+            f"over tolerance {vshare:.3f}")
         if not verr <= TOL["sweep_fwd"][0]:
             raise AssertionError(f"K4 sweep_fwd disagrees at {var}: {verr}")
-    g = torch.from_numpy(rng.normal(size=(N, L * 3)).astype(np.float32)).to(dev)
-    bwd_ms = cuda_time_ms(lambda: pe.sweep_bwd(table, x, g, spec,
-                                               need_dx=False))
-    log(f"[kernels] ref table gradient (plain sweep_bwd, no kernel): "
-        f"{bwd_ms:.4f} ms at {N} points")
+        if atomic_tol_margin(sweep_bwd, sweep_bwd_plain, vg,
+                             (vt, x[:4096], vspec)) < 0:
+            raise AssertionError(f"K4b sweep_bwd disagrees at {var}")
+    # bytes: x once, the table once, the [N, L*3] features once; the
+    # backward reads g and writes the whole gradient its wrapper zeroes
     return [dict(name="sweep_fwd", route="cuda",
                  source="nerf2mesh_tpu_torch/csrc/sweep_encode.cu",
                  replaces="nerf2mesh_tpu/ops/pallas_encode.py:68",
@@ -585,6 +624,14 @@ def sweep_kernel(dev, rng):
                  plain_ms=cuda_time_ms(lambda: pe.sweep_fwd_plain(table, x,
                                                                   spec)),
                  bound=bound(N * 12 + spec.table_size * 12 + N * L * 12,
+                             trilinear_flops(N * L))),
+            dict(name="sweep_bwd", route="cuda",
+                 source="nerf2mesh_tpu_torch/csrc/sweep_encode.cu",
+                 replaces="nerf2mesh_tpu/ops/pallas_encode.py:212 (XLA)",
+                 max_abs_err=err4b,
+                 ms=cuda_time_ms(lambda: sweep_bwd(g, *bargs)),
+                 plain_ms=cuda_time_ms(lambda: sweep_bwd_plain(g, *bargs)),
+                 bound=bound(N * 12 + N * L * 12 + spec.table_size * 12,
                              trilinear_flops(N * L)))]
 
 
@@ -841,7 +888,7 @@ def phase_cli(dev):
         log(f"[cli] steps {a['step']}-{b['step']}: {ms_step:.2f} ms/step, "
             f"{rays_s:.1f} rays/s; peak memory {peak:.2f} GiB; launches: "
             f"training {train_launches}, whole run {launches}")
-        for key in ("occ_lookup", "sweep_fwd"):
+        for key in ("occ_lookup", "sweep_fwd", "sweep_bwd"):
             if train_launches.get(key, 0) <= 0:
                 raise AssertionError(f"{key} was not launched by training")
         for key in ("inwin_fwd", "inwin_bwd", "winsort_fwd", "winsort_bwd"):
@@ -917,7 +964,7 @@ def main() -> int:
     cli_launches = phase_cli(dev)
     for r in results:
         path = (ws_launches if r["name"].startswith("winsort") else
-                cli_launches if r["name"] == "sweep_fwd" else launches)
+                cli_launches if r["name"].startswith("sweep") else launches)
         r["launches"] = path[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

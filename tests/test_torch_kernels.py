@@ -6,9 +6,9 @@ repository's conftest (which imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Tolerances: K1 exact; K2, K4 and K5 atol 1e-5; K3 and K6 atol 1e-5 with
-rtol 1e-4 of each row's summed |contribution| (their shared-memory atomics
-add in another order, which changes from run to run).
+Tolerances: K1 exact; K2, K4 and K5 atol 1e-5; K3, K4b and K6 atol 1e-5
+with rtol 1e-4 of each row's summed |contribution| (their shared-memory
+atomics add in another order, which changes from run to run).
 """
 
 import numpy as np
@@ -381,11 +381,13 @@ def test_sweep_kernel_matches_plain(dev):
 
 
 @pytest.mark.parametrize("kw", [dict(num_levels=40, log2_hashmap_size=14),
+                                dict(num_levels=70, log2_hashmap_size=14),
                                 dict(num_levels=6, log2_hashmap_size=12,
                                      gridtype="tiled")])
 def test_sweep_kernel_level_count_and_tiled(dev, kw):
-    """K4 at more levels than the 16 of the slice and on a tiled grid, whose
-    dense levels wrap modulo their size."""
+    """K4 at more levels than the 16 of the slice (70: a second launch for
+    the levels past 64) and on a tiled grid, whose dense levels wrap modulo
+    their size."""
     spec = HashGridSpec(**{**dict(level_dim=3, desired_resolution=2048,
                                   layout="ref"), **kw})
     x = _ref_points(4096, seed=4).to(dev)
@@ -401,10 +403,109 @@ def test_sweep_autograd_on_card(dev):
     g = torch.Generator(device="cpu").manual_seed(3)
     table = (torch.rand((REF_SPEC.table_size, 3), generator=g) * 2 - 1).to(dev)
     t = table.clone().requires_grad_()
+    before = dict(kernels.LAUNCHES)
     feat = pe.sweep_encode(t, x, REF_SPEC)
     feat.square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_fwd"] == before["sweep_fwd"] + 1
+    assert kernels.LAUNCHES["sweep_bwd"] == before["sweep_bwd"] + 1
     t_ref = table.clone().requires_grad_()
     ref = hashgrid_encode(t_ref, x, REF_SPEC)
     ref.square().sum().backward()
     torch.testing.assert_close(feat, ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(t.grad, t_ref.grad, atol=1e-4, rtol=1e-4)
+
+
+def _k4b(gr, table, x, spec):
+    return pe.sweep_bwd(table, x, gr, spec, need_dx=False)[0]
+
+
+def _k4b_plain(gr, table, x, spec):
+    return pe.sweep_bwd_plain(table, x, gr, spec, need_dx=False)[0]
+
+
+def _ref_table(spec, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.rand((spec.table_size, 3), generator=g) * 2 - 1
+
+
+def test_sweep_bwd_kernel_matches_plain(dev):
+    """K4b on the lattice-edge and out-of-bounds points of _ref_points; the
+    out-of-bounds points add nothing."""
+    x = _ref_points(4096, seed=6).to(dev)
+    table = _ref_table(REF_SPEC, 7).to(dev)
+    gr = torch.randn((4096, 48), generator=torch.Generator().manual_seed(8)).to(dev)
+    before = kernels.LAUNCHES["sweep_bwd"]
+    _assert_grad_matches(_k4b, _k4b_plain, gr, (table, x, REF_SPEC))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_bwd"] == before + 2
+    oob_only = gr.clone()
+    oob_only[:-4] = 0
+    assert not _k4b(oob_only, table, x, REF_SPEC).any()
+
+
+@pytest.mark.parametrize("kw", [dict(num_levels=40, log2_hashmap_size=14),
+                                dict(num_levels=70, log2_hashmap_size=14),
+                                dict(num_levels=6, log2_hashmap_size=12,
+                                     gridtype="tiled")])
+def test_sweep_bwd_kernel_level_count_and_tiled(dev, kw):
+    """K4b at 40 and 70 levels (a second launch for the levels past 64) and
+    on a tiled grid, whose dense levels wrap."""
+    spec = HashGridSpec(**{**dict(level_dim=3, desired_resolution=2048,
+                                  layout="ref"), **kw})
+    x = _ref_points(4096, seed=9).to(dev)
+    gr = torch.randn((4096, spec.num_levels * 3),
+                     generator=torch.Generator().manual_seed(10)).to(dev)
+    _assert_grad_matches(_k4b, _k4b_plain, gr,
+                         (_ref_table(spec, 11).to(dev), x, spec))
+
+
+def test_sweep_bwd_hot_spot(dev):
+    """2048 points inside one lattice cell of level 0: every lane of every
+    warp adds into the same 8 rows there, so the warps sum over their lanes
+    before the shared atomics."""
+    rng = np.random.default_rng(12)
+    s0 = REF_SPEC.level_scale32(0)
+    x = ((7 + rng.uniform(0.01, 0.99, (2048, 3)) - REF_SPEC.shift) / s0)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    assert bool((torch.floor(x * s0 + REF_SPEC.shift) == 7).all())
+    gr = torch.randn((2048, 48), generator=torch.Generator().manual_seed(13)).to(dev)
+    _assert_grad_matches(_k4b, _k4b_plain, gr,
+                         (_ref_table(REF_SPEC, 14).to(dev), x, REF_SPEC))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096, 2 ** 18])
+def test_sweep_kernels_at_sizes(dev, n):
+    """K4 and K4b on no points, one point (one chunk, one partial tile), a
+    late eval round's size and the training step's (one wave of chunks)."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(dev)
+    table = _ref_table(REF_SPEC, 16).to(dev)
+    torch.testing.assert_close(pe.sweep_fwd(table, x, REF_SPEC),
+                               pe.sweep_fwd_plain(table, x, REF_SPEC),
+                               atol=1e-5, rtol=0)
+    gr = torch.randn((n, 48), generator=torch.Generator().manual_seed(17)).to(dev)
+    _assert_grad_matches(_k4b, _k4b_plain, gr, (table, x, REF_SPEC))
+
+
+def test_sweep_bwd_rejects_misaligned_buffer(dev):
+    """K4b's launcher refuses a gradient buffer that is not 16-byte aligned
+    (its flush adds 16-byte chunks), and kernels.check raises on its code."""
+    x = _ref_points(1024, seed=18).to(dev)
+    gr = torch.ones((1024, 48), device=dev)
+    buf = torch.zeros(REF_SPEC.table_size * 3 + 1, device=dev)
+    lib = kernels.load()
+
+    def launch(out):
+        return lib.n2m_sweep_bwd(
+            gr.data_ptr(), x.data_ptr(), pe._level_records(REF_SPEC).ctypes.data,
+            float(REF_SPEC.shift), 1024, 16, 1, out.data_ptr(),
+            kernels.current_stream_handle(dev))
+
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kernels.check(lib, "n2m_sweep_bwd", launch(buf[1:]))
+    kernels.check(lib, "n2m_sweep_bwd", launch(buf[:-1]))
+    table = _ref_table(REF_SPEC, 19).to(dev)
+    torch.testing.assert_close(buf[:-1].view(-1, 3),
+                               _k4b(gr, table, x, REF_SPEC), atol=1e-5,
+                               rtol=1e-4)

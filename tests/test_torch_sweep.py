@@ -8,8 +8,11 @@ mode (``_fwd_pallas`` has no ``interpret`` argument, so the test patches
 differ by an ulp of the position (~3e-6 on features of magnitude ~1).  It is
 held to JAX ``hashgrid_encode`` run op by op (``jax.disable_jit()``), where
 both round the product and the sum separately, at atol 1e-6.  The backward
-is held to JAX ``_sweep_bwd`` at rtol 1e-4, atol 1e-4, as
-tests/test_pallas_encode.py holds JAX's own.
+(K4b's plain version, and the input gradient) is held to JAX ``_sweep_bwd``
+at rtol 1e-4, atol 1e-4, as tests/test_pallas_encode.py holds JAX's own.
+The kernels' launch shapes (``sweep_chunks``) are checked by a numpy model
+of their grids: every (point, level) once, and K4b's per-block slices
+flushed into the plain gradient.
 """
 
 import dataclasses
@@ -130,7 +133,7 @@ def test_kernel_indices_equal_corner_indices():
     assert list(ts.use_hash) == [False, False] + [True] * 14
     assert [int(v) for v in ts.level_sizes[:3]] == [4920, 13824, 16384]
     assert ts.table_size == 248120
-    rec = tpe._level_records(ts, torch.device("cpu")).numpy()   # K4's input
+    rec = tpe._level_records(ts)                        # K4's and K4b's input
     np.testing.assert_array_equal(
         rec[:, 0].view(np.float32), [ts.level_scale32(l) for l in range(16)])
     np.testing.assert_array_equal(rec[:, 1], ts.offsets[:-1])
@@ -219,3 +222,163 @@ def test_sweep_wrapper_rejects_bad_inputs():
         tpe.sweep_fwd(table, x, specs(log2=15)[1])
     with pytest.raises(RuntimeError):
         tpe.sweep_fwd(table.to("meta"), x.to("meta"), ts)
+
+
+@pytest.mark.parametrize("log2,levels,res", [(12, 6, 128), (14, 16, 2048)])
+def test_sweep_bwd_plain_matches_jax(rng, log2, levels, res):
+    """K4b's plain version (and the input gradient beside it) against JAX
+    ``_sweep_bwd``, at the small spec and at the ref slice's."""
+    js, ts = specs(log2=log2, levels=levels, res=res)
+    table = uniform_table(js, scale=100.0)
+    x = edge_points(js, 150, seed=5)
+    g = rng.normal(size=(x.shape[0], js.output_dim)).astype(np.float32)
+    dt_want, dx_want = jpe._sweep_bwd(js, (jnp.asarray(table), jnp.asarray(x)),
+                                      jnp.asarray(g))
+    dt, dx = tpe.sweep_bwd_plain(T(table), T(x), T(g), ts)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dt_want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_want), rtol=1e-4,
+                               atol=1e-4)
+    dt2, none = tpe.sweep_bwd_plain(T(table), T(x), T(g), ts, need_dx=False)
+    assert none is None and torch.equal(dt2, dt)
+
+
+def test_sweep_bwd_cpu_dispatch(rng, monkeypatch):
+    """On CPU tensors sweep_bwd is its plain version, and _Sweep.backward
+    goes through sweep_bwd with need_dx only when x01 needs a gradient."""
+    _, ts = specs()
+    table, x = T(uniform_table(ts)), T(edge_points(ts, 100, seed=6))
+    g = T(rng.normal(size=(x.shape[0], ts.output_dim)).astype(np.float32))
+    for need_dx in (True, False):
+        got, want = (tpe.sweep_bwd(table, x, g, ts, need_dx),
+                     tpe.sweep_bwd_plain(table, x, g, ts, need_dx))
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (want[1] is None) == (not need_dx)
+        if need_dx:
+            assert torch.equal(got[1], want[1])
+    calls = []
+    real = tpe.sweep_bwd
+
+    def spy(table, x01, g, spec, need_dx=True):
+        calls.append(need_dx)
+        return real(table, x01, g, spec, need_dx)
+
+    monkeypatch.setattr(tpe, "sweep_bwd", spy)
+    for x_grad in (False, True):
+        tt = table.clone().requires_grad_()
+        tx = x.clone().requires_grad_(x_grad)
+        tpe.sweep_encode(tt, tx, ts).backward(g)
+        assert torch.equal(tt.grad, tpe.sweep_bwd_plain(table, x, g, ts)[0])
+    assert calls == [False, True]
+
+
+def test_sweep_bwd_rejects_bad_inputs():
+    _, ts = specs()
+    table, x = T(uniform_table(ts)), torch.rand(16, 3)
+    g = torch.rand(16, ts.output_dim)
+    for bad in (g.double(), g[:8], g[:, :-3], torch.rand(16, ts.output_dim + 3)):
+        with pytest.raises(ValueError, match="g must be"):
+            tpe.sweep_bwd(table, x, bad, ts)
+    with pytest.raises(ValueError, match="different devices"):
+        tpe.sweep_bwd(table, x, g.to("meta"), ts)
+    with pytest.raises(ValueError):
+        tpe.sweep_bwd(table, x.double(), g, ts)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tpe.sweep_bwd(table.to("meta"), x.to("meta"), g.to("meta"), ts)
+
+
+@pytest.mark.parametrize("kw", [dict(log2_hashmap_size=14, num_levels=16),
+                                dict(log2_hashmap_size=14, num_levels=40),
+                                dict(log2_hashmap_size=14, num_levels=70),
+                                dict(log2_hashmap_size=12, num_levels=6,
+                                     gridtype="tiled")])
+def test_level_records_fit_the_launcher(kw):
+    """The host records are the C launcher's array of 16-byte level structs,
+    and every level's offset and size is a multiple of 4 rows (its slice is
+    whole 16-byte chunks) holding at most 16384 rows (192 KiB of shared
+    memory)."""
+    spec = thg.HashGridSpec(level_dim=3, desired_resolution=2048, layout="ref",
+                            **kw)
+    rec = tpe._level_records(spec)
+    assert rec.dtype == np.int32 and rec.shape == (spec.num_levels, 4)
+    assert rec.flags["C_CONTIGUOUS"] and rec.strides == (16, 4)
+    assert not (rec[:, 1] % 4).any() and not (rec[:, 3] % 4).any()
+    assert rec[:, 3].max() * 12 <= 196608
+
+
+def _grid(n_points, chunks):
+    """The chunks of the kernels' grid: [start, stop) of each."""
+    size = -(-n_points // chunks)
+    return [(c * size, min(n_points, (c + 1) * size))
+            for c in range(-(-n_points // size))]
+
+
+@pytest.mark.parametrize("n,levels", [(2 ** 18, 16), (2 ** 14 + 37, 16),
+                                      (4096, 16), (3000, 40), (100, 6),
+                                      (5000, 1)])
+def test_sweep_launch_partition(n, levels):
+    """The launch shapes of sweep_chunks on a 132-SM card: a large input
+    takes one wave of blocks, a small one chunks of at least
+    CHUNK_MIN_POINTS points; K4b's blocks (a level of a chunk, threads
+    striding by 1024) visit every (point, level) once, and K4's clusters (a
+    pair of levels of a chunk, 1024-point tiles whose halves two owners
+    write) write every output element once."""
+    sms, threads = 132, 1024
+    for forward in (False, True):
+        chunks = tpe.sweep_chunks(n, levels, sms, forward)
+        per = 2 * -(-levels // 2) if forward else levels
+        assert chunks >= 1 and (chunks * per <= sms or chunks == 1)
+        if chunks > 1:
+            assert -(-n // chunks) >= tpe.CHUNK_MIN_POINTS // 2
+        seen = np.zeros((n, levels * 3 if forward else levels), np.int32)
+        for p0, p1 in _grid(n, chunks):
+            if not forward:
+                for l in range(levels):
+                    for t in range(threads):
+                        seen[p0 + t:p1:threads, l] += 1
+                continue
+            for h in range(-(-levels // 2)):
+                width = 3 * min(2, levels - 2 * h)
+                for t0 in range(p0, p1, threads):
+                    for owner in (0, 1):
+                        q0 = t0 + owner * threads // 2
+                        q1 = min(q0 + threads // 2, p1)
+                        seen[q0:q1, 6 * h:6 * h + width] += 1
+        assert (seen == 1).all()
+
+
+def test_sweep_bwd_schedule_model(rng):
+    """A numpy model of K4b's schedule on the slice's spec: each block
+    zeroes its level's slice, adds its chunk's corners there and adds the
+    slice into the gradient once, skipping 16-byte chunks that stayed
+    zero; the sum equals sweep_bwd_plain (atol 1e-5 + rtol 1e-4 of each
+    entry's summed |terms|, the kernel's rule)."""
+    _, ts = specs(log2=14, levels=16, res=2048)
+    x = edge_points(ts, 3000, seed=8)
+    n, L = x.shape[0], ts.num_levels
+    g = rng.normal(size=(n, L * 3)).astype(np.float32)
+    g[rng.random(n) < 0.2] = 0.0              # points that add nothing
+    idx, _, w, _ = tpe._sweep_corners(T(x), ts)
+    idx, w = idx.numpy(), w.numpy()           # [N, L, 8] table rows, weights
+    offs, sizes = ts.offsets, ts.level_sizes
+    dtable = np.zeros((ts.table_size, 3), np.float32)
+    chunks = tpe.sweep_chunks(n, L, 132, forward=False)
+    assert chunks > 1
+    flushed = 0
+    for p0, p1 in _grid(n, chunks):
+        for l in range(L):
+            acc = np.zeros((int(sizes[l]), 3), np.float32)
+            rows = idx[p0:p1, l] - offs[l]    # level-local rows
+            assert rows.min() >= 0 and rows.max() < sizes[l]
+            terms = w[p0:p1, l, :, None] * g[p0:p1, None, 3 * l:3 * l + 3]
+            np.add.at(acc, rows.reshape(-1), terms.reshape(-1, 3))
+            flat, live = acc.reshape(-1, 4), acc.reshape(-1, 4).any(1)
+            dst = dtable[offs[l]:offs[l] + sizes[l]].reshape(-1, 4)
+            dst[live] += flat[live]
+            flushed += int(live.sum())
+    want = tpe.sweep_bwd_plain(T(np.zeros((ts.table_size, 3), np.float32)),
+                               T(x), T(g), ts, need_dx=False)[0].numpy()
+    mag = tpe.sweep_bwd_plain(T(np.zeros((ts.table_size, 3), np.float32)),
+                              T(x), T(np.abs(g)), ts, need_dx=False)[0].numpy()
+    assert (np.abs(dtable - want) <= 1e-5 + 1e-4 * mag).all()
+    assert 0 < flushed < chunks * ts.table_size * 3 // 4
