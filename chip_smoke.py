@@ -12,12 +12,14 @@ Phases, in order; any failure exits non-zero:
      lattice cell); K6 on a long run (2048 points in one level-15 block); K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
-     plus K5 + its residual against hashgrid_encode; K4 sweep_fwd and K4b
+     K5 also on 16 tight clusters, a 2^15-point run of one window, 4096 and
+     128 points, a clamped tail, one level and 16 levels, plus K5 + its
+     residual against hashgrid_encode; K4 sweep_fwd and K4b
      sweep_bwd (the ref table gradient) against their plain versions on
      2^18 points at the ref slice's table (uniform, out-of-bounds, on-edge
      and 1-ulp-from-edge points), K4b also on 2^18 points in 16 tight
-     clusters, both at 40 and 70 levels and on a tiled grid; times from CUDA
-     events (the mean of 20
+     clusters, both at 40 and 70 levels and on a tiled grid; K7's bound
+     (not ported) at its shapes; times from CUDA events (the mean of 20
      back-to-back runs), each beside its bound (bytes over 3.35 TB/s or
      fp32 flops over 67 TFLOP/s, whichever is larger);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
@@ -344,6 +346,11 @@ def phase_kernels(dev):
         plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs)),
         bound=bound(N * Lk * 12 + meta + spec.table_size * 12,
                     trilinear_flops(N * Lk))))
+    k7_ms, k7_by = bound(level_rows(spec, (6,)) * 12 + (bases.numel()
+                         + rows.numel()) * 4 // Lk + x.numel() * 4 + N * 12,
+                         trilinear_flops(N))
+    log(f"[kernels] K7 (the TPU timing variants of K2 at level 6, not ported): "
+        f"bound {k7_ms:.4f} ms ({k7_by}) for K2's work at one level")
     results += winsort_kernels(dev, spec, table, rng)
     results += sweep_kernel(dev, rng)
     for r in results:
@@ -443,6 +450,67 @@ def winsort_long_run(dev, spec):
         raise AssertionError(f"K6 disagrees on the long run: {err}")
 
 
+def window_zero_block(spec, l, dev, rng):
+    """An 8^3 block of level l, off the grid's faces, whose window id is 0
+    (searched among 2^18 random blocks)."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import block_window
+    nb = int(spec.block_counts[l])
+    b = torch.from_numpy(rng.integers(1, nb - 1, (2 ** 18, 3))).to(dev)
+    return b[(block_window(b, spec, l) == 0).nonzero()[0, 0]].cpu().numpy()
+
+
+def winsort_fwd_cases(dev, spec, table, rng):
+    """K5 against winsort_fwd_plain beyond the main input: 2^18 points in 16
+    tight clusters, a run of 2^15 points in one level-15 window, 4096 and
+    128 uniform points, a clamped tail (the last tile's last slot clamps
+    from -1 to 0 while window 0 is a real window of level 15 whose run
+    reaches into that tile), and one and 16 levels; returns the largest
+    error."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    s15 = np.float32(spec.level_scale32(15))
+    c = rng.uniform(0.2, 0.8, (16, 3))
+    zero = window_zero_block(spec, 15, dev, rng)
+    cases = {
+        "clusters": c[rng.integers(0, 16, KERNEL_POINTS)]
+        + rng.normal(0, 0.002, (KERNEL_POINTS, 3)),
+        "long_run": np.concatenate([
+            (8 * 100 + rng.uniform(0.01, 7.99, (2 ** 15, 3)) - spec.shift) / s15,
+            rng.uniform(0, 1, (2 ** 15, 3))]),
+        "n4096": rng.uniform(0, 1, (4096, 3)),
+        "n128": rng.uniform(0, 1, (128, 3)),
+        "clamped_tail": np.concatenate([
+            (8 * zero + rng.uniform(0.01, 7.99, (140, 3)) - spec.shift) / s15,
+            rng.uniform(0, 1, (100, 3)), np.full((16, 3), 2.0)]),
+        "lw1": rng.uniform(0, 1, (2 ** 16, 3)),
+        "lw16": rng.uniform(0, 1, (2 ** 16, 3)),
+    }
+    worst = 0.0
+    for name, pts in cases.items():
+        levels = ((15,) if name == "lw1" else tuple(range(16))
+                  if name == "lw16" else WINSORT_LEVELS)
+        x = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        xc = x.clamp(0, 1).contiguous()
+        oob = ((x < 0) | (x > 1)).any(-1)
+        metas = [se.winsort_meta(xc, oob, spec, l) for l in levels]
+        perm = torch.stack([m[0] for m in metas]).to(torch.int32).contiguous()
+        wins = torch.stack([m[1] for m in metas]).contiguous()
+        slots = torch.stack([m[2] for m in metas]).contiguous()
+        if name == "clamped_tail":
+            k = levels.index(15)
+            if slots[k, -1].tolist() != [0, 0] or int((wins[k] == 0).sum()) < 140:
+                raise AssertionError(f"clamped tail lost its shape: "
+                                     f"{slots[k, -1].tolist()}")
+        args = (table, xc, perm, wins, slots, spec, levels)
+        err = float((se.winsort_fwd(*args) - se.winsort_fwd_plain(*args))
+                    .abs().max())
+        log(f"[kernels] K5 {name} ({x.shape[0]} points, {len(levels)} "
+            f"levels): max|err| {err:.3e}")
+        if not err <= TOL["winsort_fwd"][0]:
+            raise AssertionError(f"K5 winsort_fwd disagrees on {name}: {err}")
+        worst = max(worst, err)
+    return worst
+
+
 def winsort_kernels(dev, spec, table, rng):
     """K5/K6 on 2^18 uniform points (the fine-level regime: no spatial
     locality) at winsort levels 7-15, with out-of-bounds points and points on
@@ -481,6 +549,7 @@ def winsort_kernels(dev, spec, table, rng):
         raise AssertionError(f"K5 winsort_fwd disagrees: {err5}")
     if tol6 < 0:
         raise AssertionError(f"K6 winsort_bwd disagrees: {err6}")
+    err5 = max(err5, winsort_fwd_cases(dev, spec, table, rng))
     winsort_long_run(dev, spec)
 
     feat, _ = se.splat_encode_raw(table, x, spec, gather_levels=wl,

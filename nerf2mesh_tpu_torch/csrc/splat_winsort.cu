@@ -24,12 +24,27 @@
 // which corners cross the block edge with a separately rounded multiply and
 // add, and one floor that differed would count a corner twice or drop it.
 //
-// K5, bound on the H100: memory latency.  Per (point, level) it reads 12 B
-// of position at a scattered index, 3 ints of sort metadata, does ~60 flops
-// and up to 8 corner reads of 12 B from one 6 KB window; the window-sorted
-// order puts a warp's 32 points on one or two windows, so the corner reads
-// share L2 lines.  One thread per (winsort level, sorted point), level-major.
-//
+// K5, bound on the H100: its scattered output.  Per (point, level) it reads
+// the point's sort metadata (coalesced), 12 B of position at a scattered
+// index, up to 8 corners of 12 B from one 6 KiB window, and writes 12 B at a
+// random row of out.  A thread a (level, sorted point) that reads the
+// corners through L1 (~20 lines a warp load) and writes three 4-byte stores
+// spends two thirds of its time on the stores: their partial sectors of out
+// compete in L2 with the streamed windows and metadata.
+// So one block owns a chunk of kWsFwdTiles tiles of one level's sorted order:
+// `wins[k]` ascends there (the -1 tail last), so the chunk's slots name at
+// most 2 * kWsFwdTiles distinct windows, the clamped tail slot 0 among them.
+// Warp 0 dedupes the slots; the block stages those windows in shared memory
+// as 16-byte rows (4-byte cp.async, so a corner is one conflict-light
+// 16-byte shared load), then each thread sums its points' in-block corners
+// from there and writes each result as one 8-byte and one 4-byte store.  The
+// windows and the metadata are read once, with an L2 evict_first policy, so
+// they do not push out's partial sectors from L2.  out is written with
+// inline-asm stores: the same stores written in C++ ran ~16% slower on the
+// H100, and an L2 evict_last policy on them made K5 ~5% faster inside the
+// encode but the kernels after it slower by more (PERF.md).  The grid is
+// (chunks, levels), sized by the points and not by the windows: no run
+// search, no fixed cost a window.
 // K6, bound on the H100: the gradient's bytes, once the adds stay on chip.
 // With 2^18 points and 1024 windows a level, ~256 points add into each
 // window's 512 rows; one device-memory float atomic per (point, corner,
@@ -63,7 +78,6 @@
 
 namespace {
 
-using n2m::blocks_for;
 using n2m::kTile;
 using n2m::LevelParams;
 using n2m::pack_levels;
@@ -113,41 +127,119 @@ __device__ __forceinline__ bool inblock_corner(const int lg[3], const float fr[3
   return true;
 }
 
-__global__ void winsort_fwd_kernel(const float* __restrict__ table,
-                                   const float* __restrict__ x,
-                                   const int32_t* __restrict__ perm,
-                                   const int32_t* __restrict__ wins,
-                                   const int32_t* __restrict__ slots,
-                                   const __grid_constant__ LevelParams lp,
-                                   float shift, int64_t n_points,
-                                   int64_t n_tiles, int n_levels,
-                                   float* __restrict__ out) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_points * n_levels) return;
-  const int k = static_cast<int>(tid / n_points);
-  const int64_t i = tid - static_cast<int64_t>(k) * n_points;
-  const int32_t win = wins[tid];
-  const int64_t p = perm[tid];
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  if (in_slots(slots, n_tiles, k, i, win)) {
-    const float* tw = table + (lp.offset[k] + static_cast<int64_t>(win) * 512) * 3;
-    int lg[3];
-    float fr[3];
-    block_lattice(x, lp, shift, p, k, lg, fr);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      int cell;
-      float w;
-      if (!inblock_corner(lg, fr, c, cell, w)) continue;
-      a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(tw + cell * 3)));
-      a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(tw + cell * 3 + 1)));
-      a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(tw + cell * 3 + 2)));
-    }
+constexpr int kWsFwdTiles = 4;                    // tiles a K5 block
+constexpr int kWsFwdThreads = 256;
+constexpr int kWsFwdWindows = 2 * kWsFwdTiles;    // at most 2 distinct a tile
+constexpr int kWsFwdSmem = kWsFwdWindows * 512 * 16;   // 16-byte rows: 64 KiB
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ int32_t load_hinted(const int32_t* p, uint64_t pol) {
+  int32_t v;
+  asm volatile("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// out[o..o+2] = (a0, a1, a2) as one 8-byte and one 4-byte store (o is a
+// float index; the 8-byte half goes where it is aligned).
+__device__ __forceinline__ void store3(float* out, int64_t o, float a0,
+                                       float a1, float a2) {
+  if ((o & 1) == 0) {
+    asm volatile("st.global.v2.f32 [%0], {%1, %2};"
+                 ::"l"(out + o), "f"(a0), "f"(a1) : "memory");
+    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o + 2), "f"(a2) : "memory");
+  } else {
+    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o), "f"(a0) : "memory");
+    asm volatile("st.global.v2.f32 [%0], {%1, %2};"
+                 ::"l"(out + o + 1), "f"(a1), "f"(a2) : "memory");
   }
-  const int64_t o = (p * n_levels + k) * 3;
-  out[o] = a0;
-  out[o + 1] = a1;
-  out[o + 2] = a2;
+}
+
+// Block (c, k) = (blockIdx.x, blockIdx.y): tiles [c * kWsFwdTiles, ...) of
+// winsort level k.
+__global__ void __launch_bounds__(kWsFwdThreads)
+winsort_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
+                   const int32_t* __restrict__ perm,
+                   const int32_t* __restrict__ wins,
+                   const int32_t* __restrict__ slots,
+                   const __grid_constant__ LevelParams lp, float shift,
+                   int64_t n_points, int64_t n_tiles, int n_levels,
+                   float* __restrict__ out) {
+  extern __shared__ float4 win4[];                 // [n_win][512] rows
+  __shared__ int32_t s_win[kWsFwdWindows];         // the distinct slot windows
+  __shared__ int32_t s_idx[kWsFwdWindows];         // (tile, slot) -> staged
+  __shared__ int s_n;
+  const uint64_t stream_pol = l2_evict_first();
+  const int k = blockIdx.y;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kWsFwdTiles;
+  const int nt = static_cast<int>(min(static_cast<int64_t>(kWsFwdTiles), n_tiles - t0));
+  if (threadIdx.x < 32) {
+    // lane j holds slot j of the chunk (tile j / 2); it is first if no lower
+    // lane holds the same window, and its staged index is the count of
+    // first lanes below the lowest lane that holds it
+    const int j = threadIdx.x;
+    const bool valid = j < 2 * nt;
+    const int32_t v =
+        valid ? slots[(static_cast<int64_t>(k) * n_tiles + t0) * 2 + j] : -1;
+    int src = j;
+#pragma unroll
+    for (int q = kWsFwdWindows - 1; q >= 0; --q) {
+      const int32_t vq = __shfl_sync(0xffffffffu, v, q);
+      if (q < j && vq == v) src = q;
+    }
+    const unsigned first = __ballot_sync(0xffffffffu, valid && src == j);
+    if (valid) {
+      const int rank = __popc(first & ((1u << src) - 1u));
+      s_idx[j] = rank;
+      if (src == j) s_win[rank] = v;
+    }
+    if (j == 0) s_n = __popc(first);
+  }
+  __syncthreads();
+  float* wsm = reinterpret_cast<float*>(win4);
+  const int64_t off = lp.offset[k];
+  for (int e = threadIdx.x; e < s_n * kWinFloats; e += kWsFwdThreads) {
+    const int u = e / kWinFloats, r = (e % kWinFloats) / 3, ch = e % 3;
+    const float* src =
+        table + (off + static_cast<int64_t>(s_win[u]) * 512 + r) * 3 + ch;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(wsm + (u * 512 + r) * 4 + ch));
+    asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n"
+                 ::"r"(d), "l"(src), "l"(stream_pol));
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  const int64_t kn = static_cast<int64_t>(k) * n_points;
+  for (int j = threadIdx.x; j < nt * kTile; j += kWsFwdThreads) {
+    const int64_t i = t0 * kTile + j;
+    const int32_t win = load_hinted(wins + kn + i, stream_pol);
+    const int64_t p = load_hinted(perm + kn + i, stream_pol);
+    const int u0 = s_idx[2 * (j / kTile)], u1 = s_idx[2 * (j / kTile) + 1];
+    const int u = win == s_win[u0] ? u0 : (win == s_win[u1] ? u1 : -1);
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    if (u >= 0) {
+      int lg[3];
+      float fr[3];
+      block_lattice(x, lp, shift, p, k, lg, fr);
+      const float4* rows = win4 + u * 512;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int cell;
+        float w;
+        if (!inblock_corner(lg, fr, c, cell, w)) continue;
+        const float4 t = rows[cell];
+        a0 = __fadd_rn(a0, __fmul_rn(w, t.x));
+        a1 = __fadd_rn(a1, __fmul_rn(w, t.y));
+        a2 = __fadd_rn(a2, __fmul_rn(w, t.z));
+      }
+    }
+    store3(out, (p * n_levels + k) * 3, a0, a1, a2);
+  }
 }
 
 // [lo, hi) of window w's run in wk[0, n) (ascending, the -1 tail last: as
@@ -276,10 +368,14 @@ extern "C" int n2m_winsort_fwd(const void* table, const void* x,
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = n_points * n_levels;
-  if (n > 0) {
-    const int threads = 256;
-    winsort_fwd_kernel<<<blocks_for(n, threads), threads, 0,
+  if (n_points > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        winsort_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWsFwdSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t chunks = (n_tiles + kWsFwdTiles - 1) / kWsFwdTiles;
+    winsort_fwd_kernel<<<dim3(static_cast<unsigned>(chunks), n_levels),
+                         kWsFwdThreads, kWsFwdSmem,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const float*>(x),
         static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),

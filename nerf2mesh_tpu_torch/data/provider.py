@@ -3,9 +3,13 @@
 The dataset is host numpy, materialized once; the trainer moves it to the
 device and samples rays there.  ``load_nerf_dataset`` reads a blender-format
 directory (its PNGs with Pillow where it is importable, else with the
-port's codec, data/png.py); ``dataset_from_frames`` builds the identical
-Dataset from in-memory frames (data/synthetic.py).  The colmap / dtu
-formats are not ported yet (ROADMAP A11).
+port's codec, data/png.py) with the keys JAX's reader takes: ``fl_x`` /
+``fl_y`` or ``camera_angle_x`` / ``camera_angle_y``, ``cx`` / ``cy``,
+``h`` / ``w``, and a ``mask`` directory beside ``images/`` paths as alpha;
+``dataset_from_frames`` builds the identical Dataset from in-memory frames
+(data/synthetic.py).  Downscaling, resizing an image to the json's size
+and the trainval/all splits are not ported yet (ROADMAP A6), nor are the
+colmap / dtu formats (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -48,17 +52,35 @@ class Dataset:
         return self.images is not None
 
 
+def _intrinsics(transform: dict, H: int, W: int):
+    """(fl_x, fl_y, cx, cy) from a transforms json, resolved as JAX's reader
+    does (nerf2mesh_tpu/data/provider.py:171-184, downscale 1)."""
+    if "fl_x" in transform or "fl_y" in transform:
+        fl_x = transform.get("fl_x", transform.get("fl_y"))
+        fl_y = transform.get("fl_y", transform.get("fl_x"))
+    elif "camera_angle_x" in transform or "camera_angle_y" in transform:
+        fl_x = (W / (2 * np.tan(transform["camera_angle_x"] / 2))
+                if "camera_angle_x" in transform else None)
+        fl_y = (H / (2 * np.tan(transform["camera_angle_y"] / 2))
+                if "camera_angle_y" in transform else None)
+        fl_x = fl_x if fl_x is not None else fl_y
+        fl_y = fl_y if fl_y is not None else fl_x
+    else:
+        raise RuntimeError("no focal length in transforms json")
+    return fl_x, fl_y, transform.get("cx", W / 2.0), transform.get("cy", H / 2.0)
+
+
 def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
-            camera_angle_x: float, split: str) -> Dataset:
-    """Shared tail of both constructors (blender intrinsics + MVPs)."""
+            transform: dict, split: str) -> Dataset:
+    """Shared tail of both constructors (intrinsics + MVPs)."""
     scale = 1.0 if cfg.scale == -1 else cfg.scale
     poses_arr = np.stack([nerf_matrix_to_ngp(p, scale, cfg.offset)
                           for p in poses]).astype(np.float32)
     images_arr = np.stack(images).astype(np.uint8)
     H, W = images_arr.shape[1], images_arr.shape[2]
-    fl = W / (2 * np.tan(camera_angle_x / 2))
-    intrinsics = np.array([fl, fl, W / 2.0, H / 2.0], np.float32)
-    projection = make_projection(H, W, fl, cfg.min_near)
+    fl_x, fl_y, cx, cy = _intrinsics(transform, H, W)
+    intrinsics = np.array([fl_x, fl_y, cx, cy], np.float32)
+    projection = make_projection(H, W, fl_y, cfg.min_near)
     return Dataset(
         poses=poses_arr, images=images_arr, intrinsics=intrinsics, H=H, W=W,
         projection=projection, mvps=make_mvps(projection, poses_arr),
@@ -69,16 +91,20 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
     """Load one split of a nerf-synthetic / blender directory."""
     root = cfg.path
     if cfg.downscale != 1:
-        raise NotImplementedError("downscale is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("downscale is not ported yet (ROADMAP A6)")
+    if os.path.exists(os.path.join(root, "transforms.json")):
+        raise NotImplementedError(
+            f"{root}: the colmap-style single transforms.json is not ported "
+            "yet (ROADMAP A7)")
     path = os.path.join(root, f"transforms_{split}.json")
     if not os.path.exists(path):
         raise NotImplementedError(
-            f"{path} not found: only the blender split-file format is ported "
-            "(colmap/dtu and the trainval/all splits: ROADMAP A11)")
+            f"{path} not found: only the blender split files are ported (the "
+            "trainval/all splits: ROADMAP A6; colmap/dtu: ROADMAP A7)")
     with open(path) as f:
         transform = json.load(f)
-    if "camera_angle_x" not in transform or "fl_x" in transform:
-        raise NotImplementedError("only camera_angle_x intrinsics are ported")
+    H = int(transform["h"]) if "h" in transform else None
+    W = int(transform["w"]) if "w" in transform else None
     poses, images = [], []
     for fr in transform["frames"]:
         f_path = os.path.join(root, fr["file_path"])
@@ -89,9 +115,21 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
         img = read_image(f_path)
         if img.ndim == 2:
             img = img[..., None].repeat(3, axis=-1)
+        if H is None:
+            H, W = img.shape[0], img.shape[1]
+        m_path = f_path.replace("images", "mask")     # a mask dir as alpha
+        if m_path != f_path and os.path.exists(m_path):
+            mask = read_image(m_path)
+            if mask.ndim == 2:
+                mask = mask[..., None]
+            img = np.concatenate([img[..., :3], mask[..., :1]], axis=-1)
+        if img.shape[0] != H or img.shape[1] != W:
+            raise NotImplementedError(
+                f"{f_path}: {img.shape[1]}x{img.shape[0]}, the json says "
+                f"{W}x{H}; resizing is not ported yet (ROADMAP A6)")
         poses.append(np.array(fr["transform_matrix"], np.float32))
         images.append(img)
-    return _finish(cfg, poses, images, transform["camera_angle_x"], split)
+    return _finish(cfg, poses, images, transform, split)
 
 
 def dataset_from_frames(cfg: Config, frames: dict, split: str = "train") -> Dataset:
@@ -99,4 +137,4 @@ def dataset_from_frames(cfg: Config, frames: dict, split: str = "train") -> Data
     generate_synthetic_dataset writes; frames = render_synthetic_frames()."""
     fr = frames[split]
     return _finish(cfg, list(fr["poses"]), list(fr["images"]),
-                   fr["camera_angle_x"], split)
+                   {"camera_angle_x": fr["camera_angle_x"]}, split)

@@ -3,15 +3,16 @@
 Usage:  python -m nerf2mesh_tpu_torch.main <blender dir> [flags of config.py]
 
 Runs stage 0 on the first CUDA card: --ckpt latest|scratch|<path>, then
-either --test (test eval with PSNR, SSIM and LPIPS, the test video, the mesh)
-or training with validation evals, the final val and test evals, the video,
-the sharpen phase (under -O or --sharpen_steps) and its checkpoint, and the
-mesh export unless --test_no_mesh.  The command line exits non-zero when
-there is no card; from Python, ``main(argv, device="cpu")`` runs on the CPU.
+either --test (test eval with PSNR, SSIM and LPIPS, the test video) or
+training with validation evals, the final val and test evals, the video,
+and the sharpen phase (under -O or --sharpen_steps) and its checkpoint.  The
+command line exits non-zero when there is no card; from Python,
+``main(argv, device="cpu")`` runs on the CPU.
 
-Not ported yet (NotImplementedError naming the ROADMAP item): stage 1 and
-SDF pretraining (A8, A9, raised by the Trainer), the colmap/dtu providers,
---vis_pose and more than one device (A11), the mesh export (A13).
+Not ported yet (NotImplementedError naming the ROADMAP item, raised before
+any work): the stage-0 mesh export (A3: pass --test_no_mesh), stage 1 (A4),
+SDF pretraining (A5), the colmap/dtu providers and more than one device
+(A7); --vis_pose (A7) raises once the datasets are loaded.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def main(argv: Optional[List[str]] = None, device=None):
     from .config import parse_args
     from .data.provider import load_nerf_dataset as load_dataset
     from .utils.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
-    from .utils.trainer import Trainer
+    from .utils.trainer import Trainer, check_supported
 
     cfg = parse_args(argv)
     if device is None:
@@ -41,11 +42,17 @@ def main(argv: Optional[List[str]] = None, device=None):
         device = "cuda:0"
     if cfg.data_format != "nerf":
         raise NotImplementedError(f"the {cfg.data_format} provider is not "
-                                  "ported yet (ROADMAP A11)")
+                                  "ported yet (ROADMAP A7)")
     if any(int(n) > 1 for n in cfg.mesh_shape):
         raise NotImplementedError(
             f"mesh_shape {cfg.mesh_shape}: multi-device training is not "
-            "ported yet (ROADMAP A11); the port runs on one device")
+            "ported yet (ROADMAP A7); the port runs on one device")
+    check_supported(cfg)
+    if cfg.stage == 0 and not cfg.test_no_mesh:
+        # the run would end in Trainer.save_mesh: fail before any work
+        raise NotImplementedError(
+            "the stage-0 mesh export is not ported yet (ROADMAP A3); pass "
+            "--test_no_mesh")
 
     np.random.seed(cfg.seed)
     trainer = Trainer(cfg, device=device)
@@ -62,15 +69,12 @@ def main(argv: Optional[List[str]] = None, device=None):
             trainer.evaluate(test_ds, name="test", write_images=True)
         if not cfg.test_no_video:
             trainer.test_video(test_ds)
-        if not cfg.test_no_mesh:
-            trainer.save_mesh(resolution=cfg.mcubes_reso,
-                              decimate_target=cfg.decimate_target)
         return trainer
 
     train_ds = load_dataset(cfg, split=cfg.train_split)
     valid_ds = load_dataset(cfg, split="val")
     if cfg.vis_pose:
-        raise NotImplementedError("--vis_pose is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("--vis_pose is not ported yet (ROADMAP A7)")
 
     trainer.metrics = [PSNRMeter()]
     trainer.train(train_ds, valid_ds)
@@ -91,10 +95,6 @@ def main(argv: Optional[List[str]] = None, device=None):
                     f"entropy {cfg.sharpen_entropy}")
         trainer.train(train_ds, None, max_steps=cfg.iters + cfg.sharpen_steps)
         trainer.save_checkpoint()
-
-    if not cfg.test_no_mesh:
-        trainer.save_mesh(resolution=cfg.mcubes_reso,
-                          decimate_target=cfg.decimate_target)
     return trainer
 
 

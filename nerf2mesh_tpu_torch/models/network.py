@@ -75,13 +75,13 @@ class NetworkSpec:
 
 def check_supported(spec: NetworkSpec) -> None:
     if spec.sdf:
-        raise NotImplementedError("SDF mode is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("SDF mode is not ported yet (ROADMAP A5)")
     if spec.ind_dim > 0:
         raise NotImplementedError(
-            "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A11)")
+            "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A6)")
     if spec.separate_tables:
         raise NotImplementedError(
-            "separate density/color tables are not ported yet (ROADMAP A2)")
+            "separate density/color tables are not ported yet (ROADMAP A6)")
 
 
 class NeRFField(nn.Module):

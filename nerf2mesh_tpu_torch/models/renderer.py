@@ -49,10 +49,10 @@ class RenderSpec:
 
 def check_supported(spec: RenderSpec) -> None:
     if spec.sdf:
-        raise NotImplementedError("SDF rendering is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("SDF rendering is not ported yet (ROADMAP A5)")
     if spec.contract or spec.cascades > 1:
         raise NotImplementedError(
-            "cascades / contracted scenes are not ported yet (ROADMAP A11)")
+            "cascades / contracted scenes are not ported yet (ROADMAP A7)")
 
 
 @dataclass

@@ -252,7 +252,7 @@ def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec,
     if spec.interpolation != "linear" or spec.input_dim != 3:
         raise NotImplementedError(
             "hashgrid_encode: smoothstep / non-3D inputs are not ported "
-            "(ROADMAP A2)")
+            "(ROADMAP A6)")
     N = x01.shape[0]
     L, C = spec.num_levels, spec.level_dim
     x01 = x01.float()

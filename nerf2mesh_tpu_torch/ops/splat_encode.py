@@ -30,7 +30,9 @@ whose window is one of its tile's slots has its in-block corners computed
 by a kernel; corners that cross the block edge, and points outside the
 slots, ride an exact masked-gather residual.  Kernels (csrc/splat_winsort.cu):
 
-  K5 ``winsort_fwd`` - the in-block part, [N, Lw, 3] in the caller's order;
+  K5 ``winsort_fwd`` - the in-block part, [N, Lw, 3] in the caller's order:
+     one thread block a chunk of 4 tiles of one level stages the chunk's
+     distinct slot windows in shared memory;
   K6 ``winsort_bwd`` - its table gradient: one thread block owns each
      (level, window), reduces the window's run of sorted points in shared
      memory and writes the window once, with no global atomic.

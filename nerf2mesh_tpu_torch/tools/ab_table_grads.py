@@ -159,8 +159,9 @@ def long_run(spec, rng):
 
 
 def profile_steps(fn, steps):
-    """(wall, device busy, kernels, K5 and K6 device time), each a step, of
-    fn under torch.profiler; None when the profiler sees no device time."""
+    """(wall, device busy, kernels, K5 and K6 device time and launches),
+    each over `steps` (steps or frames), of fn under torch.profiler; None
+    when the profiler sees no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -175,11 +176,13 @@ def profile_steps(fn, steps):
         return None
 
     def named(s):
-        return sum(e.time_range.elapsed_us() for e in kern if s in e.name) / 1e3
+        return [e.time_range.elapsed_us() / 1e3 for e in kern if s in e.name]
+    fwd, bwd = named("winsort_fwd_kernel"), named("winsort_bwd_kernel")
     return dict(wall_ms=wall / steps, busy_ms=busy / steps,
                 idle_share=1 - busy / wall, kernels=len(kern) / steps,
-                winsort_fwd_ms=named("winsort_fwd_kernel") / steps,
-                winsort_bwd_ms=named("winsort_bwd_kernel") / steps)
+                winsort_fwd_ms=sum(fwd) / steps, winsort_bwd_ms=sum(bwd) / steps,
+                winsort_fwd_launches=len(fwd) / steps,
+                winsort_bwd_launches=len(bwd) / steps)
 
 
 def winsort_training(cs, dev):

@@ -96,14 +96,14 @@ class StepDynamics(NamedTuple):
 
 def check_supported(cfg: Config) -> None:
     unsupported = {
-        "sdf": (cfg.sdf, "A9"), "contract": (cfg.contract, "A11"),
-        "bound > 1 (cascades)": (cfg.cascades > 1, "A11"),
-        "patch_size > 1": (cfg.patch_size > 1, "A4"),
-        "ind_dim > 0": (cfg.ind_dim > 0, "A11"),
-        "color_space=linear": (cfg.color_space == "linear", "A4"),
-        "enable_cam_near_far": (cfg.enable_cam_near_far, "A11"),
-        "trainable_density_grid": (cfg.trainable_density_grid, "A4"),
-        "stage 1": (cfg.stage != 0, "A8"),
+        "sdf": (cfg.sdf, "A5"), "contract": (cfg.contract, "A7"),
+        "bound > 1 (cascades)": (cfg.cascades > 1, "A7"),
+        "patch_size > 1": (cfg.patch_size > 1, "A6"),
+        "ind_dim > 0": (cfg.ind_dim > 0, "A6"),
+        "color_space=linear": (cfg.color_space == "linear", "A6"),
+        "enable_cam_near_far": (cfg.enable_cam_near_far, "A6"),
+        "trainable_density_grid": (cfg.trainable_density_grid, "A6"),
+        "stage 1": (cfg.stage != 0, "A4"),
     }
     for name, (on, item) in unsupported.items():
         if on:
@@ -551,7 +551,7 @@ class Trainer:
             stage1 = self.cfg.stage > 0
         if stage1:
             raise NotImplementedError(
-                "the stage-1 eval render is not ported yet (ROADMAP A8)")
+                "the stage-1 eval render is not ported yet (ROADMAP A4)")
         for m in self.metrics:
             m.clear()
         self.stats["eval_rounds"] = []
@@ -635,18 +635,18 @@ class Trainer:
     def save_mesh(self, resolution: int = 512, decimate_target: float = 3e5,
                   dataset: Optional[Dataset] = None):
         raise NotImplementedError(
-            "stage-0 mesh export is not ported yet (ROADMAP A13); pass "
+            "stage-0 mesh export is not ported yet (ROADMAP A3); pass "
             "--test_no_mesh")
 
     def export_stage1(self, resolution: int = 4096):
         raise NotImplementedError(
-            "the stage-1 export is not ported yet (ROADMAP A8)")
+            "the stage-1 export is not ported yet (ROADMAP A4)")
 
     # ------------------------------------------------------------ checkpoints
     def _ckpt_path(self, tag: str) -> str:
         if self.cfg.ckpt_backend == "orbax":
             raise NotImplementedError(
-                "orbax checkpoints are not ported yet (ROADMAP A7); use "
+                "orbax checkpoints are not ported yet (ROADMAP A6); use "
                 "--ckpt_backend pickle")
         return os.path.join(self.workspace, "checkpoints",
                             f"ngp_stage{self.cfg.stage}_{tag}.ckpt")
@@ -750,7 +750,7 @@ class Trainer:
             return False
         if os.path.isdir(path):
             raise NotImplementedError(
-                f"{path}: orbax checkpoints are not ported yet (ROADMAP A7)")
+                f"{path}: orbax checkpoints are not ported yet (ROADMAP A6)")
         payload = read_jax_checkpoint(path)
         st = payload["state"]
         named = dict(self.params.named_parameters())

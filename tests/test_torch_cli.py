@@ -98,14 +98,51 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("test", [False, True])
+def test_cli_mesh_export_raises_before_any_work(tmp_path, test):
+    """Without --test_no_mesh the run would end in the unported mesh export,
+    so main raises at once, naming ROADMAP A3: no Trainer, no data read, no
+    workspace file; with the flag the same command gets past that check."""
+    from nerf2mesh_tpu_torch.data.synthetic import generate_synthetic_dataset
+    root = generate_synthetic_dataset(str(tmp_path / "scene"), H=8, W=8,
+                                      n_train=2, n_val=1, n_test=1)
+    ws = tmp_path / "ws"
+    argv = [root, "--workspace", str(ws), "--bound", "1", "--num_levels", "4",
+            "--log2_hashmap_size", "12", "--grid_size", "16", "--iters", "1"]
+    argv += ["--test"] if test else []
+    built = []
+    real = Trainer.__init__
+
+    def counted(self, *a, **k):
+        built.append(1)
+        real(self, *a, **k)
+
+    Trainer.__init__ = counted
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+            main(argv, device="cpu")
+        assert not built and not ws.exists()
+        with pytest.raises(NotImplementedError, match="A3"):
+            Trainer.save_mesh(None)
+        main(argv + ["--test_no_mesh", "--test_no_video"], device="cpu")
+        assert built
+    finally:
+        Trainer.__init__ = real
+
+
 def test_unported_cli_paths_raise(tmp_path):
     base = [str(tmp_path), "--workspace", str(tmp_path / "ws"), "--bound",
             "1", "--num_levels", "4", "--log2_hashmap_size", "12",
-            "--grid_size", "16"]
-    for extra in (["--data_format", "colmap"], ["--mesh_shape", "2"],
-                  ["--stage", "1"], ["--sdf"]):
-        with pytest.raises(NotImplementedError):
+            "--grid_size", "16", "--test_no_mesh"]
+    for extra, item in ((["--data_format", "colmap"], "A7"),
+                        (["--mesh_shape", "2"], "A7"),
+                        (["--stage", "1"], "A4"), (["--sdf"], "A5")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             main(base + extra, device="cpu")
+        # stage 1 and SDF name their own item with or without the flag
+        if item in ("A4", "A5"):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+                main(base[:-1] + extra, device="cpu")
     cfg = dataclasses.replace(Config(), bound=1.0, num_levels=4,
                               log2_hashmap_size=12, grid_size=16,
                               workspace=str(tmp_path / "ws"),

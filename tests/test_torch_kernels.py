@@ -317,6 +317,65 @@ def test_winsort_bwd_run_inside_one_tile(dev):
     assert not se.winsort_bwd(gr, *args)[off:off + 512].any()
 
 
+def _window_zero_block(spec, l):
+    """An 8^3 block of level l, off the grid's faces, whose window id is 0."""
+    from nerf2mesh_tpu_torch.ops.hashgrid import block_window
+    ax = torch.arange(1, int(spec.block_counts[l]) - 1)
+    b = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    return tuple(b[(block_window(b, spec, l) == 0).nonzero()[0, 0]].tolist())
+
+
+SPEC16 = HashGridSpec(num_levels=16, level_dim=3, log2_hashmap_size=14,
+                      desired_resolution=2048, layout="block512")
+
+
+@pytest.mark.parametrize("case", ["clusters", "long_run", "n128", "n4096",
+                                  "clamped_tail", "lw1", "lw16"])
+def test_winsort_fwd_kernel_cases(dev, case):
+    """K5 against its plain version on 16 tight clusters, a 2048-point run
+    of one level-5 window, 128 and 4096 uniform points, a clamped tail (the
+    last tile's last slot clamps from -1 to 0 while window 0 is a real
+    window whose run reaches into that tile), one level and 16 levels."""
+    rng = np.random.default_rng(20)
+    spec, levels = SPEC, WS_LEVELS
+    if case == "clusters":
+        c = rng.uniform(0.2, 0.8, (16, 3))
+        x = c[rng.integers(0, 16, 4096)] + rng.normal(0, 0.002, (4096, 3))
+    elif case == "long_run":
+        x = np.concatenate([_block_points(rng, 5, [(9, 9, 9)], [2048]),
+                            rng.uniform(0, 1, (2048, 3))])
+    elif case in ("n128", "n4096"):
+        x = rng.uniform(0, 1, (int(case[1:]), 3))
+    elif case == "clamped_tail":
+        x = np.concatenate([_block_points(rng, 5, [_window_zero_block(SPEC, 5)],
+                                          [140]),
+                            rng.uniform(0, 1, (100, 3)), np.full((16, 3), 2.0)])
+    else:
+        x = rng.uniform(0, 1, (2048, 3))
+        x[-40:, 2] = -0.3
+        spec, levels = (SPEC, (5,)) if case == "lw1" else (SPEC16, tuple(range(16)))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    xc = x.clamp(0, 1).contiguous()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    metas = [se.winsort_meta(xc, oob, spec, l) for l in levels]
+    perm = torch.stack([m[0] for m in metas]).to(torch.int32).contiguous()
+    wins = torch.stack([m[1] for m in metas]).contiguous()
+    slots = torch.stack([m[2] for m in metas]).contiguous()
+    table = (torch.rand((spec.table_size, 3),
+                        generator=torch.Generator().manual_seed(21)) * 2 - 1).to(dev)
+    if case == "clamped_tail":
+        k = levels.index(5)
+        assert slots[k, -1].tolist() == [0, 0] and int(wins[k, -1]) == -1
+        assert int((wins[k] == 0).sum()) >= 140
+    before = kernels.LAUNCHES["winsort_fwd"]
+    out = se.winsort_fwd(table, xc, perm, wins, slots, spec, levels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["winsort_fwd"] == before + 1
+    ref = se.winsort_fwd_plain(table, xc, perm, wins, slots, spec, levels)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float(ref.abs().max()) > 0.1 and not out[oob].any()
+
+
 def test_winsort_autograd_and_encode_on_card(dev):
     table, x, _, _, _, _ = _ws_inputs(dev, seed=3)
     t = table.clone().requires_grad_()

@@ -1,6 +1,6 @@
 """The host side of the table-gradient kernels K3 (``inwin_bwd``) and K6
-(``winsort_bwd``), on the CPU at a small size (6 levels, 2^14 tables,
-resolution 256).
+(``winsort_bwd``), and the launch plan of K5 (``winsort_fwd``), on the CPU at
+a small size (6 levels, 2^14 tables, resolution 256).
 
 K3 reduces one tile's slot windows at one level in shared memory and adds
 each touched 16-byte gradient chunk into device memory once;
@@ -9,10 +9,17 @@ is held here to a count written straight from the K2 contract in numpy.  K6 give
 walks the window's run of the window-sorted points: the runs of slotted
 points must be contiguous, and a numpy walk of the runs as the kernel walks
 them must give the plain gradient (atol 1e-6: the same terms in another
-order).  The wrapper's argument checks run here too; the kernels themselves,
+order).  K5 gives each chunk of 4 consecutive tiles of a level one block,
+which stages the chunk's distinct slot windows: a numpy walk of that plan
+must stage at most 8 windows a chunk, find every slotted point's window
+among them, cover every sorted point once and give the plain output (atol
+1e-6).  The wrapper's argument checks run here too; the kernels themselves,
 and the launcher's alignment check, are tested on a card
 (tests/test_torch_kernels.py).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -148,10 +155,20 @@ def _block_points(rng, l, blocks, counts):
     return np.concatenate(pts)
 
 
+def _window_zero_block(l):
+    """An 8^3 block of level l, off the grid's faces, whose window id is 0."""
+    ax = torch.arange(1, int(SPEC.block_counts[l]) - 1)
+    b = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    return tuple(b[(block_window(b, SPEC, l) == 0).nonzero()[0, 0]].tolist())
+
+
 def _ws_case(name):
     """Window-sorted inputs: uniform points with out-of-bounds ones (the -1
-    tail) and a tile with equal slots; a window whose run spans 16 tiles;
-    or a window whose run lies strictly inside one tile."""
+    tail) and a tile with equal slots; a window whose run spans 16 tiles; a
+    window whose run lies strictly inside one tile; 16 tight clusters; only
+    out-of-bounds points (every slot clamps to 0); or a clamped tail: the
+    last tile's last slot clamps from -1 to 0 while window 0 is a real
+    window of level 5 whose run reaches into that tile."""
     rng = np.random.default_rng(5)
     if name == "uniform":
         x = rng.uniform(0, 1, (1024, 3))
@@ -160,6 +177,16 @@ def _ws_case(name):
     elif name == "long_run":
         x = np.concatenate([_block_points(rng, 5, [(9, 9, 9)], [2048]),
                             rng.uniform(0, 1, (512, 3))])
+    elif name == "clusters":
+        c = rng.uniform(0.2, 0.8, (16, 3))
+        x = np.clip(c[rng.integers(0, 16, 1024)]
+                    + rng.normal(0, 0.002, (1024, 3)), 0, 1)
+    elif name == "all_oob":
+        x = rng.uniform(0, 1, (512, 3))
+        x[:, 1] = -0.5
+    elif name == "clamped_tail":
+        x = np.concatenate([_block_points(rng, 5, [_window_zero_block(5)], [140]),
+                            rng.uniform(0, 1, (100, 3)), np.full((16, 3), 2.0)])
     else:                                    # inside_one_tile
         blocks = [(3, 4, 5), (10, 11, 12), (20, 5, 7), (25, 26, 1), (2, 30, 9)]
         win = block_window(torch.tensor(blocks), SPEC, 5).tolist()
@@ -302,3 +329,83 @@ def test_winsort_owner_walk_gives_the_plain_gradient(case):
         assert not bool(metas[2][3][perm[2, 40:88].long()].any())
         off = int(SPEC.offsets[5]) + wb * 512
         assert not plain[off:off + 512].any()
+
+
+def _k5_tiles():
+    """Tiles a K5 block: kWsFwdTiles in the kernel's source."""
+    src = (Path(se.__file__).resolve().parent.parent / "csrc"
+           / "splat_winsort.cu").read_text()
+    return int(re.search(r"constexpr int kWsFwdTiles = (\d+);", src).group(1))
+
+
+def _stage(v):
+    """K5's warp-0 dedupe of a chunk's slots v (tile-major): (the distinct
+    windows in order of first appearance, each slot's index among them)."""
+    first = [j for j in range(len(v)) if v[j] not in v[:j]]
+    staged = [int(v[j]) for j in first]
+    return staged, [staged.index(int(s)) for s in v]
+
+
+def _winsort_fwd_by_plan(table, xc, perm, wins, slots, levels):
+    """K5's launch plan in numpy: one block a (chunk of C tiles, level)
+    stages the chunk's distinct slot windows and sums each slotted point's
+    in-block corners from them, writing out[perm[i], k].  Checks the plan's
+    invariants on the way; returns (out, most windows a chunk staged)."""
+    C = _k5_tiles()
+    x, tab = xc.numpy(), table.numpy()
+    N, T = x.shape[0], slots.shape[1]
+    out = np.full((N, len(levels), 3), np.nan, np.float32)
+    most = 0
+    for k, l in enumerate(levels):
+        s, off = np.float32(SPEC.level_scale32(l)), int(SPEC.offsets[l])
+        wk, sk, pk = wins[k].numpy(), slots[k].numpy(), perm[k].numpy()
+        covered = np.zeros(N, int)
+        for t0 in range(0, T, C):                       # the grid's x
+            nt = min(C, T - t0)
+            staged, idx = _stage(list(sk[t0:t0 + nt].reshape(-1)))
+            assert len(staged) <= 2 * C
+            most = max(most, len(staged))
+            win_rows = [tab[off + w * 512:off + (w + 1) * 512] for w in staged]
+            for j in range(nt * se.TILE):
+                i, lt = t0 * se.TILE + j, j // se.TILE
+                covered[i] += 1
+                u0, u1 = idx[2 * lt], idx[2 * lt + 1]
+                u = u0 if wk[i] == staged[u0] else u1 if wk[i] == staged[u1] else -1
+                assert (u >= 0) == (wk[i] in sk[t0 + lt])   # slotted <=> staged
+                acc = np.zeros(3, np.float32)
+                if u >= 0:
+                    pos = (x[pk[i]] * s).astype(np.float32) + np.float32(SPEC.shift)
+                    pg = np.floor(pos)
+                    fr, lg = pos - pg, pg.astype(np.int64) & 7
+                    for c in range(8):
+                        bit = np.array([(c >> d) & 1 for d in range(3)])
+                        loc = lg + bit
+                        if (loc <= 7).all():
+                            wt = np.prod(np.where(bit == 1, fr, 1 - fr))
+                            acc += wt * win_rows[u][loc[0] + 8 * loc[1] + 64 * loc[2]]
+                out[pk[i], k] = acc
+        assert (covered == 1).all()
+    return torch.from_numpy(out), most
+
+
+@pytest.mark.parametrize("case", ["uniform", "clusters", "all_oob",
+                                  "clamped_tail"])
+def test_winsort_fwd_plan_stages_every_slotted_window(case):
+    """K5's plan on uniform (with an oob tail), clustered, all-oob and
+    clamped-tail inputs: at most 2C windows a chunk, every slotted point's
+    window among its chunk's staged ones, every sorted point once, and the
+    plain output."""
+    xc, perm, wins, slots, _ = _ws_case(case)
+    table = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1, 1, (SPEC.table_size, 3)).astype(np.float32))
+    got, most = _winsort_fwd_by_plan(table, xc, perm, wins, slots, WS_LEVELS)
+    want = se.winsort_fwd(table, xc, perm, wins, slots, SPEC, WS_LEVELS)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert 1 <= most <= 2 * _k5_tiles()
+    if case == "all_oob":                    # every slot clamps to window 0
+        assert bool((wins == -1).all()) and bool((slots == 0).all())
+        assert most == 1 and not want.any()
+    if case == "clamped_tail":               # level 5: tile 1 is (0, 0)
+        assert slots[2, -1].tolist() == [0, 0] and int(wins[2, -1]) == -1
+        assert int((wins[2] == 0).sum()) >= 140
+        assert bool(want[perm[2, 128:140].long(), 2].any())
