@@ -5,11 +5,18 @@
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 2;
   2. build: compile the port's kernels (nerf2mesh_tpu_torch/csrc) with nvcc;
-  3. kernels: K1 occ_lookup, K2 inwin_fwd and K3 inwin_bwd against their
-     plain PyTorch versions at the shapes the training step gives them,
+  3. kernels: K1 occ_lookup against its plain version and the unpacked
+     grid on the sampler's cells (32768 rays of the bench scene's train
+     views x 128 coarse candidates, the row's time; an eval round of 8192
+     rays), on uniformly random cells and on a view that starts off a
+     16-byte boundary, with pack_bits timed beside it; K2 inwin_fwd (at
+     levels 0-6 and 0-8) and K3 inwin_bwd against their plain versions at
+     the shapes the training step gives them,
      plus K2 + the residual against the plain hashgrid_encode; K3's global
      vector adds counted, and K3 on a hot spot (16 tiles inside one level-0
-     lattice cell); K6 on a long run (2048 points in one level-15 block); K5
+     lattice cell); K7 (the TPU's timing variants of K2, on no path):
+     inwin_dense_deep, _const_rows and _four_tiles on K2's points at level
+     6; K6 on a long run (2048 points in one level-15 block); K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
      K5 also on 16 tight clusters, a 2^15-point run of one window, 4096 and
@@ -18,10 +25,10 @@ Phases, in order; any failure exits non-zero:
      sweep_bwd (the ref table gradient) against their plain versions on
      2^18 points at the ref slice's table (uniform, out-of-bounds, on-edge
      and 1-ulp-from-edge points), K4b also on 2^18 points in 16 tight
-     clusters, both at 40 and 70 levels and on a tiled grid; K7's bound
-     (not ported) at its shapes; times from CUDA events (the mean of 20
-     back-to-back runs), each beside its bound (bytes over 3.35 TB/s or
-     fp32 flops over 67 TFLOP/s, whichever is larger);
+     clusters, both at 40 and 70 levels and on a tiled grid; times from
+     CUDA events (the mean of 20 back-to-back runs), each beside its bound
+     (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, whichever is
+     larger; K7's is K2's at its level);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
      256x256 x 24-view sphere scene; every loss finite, the loss falls, and
      K1-K3's launch counters are above 0 for the training run alone; after
@@ -48,7 +55,8 @@ Phases, in order; any failure exits non-zero:
      8 more steps and one eval frame of the loaded trainer profiled.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
-phase 7's CLI run for K4 and K4b), the last line the device record.  Imports only
+phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
+phase 4 is 0), the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
 
@@ -79,7 +87,8 @@ PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
-       "sweep_bwd": (1e-5, 1e-4), "encode": (1e-5, 1e-5)}
+       "sweep_bwd": (1e-5, 1e-4), "inwin_dense": (1e-5, 0.0),
+       "encode": (1e-5, 1e-5)}
 # the H100 SXM's published peaks (device memory; fp32 outside the tensor
 # cores) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -232,33 +241,86 @@ def same_window_tile(spec, levels, rng):
     raise RuntimeError(f"no same-window slot pair on levels {levels}")
 
 
-def phase_kernels(dev):
-    from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
-    from nerf2mesh_tpu_torch.ops import occ_sweep, splat_encode as se
+def coarse_cells(cfg, ds, views, pix, dev):
+    """The occupancy grid cells that the sampler's coarse pass tests for the
+    rays of pixels `pix` of ds's views `views` (numpy [N] each), at the
+    trainer's render spec: int32 [N, Kc] (sampling.occupancy_index)."""
+    from nerf2mesh_tpu_torch.data.rays import get_rays
+    from nerf2mesh_tpu_torch.models.renderer import RenderSpec
+    from nerf2mesh_tpu_torch.ops import sampling
+    rs = RenderSpec(bound=cfg.bound, contract=cfg.contract,
+                    grid_size=cfg.grid_size, min_near=cfg.min_near,
+                    max_steps=cfg.max_steps, num_coarse=cfg.coarse_per_ray,
+                    dt_gamma=cfg.dt_gamma)
+    rays = get_rays(torch.from_numpy(ds.poses[views]).to(dev),
+                    tuple(float(v) for v in ds.intrinsics_for(0)), ds.H, ds.W,
+                    torch.from_numpy(pix).to(dev))
+    aabb = torch.tensor([-rs.bound] * 3 + [rs.bound] * 3, device=dev)
+    nears, fars = sampling.near_far_from_aabb(rays["rays_o"], rays["rays_d"],
+                                              aabb, rs.min_near)
+    _, dtc, xyz = sampling.coarse_candidates(
+        rays["rays_o"], rays["rays_d"], nears, fars, rs.num_coarse,
+        rs.grid_size, rs.bound, rs.dt_gamma, rs.max_steps)
+    return sampling.occupancy_index(xyz, dtc, rs.bound, rs.contract,
+                                    rs.cascades, rs.grid_size)[0]
 
-    rng = np.random.default_rng(SEED)
-    results = []
 
-    # K1: a random 128^3 grid, 32768 rays x 128 coarse candidates
+def sampler_cells(dev, rng):
+    """K1's indices on the sampler's path: (training: 32768 rays of random
+    train views and pixels, an eval round: 8192 rays of val view 0, rows
+    112-143), each [rays, 128], at bench.py's configuration."""
+    cfg = bench_config()
+    ds, val = scene(cfg)
+    n = 32768
+    train = coarse_cells(cfg, ds, rng.integers(0, ds.num_frames, n),
+                         rng.integers(0, ds.H * ds.W, n), dev)
+    pix = np.arange(112 * val.W, 144 * val.W)
+    return train, coarse_cells(cfg, val, np.zeros(len(pix), np.int64), pix, dev)
+
+
+def occ_kernel(dev, rng):
+    """K1 against its plain version and the unpacked grid on a random 128^3
+    grid: on the sampler's indices for a training step (the row's time) and
+    an eval round, and on 32768 x 128 uniformly random cells; pack_bits,
+    which repacks the grid before every K1 launch, timed beside it."""
+    from nerf2mesh_tpu_torch.ops import occ_sweep
     H = 128
     occ = torch.from_numpy((rng.random((1, H, H, H)) < 0.3).astype(np.uint8)).to(dev)
     words = occ_sweep.pack_bits(occ)
-    idx = torch.from_numpy(rng.integers(0, H ** 3, (32768, 128),
-                                        dtype=np.int32)).to(dev)
-    got = occ_sweep.occ_lookup(words, idx)
-    want = occ_sweep.occ_lookup_plain(words, idx)
-    direct = occ.reshape(-1)[idx.long()].to(torch.int32)
-    err = int((got != want).sum()) + int((got != direct).sum())
-    if err:
-        raise AssertionError(f"K1 occ_lookup: {err} mismatching bits")
-    results.append(dict(
+    train, eval_round = sampler_cells(dev, rng)
+    rand = torch.from_numpy(rng.integers(0, H ** 3, (32768, 128),
+                                         dtype=np.int32)).to(dev)
+    cases = {"sampler (training)": train, "sampler (eval round)": eval_round,
+             "random": rand, "random, a view one element in":
+             rand.reshape(-1)[1:4098]}
+    for name, idx in cases.items():
+        got = occ_sweep.occ_lookup(words, idx)
+        want = occ_sweep.occ_lookup_plain(words, idx)
+        direct = occ.reshape(-1)[idx.long()].to(torch.int32)
+        err = int((got != want).sum()) + int((got != direct).sum())
+        log(f"[kernels] K1 on {name} {list(idx.shape)}: {err} mismatching bits; "
+            f"{cuda_time_ms(lambda: occ_sweep.occ_lookup(words, idx)):.4f} ms, "
+            f"distinct cells {int(torch.unique(idx).numel())}")
+        if err:
+            raise AssertionError(f"K1 occ_lookup on {name}: {err} mismatching bits")
+    log(f"[kernels] pack_bits of the {H}^3 grid: "
+        f"{cuda_time_ms(lambda: occ_sweep.pack_bits(occ)):.4f} ms")
+    return dict(
         name="occ_lookup", route="cuda",
         source="nerf2mesh_tpu_torch/csrc/occ_lookup.cu",
         replaces="nerf2mesh_tpu/ops/occ_sweep.py:51",
         max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: occ_sweep.occ_lookup(words, idx)),
-        plain_ms=cuda_time_ms(lambda: occ_sweep.occ_lookup_plain(words, idx)),
-        bound=bound(words.numel() * 4 + 2 * idx.numel() * 4, 0)))
+        ms=cuda_time_ms(lambda: occ_sweep.occ_lookup(words, train)),
+        plain_ms=cuda_time_ms(lambda: occ_sweep.occ_lookup_plain(words, train)),
+        bound=bound(words.numel() * 4 + 2 * train.numel() * 4, 0))
+
+
+def phase_kernels(dev):
+    from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+
+    rng = np.random.default_rng(SEED)
+    results = [occ_kernel(dev, rng)]
 
     # K2/K3: the full merged table, 2^18 points, kernel levels 0-8 (the
     # trainer starts with 0-6 and its probe can move finer levels over; 8 is
@@ -288,9 +350,16 @@ def phase_kernels(dev):
     if len(set(last.tolist())) == 8:
         raise AssertionError("same-window tile lost its window collision")
 
-    out_k = se.inwin_fwd(table, x, bases, rows, spec, levels)
+    err2 = 0.0
+    for lk in (7, 9):       # levels 0-6, where the trainer starts, and 0-8
+        fargs = (table, x, bases[:lk].contiguous(), rows[:lk].contiguous(),
+                 spec, levels[:lk])
+        e = float((se.inwin_fwd(*fargs) - se.inwin_fwd_plain(*fargs))
+                  .abs().max())
+        log(f"[kernels] K2 at levels 0-{lk - 1}: max|err| {e:.3e}, "
+            f"{cuda_time_ms(lambda: se.inwin_fwd(*fargs)):.4f} ms")
+        err2 = max(err2, e)
     out_p = se.inwin_fwd_plain(table, x, bases, rows, spec, levels)
-    err2 = float((out_k - out_p).abs().max())
     g = torch.from_numpy(rng.normal(size=(N, len(levels), 3))
                          .astype(np.float32)).to(dev)
     bargs = (x, bases, rows, spec, levels, spec.table_size)
@@ -346,11 +415,10 @@ def phase_kernels(dev):
         plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs)),
         bound=bound(N * Lk * 12 + meta + spec.table_size * 12,
                     trilinear_flops(N * Lk))))
-    k7_ms, k7_by = bound(level_rows(spec, (6,)) * 12 + (bases.numel()
-                         + rows.numel()) * 4 // Lk + x.numel() * 4 + N * 12,
-                         trilinear_flops(N))
-    log(f"[kernels] K7 (the TPU timing variants of K2 at level 6, not ported): "
-        f"bound {k7_ms:.4f} ms ({k7_by}) for K2's work at one level")
+    results += dense_kernels(table, x, bases[6], rows[6], spec, 6,
+                             bound(level_rows(spec, (6,)) * 12 + (bases.numel()
+                                   + rows.numel()) * 4 // Lk + x.numel() * 4
+                                   + N * 12, trilinear_flops(N)))
     results += winsort_kernels(dev, spec, table, rng)
     results += sweep_kernel(dev, rng)
     for r in results:
@@ -360,6 +428,35 @@ def phase_kernels(dev):
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
     return results
+
+
+def dense_kernels(table, x, bases, rows, spec, level, k7_bound):
+    """K7b, K7c and K7d (the TPU's timing variants of K2, on no path) on
+    K2's points at one level against their plain versions, each beside K2's
+    bound at that level (the same work, whatever implements it)."""
+    from nerf2mesh_tpu_torch.ops import inwin_variants as iv
+    res = []
+    for name, args, plain in (
+            ("inwin_dense_deep", (table, x, bases, rows, spec, level),
+             iv.inwin_dense_plain),
+            ("inwin_dense_const_rows", (table, x, bases, spec, level),
+             iv.inwin_dense_const_rows_plain),
+            ("inwin_dense_four_tiles", (table, x, bases, rows, spec, level),
+             iv.inwin_dense_plain)):
+        fn = getattr(iv, name)
+        err = float((fn(*args) - plain(*args)).abs().max())
+        log(f"[kernels] K7 {name} at level {level}: max|err| {err:.3e}")
+        if not err <= TOL["inwin_dense"][0]:
+            raise AssertionError(f"K7 {name} disagrees: {err}")
+        res.append(dict(
+            name=name, route="cuda",
+            source="nerf2mesh_tpu_torch/csrc/inwin_dense.cu",
+            replaces="workspace/ab/microbench_kernel_variants.py:" + {
+                "inwin_dense_deep": "64", "inwin_dense_const_rows": "109",
+                "inwin_dense_four_tiles": "149"}[name],
+            max_abs_err=err, ms=cuda_time_ms(lambda: fn(*args)),
+            plain_ms=cuda_time_ms(lambda: plain(*args)), bound=k7_bound))
+    return res
 
 
 def atomic_tol_margin(kernel, plain, g, args):

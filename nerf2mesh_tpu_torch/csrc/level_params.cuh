@@ -26,8 +26,4 @@ inline bool pack_levels(const float* scales, const int32_t* offsets,
   return true;
 }
 
-inline unsigned blocks_for(int64_t n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
-}
-
 }  // namespace n2m

@@ -22,12 +22,21 @@
 // are out of window (the residual) with a separately rounded multiply and
 // add, and one floor that differed would count a corner twice or drop it.
 //
-// K2, bound on the H100: memory latency of the random table reads.  Per
-// (point, level) it reads 12 B of position, does ~60 flops and up to 8
-// corner reads of 12 B each from a level of up to 2^19 * 12 B = 6 MB, all
-// L2-resident.  One thread per (point, kernel level), point-major, so a
-// warp's 32 lanes read neighbouring morton-sorted points whose corners share
-// table lines.
+// K2, bound on the H100: the corner reads and the issue of its
+// instructions.  Per (point, level) it reads 12 B of position, makes up to
+// 8 corner reads of 12 B from a level of up to 2^19 * 12 B = 6 MB, does
+// ~350 instructions of lattice, weights and addresses, and writes 12 B.
+// One block of 256 threads takes one 128-point tile at all its kernel
+// levels; each warp takes 32 consecutive morton-sorted points at one level
+// at a time, so that a warp's corner loads fall on the few blocks of one
+// level around the tile (a warp of ~3.5 points x 9 levels scatters them
+// over nine tables).  The tile's x, bases and rows are read once into
+// shared memory; the results go to shared memory as [128, Lk, 3] (an odd
+// stride a point, so the lanes' writes hit 32 banks) and leave as
+// coalesced 16-byte stores: the tile's slice of out is contiguous, 1536 *
+// Lk bytes.  With every corner read from two windows it would still take
+// ~70% of its time (PERF.md, PR 7): what is left is instruction issue.  On
+// a few thousand points the grid is too small to fill the card.
 //
 // K3, bound on the H100: the adds into the [total, 3] gradient.  One float
 // atomic per (point, corner, channel) in device memory was ~46M contended
@@ -59,7 +68,6 @@
 
 namespace {
 
-using n2m::blocks_for;
 using n2m::kTile;
 using n2m::LevelParams;
 using n2m::pack_levels;
@@ -68,6 +76,23 @@ using n2m::peer_sum;
 constexpr int kWinFloats = 512 * 3;          // one window of the table
 constexpr int kWinChunks = kWinFloats / 4;   // its 16-byte chunks: 384
 constexpr int kWinWords = kWinChunks / 32;   // its touched-mask words: 12
+constexpr int kFwdThreads = 256;             // K2: a block a tile
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdGroups = kTile / 32;       // a tile's 32-point warp groups
+
+// Lattice cell of a point of position xp at lattice scale s, relative to
+// the tile's base block b (8 * b): lg its coordinate, fr the fractions.
+__device__ __forceinline__ void lattice_at(const float xp[3], const int32_t b[3],
+                                           float s, float shift, int lg[3],
+                                           float fr[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float pos = __fadd_rn(__fmul_rn(xp[d], s), shift);
+    const float g = floorf(pos);
+    fr[d] = __fsub_rn(pos, g);
+    lg[d] = static_cast<int>(g) - 8 * b[d];
+  }
+}
 
 // Lattice cell of point p at kernel level k: lg its coordinate relative to
 // the tile's base block (8 * base), fr the fractions.
@@ -75,15 +100,10 @@ __device__ __forceinline__ void inwin_lattice(
     const float* __restrict__ x, const int32_t* __restrict__ bases,
     const LevelParams& lp, float shift, int64_t p, int k, int64_t n_tiles,
     int lg[3], float fr[3]) {
-  const float s = lp.scale[k];
   const int32_t* b = bases + (static_cast<int64_t>(k) * n_tiles + p / kTile) * 3;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float pos = __fadd_rn(__fmul_rn(x[p * 3 + d], s), shift);
-    const float g = floorf(pos);
-    fr[d] = __fsub_rn(pos, g);
-    lg[d] = static_cast<int>(g) - 8 * b[d];
-  }
+  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
+  const int32_t bp[3] = {b[0], b[1], b[2]};
+  lattice_at(xp, bp, lp.scale[k], shift, lg, fr);
 }
 
 // Corner c of the cell (bit d = offset along axis d): false if it lies out
@@ -105,37 +125,73 @@ __device__ __forceinline__ bool inwin_corner(const int lg[3], const float fr[3],
   return true;
 }
 
-__global__ void inwin_fwd_kernel(const float* __restrict__ table,
-                                 const float* __restrict__ x,
-                                 const int32_t* __restrict__ bases,
-                                 const int32_t* __restrict__ rows,
-                                 const __grid_constant__ LevelParams lp,
-                                 float shift, int64_t n_points,
-                                 int64_t n_tiles, int n_levels,
-                                 float* __restrict__ out) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_points * n_levels) return;
-  const int64_t p = tid / n_levels;
-  const int k = static_cast<int>(tid - p * n_levels);
-  const int32_t* r = rows + (static_cast<int64_t>(k) * n_tiles + p / kTile) * 8;
-  const int64_t off = lp.offset[k];
-  int lg[3];
-  float fr[3];
-  inwin_lattice(x, bases, lp, shift, p, k, n_tiles, lg, fr);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+// Block t = blockIdx.x takes tile t at every kernel level.  Dynamic shared
+// memory: the tile's results, [kTile][stride] floats, stride = 3 * n_levels
+// made odd.
+__global__ void __launch_bounds__(kFwdThreads)
+inwin_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
+                 const int32_t* __restrict__ bases,
+                 const int32_t* __restrict__ rows,
+                 const __grid_constant__ LevelParams lp, float shift,
+                 int64_t n_tiles, int n_levels, float* __restrict__ out) {
+  extern __shared__ float s_out[];
+  __shared__ float4 s_x4[kTile * 3 / 4];
+  __shared__ int32_t s_base[n2m::kMaxLevels * 3];
+  __shared__ int32_t s_rows[n2m::kMaxLevels * 8];
+  const int64_t t = blockIdx.x;
+  const int l3 = 3 * n_levels;
+  const int stride = l3 | 1;
+  if (threadIdx.x < kTile * 3 / 4)
+    s_x4[threadIdx.x] = reinterpret_cast<const float4*>(x)[t * (kTile * 3 / 4) +
+                                                           threadIdx.x];
+  for (int i = threadIdx.x; i < l3; i += kFwdThreads)
+    s_base[i] = bases[((i / 3) * n_tiles + t) * 3 + i % 3];
+  for (int i = threadIdx.x; i < 8 * n_levels; i += kFwdThreads)
+    s_rows[i] = rows[((i >> 3) * n_tiles + t) * 8 + (i & 7)];
+  __syncthreads();
+
+  const float* xs = reinterpret_cast<const float*>(s_x4);
+  const int lane = threadIdx.x & 31;
+  for (int it = threadIdx.x >> 5; it < n_levels * kFwdGroups; it += kFwdWarps) {
+    const int k = it / kFwdGroups;
+    const int p = (it % kFwdGroups) * 32 + lane;
+    const float xp[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+    const int32_t bp[3] = {s_base[k * 3], s_base[k * 3 + 1], s_base[k * 3 + 2]};
+    int lg[3];
+    float fr[3];
+    lattice_at(xp, bp, lp.scale[k], shift, lg, fr);
+    const int64_t off = lp.offset[k];
+    const int32_t* r = s_rows + 8 * k;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    int slot, cell;
-    float w;
-    if (!inwin_corner(lg, fr, c, slot, cell, w)) continue;
-    const int64_t row = off + static_cast<int64_t>(r[slot]) * 512 + cell;
-    a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(table + row * 3)));
-    a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(table + row * 3 + 1)));
-    a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(table + row * 3 + 2)));
+    for (int c = 0; c < 8; ++c) {
+      int slot, cell;
+      float w;
+      if (!inwin_corner(lg, fr, c, slot, cell, w)) continue;
+      const float* v = table + (off + static_cast<int64_t>(r[slot]) * 512 + cell) * 3;
+      a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(v)));
+      a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(v + 1)));
+      a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(v + 2)));
+    }
+    float* o = s_out + p * stride + 3 * k;
+    o[0] = a0;
+    o[1] = a1;
+    o[2] = a2;
   }
-  out[tid * 3] = a0;
-  out[tid * 3 + 1] = a1;
-  out[tid * 3 + 2] = a2;
+  __syncthreads();
+
+  // the tile's [kTile, n_levels, 3] slice of out as 16-byte stores
+  float4* dst = reinterpret_cast<float4*>(out + t * kTile * l3);
+  for (int e4 = threadIdx.x; e4 < kTile * l3 / 4; e4 += kFwdThreads) {
+    int p = 4 * e4 / l3, r = 4 * e4 - p * l3;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = s_out[p * stride + r];
+      if (++r == l3) r = 0, ++p;
+    }
+    dst[e4] = make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 // Adds (v0, v1, v2) into the shared acc[3*row .. 3*row+2] for each lane
@@ -240,10 +296,11 @@ inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
 }  // namespace
 
 // table: [total, 3] f32; x: [n_points, 3] f32 clipped to [0,1], morton-sorted,
-// n_points = 128 * n_tiles; bases: [n_levels, n_tiles, 3] i32; rows:
-// [n_levels, n_tiles, 8] i32 level-local window ids; scales, offsets: HOST
-// arrays [n_levels] (f32 lattice scale, i32 first table row of the level),
-// 1 <= n_levels <= 32; out: [n_points, n_levels, 3] f32.
+// 16-byte aligned, n_points = 128 * n_tiles; bases: [n_levels, n_tiles, 3]
+// i32; rows: [n_levels, n_tiles, 8] i32 level-local window ids; scales,
+// offsets: HOST arrays [n_levels] (f32 lattice scale, i32 first table row of
+// the level), 1 <= n_levels <= 32; out: [n_points, n_levels, 3] f32, 16-byte
+// aligned.
 extern "C" int n2m_inwin_fwd(const void* table, const void* x,
                              const void* bases, const void* rows,
                              const float* scales, const int32_t* offsets,
@@ -252,15 +309,22 @@ extern "C" int n2m_inwin_fwd(const void* table, const void* x,
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = n_points * n_levels;
-  if (n > 0) {
-    const int threads = 256;
-    inwin_fwd_kernel<<<blocks_for(n, threads), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(table), static_cast<const float*>(x),
-        static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows),
-        lp, shift, n_points, n_tiles, n_levels, static_cast<float*>(out));
+  if (n_points != n_tiles * kTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const int smem = kTile * ((3 * n_levels) | 1) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        inwin_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  inwin_fwd_kernel<<<static_cast<unsigned>(n_tiles), kFwdThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows),
+      lp, shift, n_tiles, n_levels, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

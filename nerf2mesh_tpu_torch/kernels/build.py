@@ -56,6 +56,10 @@ _SIGNATURES = {
     # n_points, n_tiles, n_levels, n_windows, dtable, stream
     "n2m_winsort_bwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
                         _I64, _I32, _I64, _P, _P),
+    # variant, table, x, bases, rows, scale, offset, shift, n_points,
+    # n_tiles, out, stream
+    "n2m_inwin_dense": (_I32, _P, _P, _P, _P, _F32, _I32, _F32, _I64, _I64, _P,
+                        _P),
     # table, x, levels (host), shift, n_points, n_levels, chunks, out,
     # stream
     "n2m_sweep_fwd": (_P, _P, _P, _F32, _I64, _I32, _I64, _P, _P),

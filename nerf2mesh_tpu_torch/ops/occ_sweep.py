@@ -47,7 +47,10 @@ def occ_lookup(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"occ_lookup: no kernel for {words.device}")
     words = words.contiguous()
     flat = idx.contiguous().reshape(-1)
-    out = torch.empty_like(flat)
+    # out at idx's offset from a 16-byte boundary: K1 then stores vectors
+    phase = flat.data_ptr() % 16 // 4
+    out = torch.empty(flat.numel() + phase, dtype=torch.int32,
+                      device=flat.device)[phase:]
     lib = kernels.load()
     code = lib.n2m_occ_lookup(words.data_ptr(), flat.data_ptr(),
                               out.data_ptr(), flat.numel(),

@@ -8,7 +8,9 @@ in XLA.  The port keeps that split and the routing probe (`resid_counts`)
 exactly, and replaces the kernels:
 
   K2 ``inwin_fwd`` (csrc/splat_inwin.cu) - in-window part, read straight from
-     the canonical [total, 3] table (no splat-layout transpose);
+     the canonical [total, 3] table (no splat-layout transpose): a thread
+     block takes a tile at all its levels, a warp 32 points at one level,
+     and the tile's results leave through shared memory as 16-byte stores;
   K3 ``inwin_bwd`` - its table gradient: a thread block reduces one tile's
      slot windows at one level in shared memory and adds each touched
      16-byte chunk into a zeroed [total, 3] buffer with one vector atomic.
@@ -193,6 +195,8 @@ def inwin_fwd(table, x, bases, rows, spec: HashGridSpec,
     if x.device.type != "cuda":
         raise RuntimeError(f"inwin_fwd: no kernel for {x.device}")
     table, x = table.contiguous(), x.contiguous()
+    if x.data_ptr() % 16:           # K2 reads a tile's x as 16-byte vectors
+        x = x.clone()
     bases, rows = bases.contiguous(), rows.contiguous()
     out = torch.empty((N, Lk, 3), dtype=torch.float32, device=x.device)
     _launch_inwin("inwin_fwd", table, x, bases, rows, spec, levels, out)

@@ -6,7 +6,7 @@ repository's conftest (which imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Tolerances: K1 exact; K2, K4 and K5 atol 1e-5; K3, K4b and K6 atol 1e-5
+Tolerances: K1 exact; K2, K4, K5 and K7 atol 1e-5; K3, K4b and K6 atol 1e-5
 with rtol 1e-4 of each row's summed |contribution| (their shared-memory
 atomics add in another order, which changes from run to run).
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from nerf2mesh_tpu_torch import kernels
+from nerf2mesh_tpu_torch.ops import inwin_variants as iv
 from nerf2mesh_tpu_torch.ops import occ_sweep
 from nerf2mesh_tpu_torch.ops import pallas_encode as pe
 from nerf2mesh_tpu_torch.ops import splat_encode as se
@@ -124,6 +125,140 @@ def test_inwin_autograd_and_encode_on_card(dev):
                                  stochastic=True)
     torch.testing.assert_close(fs.cpu(), fc, atol=1e-5, rtol=0)
     assert torch.equal(cs.cpu(), cc) and torch.equal(cnt.cpu(), cc)
+
+
+# 32 levels (the kernels' most), hashed at 2^14 rows from level 3
+SPEC32 = HashGridSpec(num_levels=32, level_dim=3, log2_hashmap_size=14,
+                      desired_resolution=2048, layout="block512")
+
+
+@pytest.mark.parametrize("n_levels,n,kind", [
+    (1, 4096, "mixed"), (9, 4096, "mixed"), (16, 4096, "mixed"),
+    (32, 4096, "mixed"), (9, 128, "mixed"), (9, 4096, "clusters")])
+def test_inwin_fwd_kernel_cases(dev, n_levels, n, kind):
+    """K2 against its plain version at 1, 9, 16 and 32 kernel levels (one
+    level: level 3 alone), on 128 and 4096 points, and on 16 tight
+    clusters."""
+    rng = np.random.default_rng(30)
+    if kind == "clusters":
+        c = rng.uniform(0.2, 0.8, (16, 3))
+        pts = np.clip(c[rng.integers(0, 16, n)] + rng.normal(0, 0.002, (n, 3)),
+                      0, 1)
+        x = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    else:
+        x = _points(n, seed=31).to(dev)
+    x = x[se.morton_perm(x)[0]].contiguous()
+    levels = (3,) if n_levels == 1 else tuple(range(n_levels))
+    metas = [se.tile_meta(x.reshape(-1, se.TILE, 3), SPEC32, l) for l in levels]
+    bases = torch.stack([m[0] for m in metas]).contiguous()
+    rows = torch.stack([m[1] for m in metas]).contiguous()
+    table = (torch.rand((SPEC32.table_size, 3),
+                        generator=torch.Generator().manual_seed(32)) * 2 - 1).to(dev)
+    before = kernels.LAUNCHES["inwin_fwd"]
+    out = se.inwin_fwd(table, x, bases, rows, SPEC32, levels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["inwin_fwd"] == before + 1
+    ref = se.inwin_fwd_plain(table, x, bases, rows, SPEC32, levels)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float(ref.abs().max()) > 0.1
+
+
+def test_inwin_fwd_same_window_tile_and_unaligned_x(dev):
+    """K2 on the tile whose neighbourhood holds two slots of one window id,
+    alone (one block), and with x given as a view off a 16-byte boundary
+    (the wrapper copies it)."""
+    table, x, bases, rows, levels = _inputs(dev, n=2048)
+    tail = x[-128:].contiguous()
+    args = (bases[:, -1:].contiguous(), rows[:, -1:].contiguous(), SPEC, levels)
+    assert len(set(args[1][3, 0].tolist())) < 8
+    torch.testing.assert_close(se.inwin_fwd(table, tail, *args),
+                               se.inwin_fwd_plain(table, tail, *args),
+                               atol=1e-5, rtol=0)
+    buf = torch.empty(x.numel() + 1, device=dev)
+    xv = buf[1:].view(-1, 3)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0
+    torch.testing.assert_close(se.inwin_fwd(table, xv, bases, rows, SPEC, levels),
+                               se.inwin_fwd_plain(table, x, bases, rows, SPEC,
+                                                  levels), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097])
+def test_occ_lookup_kernel_sizes(dev, n):
+    """K1 on 0, 1 and 4097 indices (a head, vectors and a tail)."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    occ = (torch.rand((1, 32, 32, 32), generator=g) < 0.5).to(torch.uint8).to(dev)
+    words = occ_sweep.pack_bits(occ)
+    idx = torch.randint(0, 32 ** 3, (n,), generator=g, dtype=torch.int32).to(dev)
+    got = occ_sweep.occ_lookup(words, idx)
+    assert got.shape == idx.shape and got.dtype == torch.int32
+    assert torch.equal(got, occ.reshape(-1)[idx.long()].to(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_occ_lookup_kernel_misaligned_view(dev, offset):
+    """K1 on views that start 4, 8 and 12 bytes past a 16-byte boundary, and
+    with the output buffer at another offset than idx (scalar stores)."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    occ = (torch.rand((1, 32, 32, 32), generator=g) < 0.5).to(torch.uint8).to(dev)
+    words = occ_sweep.pack_bits(occ)
+    base = torch.randint(0, 32 ** 3, (5000,), generator=g,
+                         dtype=torch.int32).to(dev)
+    view = base[offset:offset + 4093]
+    assert view.data_ptr() % 16 == 4 * offset
+    want = occ.reshape(-1)[view.long()].to(torch.int32)
+    assert torch.equal(occ_sweep.occ_lookup(words, view), want)
+    out = torch.empty(4096, dtype=torch.int32, device=dev)
+    lib = kernels.load()
+    code = lib.n2m_occ_lookup(words.data_ptr(), view.data_ptr(),
+                              out.data_ptr(), view.numel(),
+                              kernels.current_stream_handle(dev))
+    kernels.check(lib, "n2m_occ_lookup", code)
+    assert torch.equal(out[:4093], want)
+
+
+def test_occ_lookup_kernel_sampler_cells(dev):
+    """K1 on the sampler's cells: the coarse candidates of 4096 rays at the
+    bench configuration's render spec, on a 128^3 grid with 2 cascades."""
+    from nerf2mesh_tpu_torch.ops import sampling
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(4096, 3))
+    o = 2.5 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (4096, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ro = torch.from_numpy(o.astype(np.float32)).to(dev)
+    rd = torch.from_numpy(d.astype(np.float32)).to(dev)
+    aabb = torch.tensor([-1.0] * 3 + [1.0] * 3, device=dev)
+    nears, fars = sampling.near_far_from_aabb(ro, rd, aabb)
+    _, dtc, xyz = sampling.coarse_candidates(ro, rd, nears, fars, 128, 128,
+                                             1.0, 0.0, 1024)
+    idx, _ = sampling.occupancy_index(xyz, dtc, 1.0, False, 2, 128)
+    occ = (torch.rand((2, 128, 128, 128), generator=torch.Generator()
+                      .manual_seed(6)) < 0.3).to(torch.uint8).to(dev)
+    words = occ_sweep.pack_bits(occ)
+    got = occ_sweep.occ_lookup(words, idx)
+    assert torch.equal(got, occ_sweep.occ_lookup_plain(words, idx))
+    assert torch.equal(got, occ.reshape(-1)[idx.long()].to(torch.int32))
+
+
+@pytest.mark.parametrize("name", list(iv.VARIANTS))
+def test_inwin_dense_kernels_match_plain(dev, name):
+    """K7b, K7c and K7d against their plain versions at a hashed level of
+    SPEC, on the inputs with the same-window tile (15 tiles: a ragged last
+    block of K7d)."""
+    table, x, bases, rows, _ = _inputs(dev, n=1920)
+    l = 3
+    args = ((table, x, bases[l], SPEC, l) if name == "inwin_dense_const_rows"
+            else (table, x, bases[l], rows[l], SPEC, l))
+    plain = (iv.inwin_dense_const_rows_plain if name == "inwin_dense_const_rows"
+             else iv.inwin_dense_plain)
+    before = kernels.LAUNCHES[name]
+    out = getattr(iv, name)(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = plain(*args)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float(ref.abs().max()) > 0.1
 
 
 WS_LEVELS = (3, 4, 5)          # the hashed levels of SPEC
