@@ -43,25 +43,46 @@ Phases, in order; any failure exits non-zero:
      and falling, K5 and K6 launched by the training alone), then evaluates
      the val views (K5 launched by the eval alone); ms/step, rays/s,
      ms/frame and PSNR; 8 more steps profiled;
-  7. cli: the ref small-table slice through nerf2mesh_tpu_torch.main on a
-     256x256 blender scene written to a temporary directory (24 train, 4
-     val, 2 test views): 128 steps at bench.py's flags with --grid_layout
-     ref --log2_hashmap_size 14, an eval and a checkpoint at step 128, the
-     final val and test evals (PSNR, SSIM, LPIPS proxy) and the test video;
-     every logged loss finite and falling, K1, K4 and K4b launched by the
-     training, the block512 kernels never; then main --test reloads the
-     checkpoint, and a fresh Trainer loaded from it reproduces the step-128
-     val PSNR within 1e-4 dB.  ms/step, rays/s, eval ms/frame, peak memory;
-     8 more steps and one eval frame of the loaded trainer profiled.
+  7. cli (Pillow blocked, as on a machine without it): the ref small-table
+     slice through nerf2mesh_tpu_torch.main on a 256x256 blender scene
+     written to a temporary directory (24 train, 4 val, 2 test views): 512
+     steps at bench.py's flags with --grid_layout ref --log2_hashmap_size
+     14 --mesh_visibility_culling --mcubes_reso 256, an eval and a
+     checkpoint at step 512, the final val and test evals (PSNR, SSIM, LPIPS
+     proxy), the test video and mesh_stage0/mesh_0.ply; every logged loss
+     finite and falling, K1, K4 and K4b launched by the training, the
+     block512 kernels never; the mesh not empty and at least half its
+     vertices within 0.05 of the scene's analytic surface; then main --test
+     reloads the checkpoint, and a fresh Trainer loaded from it reproduces
+     the step-512 val PSNR within 1e-4 dB (8 more steps and one eval frame
+     profiled); then main --stage 1 --refine --iters 64 (a refine at step
+     32, textures 1024^2): finite losses, overflow 0, K4 and K4b launched by
+     the stage-1 training alone, mesh_stage1/ with the OBJ, MTL, JPEGs that
+     decode and mlp.json's keys; main --stage 1 --test, and a fresh stage-1
+     Trainer reproduces the stage-1 val PSNR within 1e-4 dB;
+  8. stage1 (Pillow blocked): the phase-4 field trains 256 more steps, then
+     save_mesh at 512^3 with decimate_target 3e5 and visibility culling
+     against the 24 train views; a stage-1 Trainer at bench.py's width
+     with -O's stage-1 recipe (s1_shell 4, s1_stochastic, refine at -O's
+     ratios, ssaa 2, full 256^2 crops) trains 128 steps: losses finite and
+     falling, overflow 0, K2 and K3 launched by the stage-1 steps alone,
+     the val PSNR after 128 steps not more than 0.1 dB below the one after
+     64 (the gap to the field's stage-0 val PSNR printed, not gated); 8 more
+     steps profiled, the rasterizer's forward + backward timed against a
+     step; export_stage1 at texture 4096.  Wall seconds of the density
+     query, marching cubes, cull, clean + decimate, unwrap, bake, inpaint
+     and the JPEGs; faces at each refine; peak memory.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
-phase 4 is 0), the last line the device record.  Imports only
+phase 4 is 0; "stage1_launches": the stage-1 training's, phase 8 for K2
+and K3, phase 7 for K4 and K4b), the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,7 +103,12 @@ WINSORT_STEPS = 64         # phase 6 (exact encode: K5/K6 in every step)
 N_VAL = 4                  # eval views (phases 5 and 6)
 WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
-CLI_STEPS = 128            # phase 7
+CLI_STEPS = 512            # phase 7 (a field that marches to a mesh)
+CLI_MCUBES = 256           # phase 7's marching grid (phase 8: 512)
+CLI_S1_STEPS = 64          # phase 7's stage 1 (a refine at step 32)
+CLI_TEXTURE = 1024         # phase 7's texture side (phase 8: 4096)
+S1_STEPS = 128             # phase 8
+MESH_FIELD_STEPS = 256     # phase 8: the phase-4 field trains on first
 PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
@@ -884,7 +910,9 @@ def run_eval(trainer, val, name, must_launch):
 
 
 def phase_slice(dev):
-    """Phase 4 (128 training steps), with phase 5 (eval) around it."""
+    """Phase 4 (128 training steps), with phase 5 (eval) around it;
+    returns the training's launch counts and, for phase 8, the trainer and
+    its train and val sets."""
     from nerf2mesh_tpu_torch.utils.trainer import Trainer
 
     cfg = bench_config()
@@ -931,7 +959,7 @@ def phase_slice(dev):
     profile_region(lambda: trainer.render_image(
         val.poses[0], val.intrinsics_for(0), val.H, val.W),
         "block512 eval frame")
-    return launches
+    return launches, trainer, ds, val
 
 
 def phase_winsort(dev):
@@ -984,9 +1012,89 @@ def cli_argv(scene_dir, workspace, **kw):
     return argv
 
 
+@contextlib.contextmanager
+def no_pillow():
+    """Run as on a machine without Pillow: the port's PNG codec and its JPEG
+    writer and downscale take over (what phases 7 and 8 time)."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def counting(cls, name, into):
+    """Wrap cls.name so that the kernel launches made inside its calls add
+    up in `into`; returns the original for restore_counting."""
+    from nerf2mesh_tpu_torch import kernels
+    real = getattr(cls, name)
+
+    def counted(self, *a, **k):
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        out = real(self, *a, **k)
+        torch.cuda.synchronize()
+        for key, v in kernels.LAUNCHES.items():
+            into[key] = into.get(key, 0) + v - before[key]
+        return out
+
+    setattr(cls, name, counted)
+    return real
+
+
+def surface_share(path, scale, tol=0.05):
+    """(vertices, faces, share of the vertices within tol of the sphere
+    scene's analytic surface) of a PLY in the scene's scaled frame."""
+    from nerf2mesh_tpu_torch.data.synthetic import SphereScene
+    from nerf2mesh_tpu_torch.meshing.io import read_ply
+    v, f = read_ply(path)
+    if len(f) == 0:
+        return len(v), 0, 0.0
+    d = np.abs(SphereScene().sdf(v / scale) * scale)
+    return len(v), len(f), float((d < tol).mean())
+
+
+def check_stage1_package(out_dir, decode: bool):
+    """The files renderer.html loads; JPEGs decoded (decode=True) or their
+    headers read; mlp.json's keys.  Returns the texture shapes."""
+    from nerf2mesh_tpu_torch.data.jpeg import decode_jpeg
+    names = ("mesh_0.obj", "mesh_0.mtl", "feat0_0.jpg", "feat1_0.jpg",
+             "mlp.json")
+    missing = [n for n in names if not os.path.exists(os.path.join(out_dir, n))]
+    if missing:
+        raise AssertionError(f"stage-1 export lacks {missing}")
+    shapes = []
+    for n in ("feat0_0.jpg", "feat1_0.jpg"):
+        with open(os.path.join(out_dir, n), "rb") as f:
+            data = f.read()
+        if decode:
+            img = decode_jpeg(data)
+            if img.ndim != 3 or img.shape[2] != 3 or img.std() == 0:
+                raise AssertionError(f"{n}: decoded {img.shape}")
+            shapes.append(img.shape)
+        else:
+            i = data.index(b"\xff\xc0")
+            h, w = int.from_bytes(data[i + 5:i + 7], "big"), int.from_bytes(
+                data[i + 7:i + 9], "big")
+            if not (data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"):
+                raise AssertionError(f"{n}: no SOI/EOI markers")
+            shapes.append((h, w))
+    with open(os.path.join(out_dir, "mlp.json")) as f:
+        mlp = json.load(f)
+    keys = {"net.0.weight", "net.1.weight", "bound", "cascade"}
+    if not keys <= set(mlp) or len(mlp["net.0.weight"]) != 6:
+        raise AssertionError(f"mlp.json keys {sorted(mlp)}")
+    return shapes
+
+
 def phase_cli(dev):
-    """Phase 7: the ref small-table slice through nerf2mesh_tpu_torch.main;
-    returns the launch counts of the whole first CLI run."""
+    """Phase 7: the ref small-table slice through nerf2mesh_tpu_torch.main:
+    stage 0 with the culled mesh export, then stage 1 with a refine, the
+    textured export, and --test; returns the launch counts of the stage-0
+    run, with the stage-1 training's under "stage1_<kernel>"."""
     from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.config import parse_args
     from nerf2mesh_tpu_torch.data.provider import load_nerf_dataset
@@ -1003,7 +1111,8 @@ def phase_cli(dev):
             n_val=N_VAL, n_test=2)
         ws = os.path.join(tmp, "ws")
         flags = dict(grid_layout="ref", log2_hashmap_size=14,
-                     iters=CLI_STEPS, n_eval=1, n_ckpt=1, test_no_mesh=True)
+                     iters=CLI_STEPS, n_eval=1, n_ckpt=1,
+                     mesh_visibility_culling=True, mcubes_reso=CLI_MCUBES)
         argv = cli_argv(scene_dir, ws, **flags)
         cfg = parse_args(argv)
         want = dataclasses.replace(bench_config(**flags), path=scene_dir,
@@ -1014,21 +1123,10 @@ def phase_cli(dev):
             f"main {' '.join(argv[1:])}")
 
         train_launches = {}
-        real_train = Trainer.train
-
-        def counted_train(self, *a, **k):      # launches of training alone
-            torch.cuda.synchronize()
-            before = dict(kernels.LAUNCHES)
-            out = real_train(self, *a, **k)
-            torch.cuda.synchronize()
-            for key, v in kernels.LAUNCHES.items():
-                train_launches[key] = train_launches.get(key, 0) + v - before[key]
-            return out
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        Trainer.train = counted_train
+        real_train = counting(Trainer, "train", train_launches)
         try:
             t0 = time.perf_counter()
             trainer = cli_main(argv, device=dev)
@@ -1066,6 +1164,15 @@ def phase_cli(dev):
                                         for v in r.values()):
             raise AssertionError(f"evals: {results}")
 
+        mesh0 = os.path.join(ws, "mesh_stage0", "mesh_0.ply")
+        nv, nf, share = surface_share(mesh0, cfg.scale)
+        log(f"[cli] mesh_0.ply at mcubes {CLI_MCUBES}: v={nv} f={nf}, "
+            f"{share:.3f} of the vertices within 0.05 of the analytic "
+            f"surface; stage seconds {trainer.stats['mesh_seconds']}")
+        if nf == 0 or share < 0.5:
+            raise AssertionError(f"mesh_0.ply: {nf} faces, surface share "
+                                 f"{share}")
+
         ckpt = os.path.join(ws, "checkpoints", "ngp_stage0_latest.ckpt")
         step_ckpt = os.path.join(ws, "checkpoints",
                                  f"ngp_stage0_{CLI_STEPS:07d}.ckpt")
@@ -1082,7 +1189,7 @@ def phase_cli(dev):
             f"({os.path.getsize(step_ckpt) / 2 ** 20:.1f} MiB), video "
             f"{videos}; step-{CLI_STEPS} val PSNR {psnr_saved:.6f}")
 
-        tester = cli_main(argv + ["--test"], device=dev)
+        tester = cli_main(argv + ["--test", "--test_no_mesh"], device=dev)
         if tester.step != CLI_STEPS or not all(
                 math.isfinite(v) for v in tester.stats["results"][0].values()):
             raise AssertionError(f"--test: step {tester.step}, "
@@ -1111,6 +1218,195 @@ def phase_cli(dev):
         profile_region(lambda: fresh.render_image(
             val.poses[0], val.intrinsics_for(0), val.H, val.W),
             "ref eval frame")
+        del fresh, tester, trainer
+
+        # stage 1 on that mesh and checkpoint: a refine at step 32, the
+        # textured export, then --test and a reload
+        s1_argv = argv + ["--stage", "1", "--refine", "--iters",
+                          str(CLI_S1_STEPS), "--refine_steps_ratio", "0.5",
+                          "--texture_size", str(CLI_TEXTURE)]
+        s1_launches = {}
+        real = counting(Trainer, "stage1_step", s1_launches)
+        try:
+            t0 = time.perf_counter()
+            s1 = cli_main(s1_argv, device=dev)
+            torch.cuda.synchronize()
+            t_s1 = time.perf_counter() - t0
+        finally:
+            Trainer.stage1_step = real
+        tl = s1.train_log
+        log(f"[cli] stage 1 ran {t_s1:.1f} s: log {tl}; evals "
+            f"{s1.stats['results']}; export seconds "
+            f"{s1.stats['export_seconds']}; stage-1 training launches "
+            f"{s1_launches}")
+        if not all(math.isfinite(e["loss"]) for e in tl) or any(
+                e["overflow"] for e in tl):
+            raise AssertionError(f"stage-1 log: {tl}")
+        for key in ("sweep_fwd", "sweep_bwd"):
+            if s1_launches.get(key, 0) <= 0:
+                raise AssertionError(f"{key} was not launched by stage 1")
+        shapes = check_stage1_package(os.path.join(ws, "mesh_stage1"), True)
+        log(f"[cli] mesh_stage1: {sorted(os.listdir(os.path.join(ws, 'mesh_stage1')))}"
+            f", textures decoded {shapes}")
+        s1_saved = read_jax_checkpoint(
+            os.path.join(ws, "checkpoints", "ngp_stage1_latest.ckpt"))
+        s1_psnr = float(s1_saved["stats"]["results"][0]["PSNR"])
+        s1_test = cli_main(s1_argv + ["--test"], device=dev)
+        if s1_test.step != CLI_S1_STEPS:
+            raise AssertionError(f"stage-1 --test: step {s1_test.step}")
+        s1_cfg = parse_args(s1_argv)
+        s1_fresh = Trainer(s1_cfg, device=dev)
+        s1_fresh.setup_stage1(load_nerf_dataset(s1_cfg, "train"))
+        if not s1_fresh.load_checkpoint():
+            raise AssertionError("no stage-1 checkpoint to load")
+        res = s1_fresh.evaluate(val, name="s1_reload", track_best=False)
+        log(f"[cli] stage-1 reload at step {s1_fresh.step}: val PSNR "
+            f"{res['PSNR']:.6f} vs {s1_psnr:.6f} recorded")
+        if not abs(res["PSNR"] - s1_psnr) <= 1e-4:
+            raise AssertionError(f"stage-1 reloaded PSNR {res['PSNR']} != "
+                                 f"{s1_psnr}")
+        for key in kernels.LAUNCHES:
+            launches["stage1_" + key] = s1_launches.get(key, 0)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# phase 8: stage 1 at bench width (block512)
+# --------------------------------------------------------------------------
+
+def raster_share(trainer, ds, steps):
+    """Device ms of rasterize_crop's forward + backward at the inputs of one
+    stage-1 step (captured from the step), against the step's ms; both the
+    mean of `steps` runs between CUDA events."""
+    from nerf2mesh_tpu_torch.models import rasterizer, stage1
+    images, poses, intr = trainer._prep_train_arrays(ds)
+    mvps = torch.from_numpy(np.asarray(ds.mvps, np.float32)).to(trainer.device)
+    seen = []
+    real = stage1.rasterize_crop
+
+    def grab(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    stage1.rasterize_crop = grab
+    try:
+        trainer.stage1_step(images, poses, mvps, intr)
+    finally:
+        stage1.rasterize_crop = real
+    (clip, tris, origin, H, W, spec), kw = seen[0]
+    clip = clip.detach()
+
+    def fwd_bwd():
+        c = clip.clone().requires_grad_(True)
+        r = rasterizer.rasterize_crop(c, tris, origin, H, W, spec, **kw)
+        (r["area"].sum() + r["bary"].sum() + r["depth"].sum()).backward()
+
+    ms_raster = cuda_time_ms(fwd_bwd, reps=steps)
+    ms_step = cuda_time_ms(lambda: trainer.stage1_step(images, poses, mvps,
+                                                       intr), reps=steps)
+    return ms_raster, ms_step, spec
+
+
+def phase_stage1(dev, field, ds, val):
+    """Phase 8: the phase-4 field's mesh at the default 512^3 with
+    visibility culling, then stage 1 at bench width with -O's stage-1
+    recipe; returns the stage-1 training's launch counts."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.meshing.io import read_ply
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_s1_")
+    try:
+        t0 = time.perf_counter()
+        field.train_steps(ds, MESH_FIELD_STEPS)
+        torch.cuda.synchronize()
+        log(f"[stage1] the phase-4 field trained {MESH_FIELD_STEPS} more "
+            f"steps in {time.perf_counter() - t0:.1f} s (to step "
+            f"{field.step})")
+        psnr_stage0 = float(field.evaluate(val, name="mesh_field",
+                                           track_best=False)["PSNR"])
+        field.workspace = tmp
+        field.cfg = dataclasses.replace(field.cfg, mesh_visibility_culling=True)
+        field.save_checkpoint()
+        t0 = time.perf_counter()
+        secs = field.save_mesh(resolution=512, decimate_target=3e5,
+                               dataset=ds)
+        t_mesh = time.perf_counter() - t0
+        nv, nf, share = surface_share(
+            os.path.join(tmp, "mesh_stage0", "mesh_0.ply"), field.cfg.scale)
+        log(f"[stage1] save_mesh 512^3 in {t_mesh:.1f} s: v={nv} f={nf}, "
+            f"surface share {share:.3f}; seconds {secs}")
+        if nf == 0:
+            raise AssertionError("empty stage-0 mesh")
+
+        cfg = bench_config(stage=1, iters=S1_STEPS, n_eval=2, n_ckpt=1,
+                           refine=True, s1_shell=4, s1_stochastic=True,
+                           mesh_visibility_culling=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t1 = Trainer(cfg, device=dev, workspace=tmp)
+        t1.setup_stage1(ds)
+        if not t1.load_checkpoint(stage=0):
+            raise AssertionError("no stage-0 checkpoint")
+        log(f"[stage1] setup {time.perf_counter() - t0:.1f} s: mesh "
+            f"v={t1.stage1_mesh.num_vertices} f={t1.stage1_mesh.num_faces}, "
+            f"raster spec {t1._raster_spec()}, refine steps "
+            f"{cfg.refine_steps}")
+
+        launches = {}
+        real = counting(Trainer, "stage1_step", launches)
+        try:
+            t0 = time.perf_counter()
+            t1.train_stage1(ds, val)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+        finally:
+            Trainer.stage1_step = real
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tl = t1.train_log
+        losses = [e["loss"] for e in tl]
+        psnrs = [r["PSNR"] for r in t1.stats["results"]]
+        log(f"[stage1] {S1_STEPS} steps (evals included) in {t_train:.1f} s;"
+            f" log {tl}; faces at the refines (step, before, after) "
+            f"{t1.stats.get('refines')}; peak memory {peak:.2f} GiB; "
+            f"launches {launches}")
+        log(f"[stage1] val PSNR after {S1_STEPS // 2} and {S1_STEPS} steps: "
+            f"{psnrs}; stage-0 val PSNR of the field {psnr_stage0:.4f} "
+            f"(gap {psnrs[-1] - psnr_stage0:+.4f} dB, not gated)")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite stage-1 loss: {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"stage-1 loss did not fall: {losses}")
+        if any(e["overflow"] for e in tl):
+            raise AssertionError(f"raster overflow: {tl}")
+        for key in ("inwin_fwd", "inwin_bwd"):
+            if launches.get(key, 0) <= 0:
+                raise AssertionError(f"{key} was not launched by stage 1")
+        if len(psnrs) != 2 or not psnrs[1] >= psnrs[0] - 0.1:
+            raise AssertionError(f"stage-1 val PSNR declined: {psnrs}")
+
+        images, poses, intr = t1._prep_train_arrays(ds)
+        mvps = torch.from_numpy(np.asarray(ds.mvps, np.float32)).to(dev)
+        profile_region(lambda: [t1.stage1_step(images, poses, mvps, intr)
+                                for _ in range(PROFILE_STEPS)],
+                       f"stage-1 steps {S1_STEPS}-{S1_STEPS + PROFILE_STEPS}",
+                       per=PROFILE_STEPS)
+        ms_r, ms_s, spec = raster_share(t1, ds, PROFILE_STEPS)
+        log(f"[stage1] rasterize_crop forward+backward {ms_r:.2f} ms of a "
+            f"{ms_s:.2f} ms step ({ms_r / ms_s:.1%}; CUDA events, mean of "
+            f"{PROFILE_STEPS}) at {spec}, faces {t1.stage1_mesh.num_faces}")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        esecs = t1.export_stage1(resolution=4096)
+        t_exp = time.perf_counter() - t0
+        shapes = check_stage1_package(os.path.join(tmp, "mesh_stage1"), False)
+        v, f = read_ply(os.path.join(tmp, "mesh_stage0", "mesh_0_updated.ply"))
+        log(f"[stage1] export_stage1(4096) in {t_exp:.1f} s: seconds {esecs};"
+            f" textures {shapes}; mesh v={len(v)} f={len(f)}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1125,15 +1421,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
-    launches = phase_slice(dev)
+    launches, field, ds, val = phase_slice(dev)
     ws_launches = phase_winsort(dev)
-    cli_launches = phase_cli(dev)
+    with no_pillow():
+        cli_launches = phase_cli(dev)
+        s1_launches = phase_stage1(dev, field, ds, val)
     for r in results:
         path = (ws_launches if r["name"].startswith("winsort") else
                 cli_launches if r["name"].startswith("sweep") else launches)
         r["launches"] = path[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        r["stage1_launches"] = (cli_launches["stage1_" + r["name"]]
+                                if r["name"].startswith("sweep") else
+                                s1_launches.get(r["name"], 0))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "stage1_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,12 +7,13 @@ ported path reaches is a hand-written CUDA kernel under ``csrc/``, built for
 sm_90a at first use (``kernels/build.py``).  A wrapper runs its kernel for a
 CUDA tensor and its plain PyTorch version for a CPU tensor.
 
-Ported so far: stage 0 through the CLI (``python -m
-nerf2mesh_tpu_torch.main``) and ``utils.trainer.Trainer``: training, the
-eval render and metrics, checkpoints (the JAX package's load too), the
-test video, on the block512 and the small ref tables.  Not yet ported
-(ROADMAP queue A): mesh export, stage 1, SDF mode, cascades/contraction and
-multi-device.
+Ported so far: both stages through the CLI (``python -m
+nerf2mesh_tpu_torch.main``, then ``--stage 1``) and
+``utils.trainer.Trainer``: stage-0 training, the eval render and metrics,
+checkpoints (the JAX package's load too, both stages), the test video, the
+stage-0 mesh export, stage 1 through a PyTorch rasterizer and the textured
+export, on the block512 and the small ref tables.  Not yet ported (ROADMAP
+queue A): SDF mode, cascades/contraction and multi-device.
 """
 
 __version__ = "0.1.0"

@@ -59,6 +59,14 @@ class SphereScene:
             best_t[hit] = t[hit]
         return rgb, alpha
 
+    def sdf(self, pts: np.ndarray) -> np.ndarray:
+        """Analytic signed distance to the union of the spheres (the JAX
+        SphereScene.sdf): a mesh's distance to the true surface."""
+        d = np.full(pts.shape[0], np.inf, np.float32)
+        for c, r in zip(self.centers, self.radii):
+            d = np.minimum(d, np.linalg.norm(pts - c, axis=-1) - r)
+        return d
+
 
 def _camera_rays(pose: np.ndarray, H: int, W: int, fl: float,
                  dx: float = 0.5, dy: float = 0.5):

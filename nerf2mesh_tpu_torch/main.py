@@ -2,17 +2,23 @@
 
 Usage:  python -m nerf2mesh_tpu_torch.main <blender dir> [flags of config.py]
 
-Runs stage 0 on the first CUDA card: --ckpt latest|scratch|<path>, then
-either --test (test eval with PSNR, SSIM and LPIPS, the test video) or
-training with validation evals, the final val and test evals, the video,
-and the sharpen phase (under -O or --sharpen_steps) and its checkpoint.  The
-command line exits non-zero when there is no card; from Python,
-``main(argv, device="cpu")`` runs on the CPU.
+Runs on the first CUDA card.  Stage 0: --ckpt latest|scratch|<path>, then
+either --test (test eval with PSNR, SSIM and LPIPS, the test video, and the
+mesh unless --test_no_mesh) or training with validation evals, the final
+val and test evals, the video, the sharpen phase (under -O or
+--sharpen_steps) and its checkpoint, and the mesh export to
+<workspace>/mesh_stage0/mesh_0.ply (culled against the training views under
+--mesh_visibility_culling).  Stage 1 (--stage 1): loads that mesh and the
+checkpoint (--ckpt latest falls back to the stage-0 one), trains the vertex
+offsets and the appearance through the rasterizer (refining under
+--refine), evaluates, and writes <workspace>/mesh_stage1/ for renderer.html;
+with --test it evaluates the loaded stage-1 state.  The command line exits
+non-zero when there is no card; from Python, ``main(argv, device="cpu")``
+runs on the CPU.
 
 Not ported yet (NotImplementedError naming the ROADMAP item, raised before
-any work): the stage-0 mesh export (A3: pass --test_no_mesh), stage 1 (A4),
-SDF pretraining (A5), the colmap/dtu providers and more than one device
-(A7); --vis_pose (A7) raises once the datasets are loaded.
+any work): SDF (A5), the colmap/dtu providers, bound > 1 and more than one
+device (A7); --vis_pose (A7) raises once the datasets are loaded.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 
 
 def main(argv: Optional[List[str]] = None, device=None):
-    """Run the stage-0 flow of nerf2mesh_tpu.main; returns the Trainer."""
+    """Run the flow of nerf2mesh_tpu.main; returns the Trainer."""
     import torch
 
     from .config import parse_args
@@ -48,17 +54,20 @@ def main(argv: Optional[List[str]] = None, device=None):
             f"mesh_shape {cfg.mesh_shape}: multi-device training is not "
             "ported yet (ROADMAP A7); the port runs on one device")
     check_supported(cfg)
-    if cfg.stage == 0 and not cfg.test_no_mesh:
-        # the run would end in Trainer.save_mesh: fail before any work
-        raise NotImplementedError(
-            "the stage-0 mesh export is not ported yet (ROADMAP A3); pass "
-            "--test_no_mesh")
 
     np.random.seed(cfg.seed)
     trainer = Trainer(cfg, device=device)
 
+    train_ds = None
+    if cfg.stage == 1:
+        # the offsets must exist before the checkpoint load, or it drops a
+        # stage-1 checkpoint's offsets as unexpected
+        train_ds = load_dataset(cfg, split=cfg.train_split)
+        trainer.setup_stage1(train_ds)
+
     if cfg.ckpt == "latest":
-        trainer.load_checkpoint()
+        if not trainer.load_checkpoint() and cfg.stage == 1:
+            trainer.load_checkpoint(stage=0)
     elif cfg.ckpt != "scratch" and cfg.ckpt:
         trainer.load_checkpoint(cfg.ckpt)
 
@@ -69,15 +78,25 @@ def main(argv: Optional[List[str]] = None, device=None):
             trainer.evaluate(test_ds, name="test", write_images=True)
         if not cfg.test_no_video:
             trainer.test_video(test_ds)
+        if not cfg.test_no_mesh and cfg.stage == 0:
+            trainer.save_mesh(
+                resolution=cfg.mcubes_reso,
+                decimate_target=cfg.decimate_target,
+                dataset=(load_dataset(cfg, split=cfg.train_split)
+                         if cfg.mesh_visibility_culling else None))
         return trainer
 
-    train_ds = load_dataset(cfg, split=cfg.train_split)
+    if train_ds is None:
+        train_ds = load_dataset(cfg, split=cfg.train_split)
     valid_ds = load_dataset(cfg, split="val")
     if cfg.vis_pose:
         raise NotImplementedError("--vis_pose is not ported yet (ROADMAP A7)")
 
     trainer.metrics = [PSNRMeter()]
-    trainer.train(train_ds, valid_ds)
+    if cfg.stage == 1:
+        trainer.train_stage1(train_ds, valid_ds)
+    else:
+        trainer.train(train_ds, valid_ds)
 
     # final eval on val + test (reference main.py:253-263)
     trainer.metrics = [PSNRMeter(), SSIMMeter(), LPIPSMeter()]
@@ -88,13 +107,20 @@ def main(argv: Optional[List[str]] = None, device=None):
     if not cfg.test_no_video:
         trainer.test_video(test_ds)
 
-    if cfg.sharpen_steps > 0:
+    if cfg.stage == 0 and cfg.sharpen_steps > 0:
         # mesh-preparation sharpening after the quality evals and before the
         # export (Config.sharpen_steps)
         trainer.log(f"[INFO] sharpen phase: +{cfg.sharpen_steps} steps @ "
                     f"entropy {cfg.sharpen_entropy}")
         trainer.train(train_ds, None, max_steps=cfg.iters + cfg.sharpen_steps)
         trainer.save_checkpoint()
+
+    if cfg.stage == 1:
+        trainer.export_stage1(resolution=cfg.texture_size)
+    elif not cfg.test_no_mesh:
+        trainer.save_mesh(
+            resolution=cfg.mcubes_reso, decimate_target=cfg.decimate_target,
+            dataset=train_ds if cfg.mesh_visibility_culling else None)
     return trainer
 
 

@@ -181,8 +181,7 @@ def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
     sigma = _density_from_feat(params, x, hd, spec)
     gf = _geo_feat_from_feat(params, x, hc, spec)
     diffuse = gf[..., :3]
-    spec_in = torch.cat([d.float(), gf[..., 3:]], dim=-1)
-    specular = torch.sigmoid(params.specular_net(spec_in, spec.compute_dtype))
+    specular = _specular(params, d, gf, spec)
     if full_flag:
         color = (diffuse + specular).clamp(0.0, 1.0)
     else:
@@ -194,3 +193,45 @@ def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
     packed = torch.cat([sigma[:, None], color, specular], dim=-1)  # [N, 7]
     packed = permute(packed, inv, perm)
     return packed[:, 0], packed[:, 1:4], packed[:, 4:7], cnt
+
+
+def geo_feat(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
+             max_level: Optional[int] = None) -> torch.Tensor:
+    """sigmoid(color_net(...)) = [diffuse 3 | specular feature] [N, 3+spec]
+    (JAX network.geo_feat; the encode sorts and unsorts internally)."""
+    b = spec.bound
+    _, hc, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level)
+    return _geo_feat_from_feat(params, x, hc, spec)
+
+
+def _specular(params: NeRFField, d, gf, spec: NetworkSpec):
+    spec_in = torch.cat([d.float(), gf[..., 3:]], dim=-1)
+    return torch.sigmoid(params.specular_net(spec_in, spec.compute_dtype))
+
+
+def rgb(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
+        spec: NetworkSpec, shading: str = "full",
+        max_level: Optional[int] = None):
+    """(color [N, 3], specular [N, 3] or None) for shading "full",
+    "diffuse" or "specular"; d normalized (JAX network.rgb)."""
+    gf = geo_feat(params, x, spec, max_level)
+    diffuse = gf[..., :3]
+    if shading == "diffuse":
+        return diffuse, None
+    specular = _specular(params, d, gf, spec)
+    if shading == "specular":
+        return specular, specular
+    return (diffuse + specular).clamp(0.0, 1.0), specular
+
+
+def rgb_train(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
+              spec: NetworkSpec, full_flag: bool,
+              max_level: Optional[int] = None):
+    """(color, specular) with the diffuse/full switch of training: diffuse
+    only (specular zero) until full_flag (JAX network.rgb_train)."""
+    gf = geo_feat(params, x, spec, max_level)
+    diffuse = gf[..., :3]
+    specular = _specular(params, d, gf, spec)
+    if full_flag:
+        return (diffuse + specular).clamp(0.0, 1.0), specular
+    return diffuse, torch.zeros_like(specular)

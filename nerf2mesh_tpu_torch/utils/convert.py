@@ -6,8 +6,10 @@ network.py init_network): ``{"table": [total, 3], "sigma_net": [{"w":
 ``table`` and ``sigma_net.0.w``: the flattened pytree path.  Layouts are
 identical, so conversion is a rename and a copy.  The occupancy state
 (the JAX ``RenderState``) carries over the same way
-(``render_state_from_jax``), and so do whole checkpoints
-(``read_jax_checkpoint``).
+(``render_state_from_jax``), and so do whole checkpoints of either stage:
+``read_jax_checkpoint`` reads a JAX one without JAX (the stage-1 ``vert``
+label's moments included), ``write_jax_checkpoint`` writes a port payload
+as one the JAX package loads.
 """
 
 from __future__ import annotations
@@ -195,3 +197,101 @@ def read_jax_checkpoint(path: str) -> Dict[str, Any]:
         "key": np.asarray(st.field("key")),
     }
     return payload
+
+
+# ------------------------------------------------------- port -> JAX pickle
+
+# Where the classes of a JAX format-2 checkpoint live: the JAX package's
+# records and optax's (optax 0.2: nerf2mesh_tpu/utils/trainer.py
+# make_optimizer is a partition over the labels base / slow / vert, each
+# label an Adam masked to its parameters).
+_JAX_CLASSES = {
+    "TrainState": "nerf2mesh_tpu.utils.trainer",
+    "RenderState": "nerf2mesh_tpu.models.renderer",
+    "PartitionState": "optax.transforms._combining",
+    "MaskedState": "optax.transforms._masking",
+    "MaskedNode": "optax.transforms._masking",
+    "ScaleByAdamState": "optax._src.transform",
+    "ScaleByScheduleState": "optax._src.transform",
+}
+_SLOW_PARAMS = ("individual_codes", "variance")
+
+
+class _JaxRecord:
+    """A record to pickle as a call of the JAX-side class `name` on
+    `fields` (a NamedTuple built from its fields in order)."""
+
+    def __init__(self, name: str, *fields):
+        self.name, self.fields = name, fields
+
+    def __reduce__(self):
+        return _jax_class(self.name), self.fields
+
+
+@lru_cache(maxsize=None)
+def _jax_class(name: str) -> type:
+    """A stand-in class pickled by reference as the JAX side's class."""
+    return type(name, (), {"__module__": _JAX_CLASSES[name],
+                           "_jax_ref": True})
+
+
+class _JaxPickler(pickle._Pickler):
+    """Writes the stand-in classes as references to their JAX-side modules
+    without importing them (the pure-Python pickler lets a subclass write
+    a global; the C one imports the module to check it)."""
+
+    def save_global(self, obj, name=None):
+        if not getattr(obj, "_jax_ref", False):
+            return super().save_global(obj, name)
+        self.save(obj.__module__)
+        self.save(obj.__name__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _label(name: str) -> str:
+    if name == "vertices_offsets":
+        return "vert"
+    return "slow" if name in _SLOW_PARAMS else "base"
+
+
+def jax_state(payload: Dict[str, Any], seed: int = 0) -> _JaxRecord:
+    """The port payload's plain state -> the JAX TrainState records: the
+    Adam moments split over the optimizer's labels (the other labels'
+    leaves MaskedNode), one shared count, the PRNG key of `seed` (the port
+    keeps no JAX key)."""
+    st = payload["state"]
+    opt = st["opt_state"]
+    count = np.asarray(opt["count"], np.int32)
+    inner = {}
+    for label in ("base", "slow", "vert"):
+        def part(tree):
+            return {k: (v if _label(k) == label else _JaxRecord("MaskedNode"))
+                    for k, v in tree.items()}
+        adam = _JaxRecord("ScaleByAdamState", count, part(opt["mu"]),
+                          part(opt["nu"]))
+        inner[label] = _JaxRecord(
+            "MaskedState", (adam, _JaxRecord("ScaleByScheduleState", count)))
+    r = st["render"]
+    render = _JaxRecord(
+        "RenderState", np.asarray(r["density_grid"], np.float32),
+        np.asarray(r["occ_grid"]), np.asarray(r["mean_density"], np.float32),
+        np.asarray(r["iter_density"], np.int32))
+    return _JaxRecord(
+        "TrainState", st["params"], _JaxRecord("PartitionState", inner),
+        st["ema_params"], np.asarray(st["ema_count"], np.int32), render,
+        np.asarray(st["step"], np.int32), np.asarray([0, seed], np.uint32))
+
+
+def write_jax_checkpoint(payload: Dict[str, Any], path: str,
+                         seed: int = 0) -> None:
+    """Write a port checkpoint payload (Trainer._payload, or a port .ckpt
+    read back with read_jax_checkpoint) as a format-2 checkpoint that the
+    JAX package's Trainer.load_checkpoint restores: its TrainState, RenderState
+    and optax records by reference, the rest as plain data.  Imports neither
+    JAX nor optax."""
+    out = {k: v for k, v in payload.items()
+           if k not in ("state", "framework", "rng")}
+    out["state"] = jax_state(payload, seed)
+    with open(path, "wb") as f:
+        _JaxPickler(f, protocol=4).dump(out)

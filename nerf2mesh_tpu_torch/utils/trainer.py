@@ -21,12 +21,21 @@ checkpoint every ``iters // n_ckpt`` steps and at the end.  Checkpoints are
 the JAX package's format-2 pickle payload in plain data (utils/convert.py
 reads the JAX package's too); ``test_video`` writes the test trajectory.
 
+``save_mesh`` exports the stage-0 mesh (meshing/export.py).  Stage 1
+(``setup_stage1``, ``train_stage1``): the stage-0 mesh's vertices get
+learnable offsets (a second Adam group with its own decaying lr), and each
+step renders one random crop through the rasterizer (models/stage1.py),
+with per-face errors accumulated for the refines; stage 1 keeps no EMA and
+evaluates the live weights (``render_image_stage1``).  ``export_stage1``
+writes the textured mesh for renderer.html.  After a refine the Adam
+moments restart but the step count stays global (the lr schedule and the
+bias correction continue, as optax's count does).
+
 The trainer runs on the card unless the caller asks for another device.
 
 Not ported yet (NotImplementedError, ROADMAP queue A): orbax checkpoints,
-mesh export, stage 1, SDF, cascades/contraction, depth supervision, patches,
-per-image codes, linear color space, the trainable density grid and
-multi-device training.
+SDF, cascades/contraction, depth supervision, patches, per-image codes,
+linear color space, the trainable density grid and multi-device training.
 """
 
 from __future__ import annotations
@@ -84,6 +93,47 @@ def make_optimizer(cfg: Config, params):
     return opt, make_lr_scheduler(cfg, opt)
 
 
+def vert_schedule(cfg: Config, vert_horizon: Optional[int] = None):
+    """The vertex-offset lr: exponential decay from s1_vert_boost * lr_vert
+    to lr_vert over vert_horizon steps (default cfg.iters), no warmup."""
+    horizon = float(vert_horizon if vert_horizon else cfg.iters)
+    boost = max(float(cfg.s1_vert_boost), 1.0)
+
+    def fn(it: int) -> float:
+        frac = min(max(it / max(horizon, 1.0), 0.0), 1.0)
+        return cfg.lr_vert * boost ** (1.0 - frac)
+    return fn
+
+
+def make_stage1_optimizer(cfg: Config, field_params, offsets, step: int = 0,
+                          vert_horizon: Optional[int] = None):
+    """Adam(eps=1e-15) over two groups, the field (lr_schedule) and the
+    vertex offsets (vert_schedule), as the JAX package's "base" and "vert"
+    labels; fresh moments.  At step > 0 every parameter's count is set to
+    `step` and the schedules are positioned there, as the JAX package keeps
+    optax's count global across a refine's optimizer reset."""
+    field_params = list(field_params)
+    opt = torch.optim.Adam([{"params": field_params},
+                            {"params": [offsets], "lr": 1.0}],
+                           lr=cfg.lr, eps=1e-15)
+    if step > 0:
+        for p in field_params + [offsets]:
+            opt.state[p] = {"step": torch.tensor(float(step)),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+    return opt, make_stage1_scheduler(cfg, opt, step, vert_horizon)
+
+
+def make_stage1_scheduler(cfg: Config, opt, step: int,
+                          vert_horizon: Optional[int] = None):
+    """LambdaLR of the two stage-1 groups positioned at `step`."""
+    sched, vs = lr_schedule(cfg), vert_schedule(cfg, vert_horizon)
+    base, vert = opt.param_groups
+    base["initial_lr"], vert["initial_lr"] = cfg.lr, 1.0
+    return torch.optim.lr_scheduler.LambdaLR(
+        opt, [lambda it: sched(it) / cfg.lr, vs], last_epoch=step - 1)
+
+
 class StepDynamics(NamedTuple):
     """Per-step host scalars (the reference mutates these on `opt`)."""
     full_shading: bool
@@ -103,7 +153,7 @@ def check_supported(cfg: Config) -> None:
         "color_space=linear": (cfg.color_space == "linear", "A6"),
         "enable_cam_near_far": (cfg.enable_cam_near_far, "A6"),
         "trainable_density_grid": (cfg.trainable_density_grid, "A6"),
-        "stage 1": (cfg.stage != 0, "A4"),
+        "enable_offset_nerf_grad": (cfg.enable_offset_nerf_grad, "A5"),
     }
     for name, (on, item) in unsupported.items():
         if on:
@@ -173,8 +223,18 @@ class Trainer:
         self.metrics = [PSNRMeter()]
         self.stats: Dict[str, object] = {"results": [], "best": None}
         # one entry per logged training step: step, loss, psnr, the rays
-        # drawn since train() started, and its seconds
+        # drawn since train() started (stage 0) or the white-background
+        # psnr, the raster overflow and the face count (stage 1), and the
+        # seconds since the run started
         self.train_log: List[Dict[str, float]] = []
+        # stage 1 (setup_stage1): the learnable offsets and the host mesh;
+        # host_generator draws a stage-1 step's image and crop origin (host
+        # ints: they slice the image and place the crop)
+        self.vertices_offsets: Optional[torch.nn.Parameter] = None
+        self.stage1_mesh = None
+        self._s1_real_shape = None
+        self._vert_horizon: Optional[int] = None
+        self.host_generator = torch.Generator().manual_seed(cfg.seed)
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -464,6 +524,383 @@ class Trainer:
                  f"{time.perf_counter() - t0:.1f}s")
         return last
 
+    # -------------------------------------------------------------- stage 1
+    def setup_stage1(self, dataset: Dataset) -> None:
+        """Load the stage-0 mesh (mesh_stage0/, the _updated topology first
+        unless --ckpt scratch), decimate it to the screen-resolution face
+        budget and subdivide it to the fragment bound, and create the
+        offsets and the two-group optimizer.  Runs before the checkpoint
+        load, so that a stage-1 checkpoint's offsets find their parameter.
+        The surface snap waits for train_stage1 (it needs the loaded
+        field)."""
+        from ..models.stage1 import load_stage1_mesh
+        cfg = self.cfg
+        want = cfg.s1_crop if cfg.s1_crop > 0 else 256
+        self._s1_crop = int(min(want, dataset.H, dataset.W))
+        intr = np.asarray(dataset.intrinsics)
+        fl = float(intr[:, :2].max() if intr.ndim == 2 else intr[:2].max())
+        ss = max(int(cfg.ssaa), 1)
+        # faces a few supersampled pixels big keep the coverage gradient
+        # (the vertices' only photometric channel) alive
+        self._s1_face_budget = (int(min(
+            2.0 * dataset.H * dataset.W * ss * ss / cfg.s1_px_per_face,
+            3 * 2 ** 16)) if cfg.s1_px_per_face > 0 else 0)
+        max_edge = self._raster_spec().frag * 0.8 / (fl * ss)
+        self.stage1_mesh = load_stage1_mesh(
+            self.workspace, self.render_spec.cascades, mesh_path=cfg.mesh,
+            use_updated=cfg.ckpt != "scratch", max_screen_edge=max_edge,
+            poses=dataset.poses, max_faces=self._s1_face_budget,
+            face_budget=self._s1_face_budget)
+        self.log(f"[INFO] stage1 mesh: v={self.stage1_mesh.num_vertices} "
+                 f"f={self.stage1_mesh.num_faces}")
+        upd = os.path.join(self.workspace, "mesh_stage0", "mesh_0_updated.ply")
+        resumed = cfg.ckpt != "scratch" and os.path.exists(upd)
+        self._s1_want_snap = (cfg.s1_snap_surface and not resumed
+                              and not cfg.sdf and not cfg.mesh)
+        self._reset_stage1_params()
+
+    def _raster_spec(self):
+        """The crop's RasterSpec: K from the padded face bucket (<= 2^18),
+        the fragment budget from the expected live fragments per face
+        (raises when no budget up to 2^22 covers it)."""
+        from ..models.rasterizer import RasterSpec
+        mf = getattr(self, "mesh_f", None)
+        ntri = (int(mf.shape[0]) if mf is not None
+                else getattr(self.stage1_mesh, "num_faces", None))
+        cap = 2 ** 15 if ntri is None else min(
+            2 ** 18, 1 << int(np.ceil(np.log2(max(ntri, 2)))))
+        ss = max(int(self.cfg.ssaa), 1)
+        px = self.cfg.s1_px_per_face if self.cfg.s1_px_per_face > 0 else 6.0
+        per_face = min(64.0, (np.sqrt(2.0 * px) + 2.0) ** 2)
+        demand = int(min(ntri or 2 ** 15, cap) * per_face / (ss * ss))
+        budget = 1 << 20
+        while budget < demand and budget < (1 << 22):
+            budget <<= 1
+        if demand > budget:
+            raise ValueError(
+                f"stage-1 raster fragment demand ~{demand} exceeds the "
+                f"maximum budget {1 << 22} (faces={ntri}, K={cap}, "
+                f"ssaa={ss}); reduce the face count (s1_px_per_face) or "
+                f"the crop size (s1_crop)")
+        return RasterSpec(crop=getattr(self, "_s1_crop", 128),
+                          max_tris=cap, frag=8, max_frags=budget)
+
+    def _reset_stage1_params(self) -> None:
+        """(Re)create the offsets, the error accumulators and the optimizer
+        after a topology change; the device buffers are bucket-padded.  A
+        resumed checkpoint with the same topology keeps its offsets and
+        moments.  Otherwise Adam's moments restart with the count kept at
+        the global step (optax's count, which drives both the lr schedule
+        and the bias correction), and the EMA is re-copied from the live
+        weights."""
+        from ..models.stage1 import pad_stage1_buffers
+        mesh, dev = self.stage1_mesh, self.device
+        min_f = self._s1_face_budget if self.cfg.refine else 0
+        pad = pad_stage1_buffers(mesh, min_f=min_f)
+        real_shape = (mesh.num_vertices, mesh.num_faces)
+        Vp = len(pad["vertices"])
+        old = self.vertices_offsets
+        if not (old is not None and old.shape[0] == Vp
+                and self._s1_real_shape == real_shape):
+            self.vertices_offsets = torch.nn.Parameter(
+                torch.zeros((Vp, 3), device=dev))
+            self.optimizer, self.lr_scheduler = make_stage1_optimizer(
+                self.cfg, self.params.parameters(), self.vertices_offsets,
+                self.step, self._vert_horizon)
+            with torch.no_grad():
+                for k, p in self.params.named_parameters():
+                    self.ema_params[k].copy_(p)
+            self.ema_params["vertices_offsets"] = (
+                self.vertices_offsets.detach().clone())
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        self.mesh_v, self.mesh_f = t(pad["vertices"]), t(pad["triangles"])
+        self.mesh_edges, self.mesh_pairs = t(pad["edges"]), t(
+            pad["face_pairs"])
+        self.mesh_deg = t(pad["vert_degree"])
+        self.s1_counts = tuple(int(c) for c in pad["counts"])
+        self._s1_real_shape = real_shape
+        self.tri_errors = torch.zeros((len(pad["triangles"]),), device=dev)
+        self.tri_counts = torch.zeros((len(pad["triangles"]),), device=dev)
+
+    def _require_stage1(self, what: str) -> None:
+        if self.vertices_offsets is None:
+            raise RuntimeError(f"{what}: no stage-1 mesh; call setup_stage1 "
+                               f"first")
+
+    def _stage1_nspec(self):
+        cfg = self.cfg
+        if cfg.s1_stochastic and not cfg.sdf:
+            return dataclasses.replace(self.net_spec, encode_stochastic=True)
+        return self.net_spec
+
+    def stage1_draw(self, B: int, H: int, W: int) -> Dict[str, object]:
+        """One stage-1 step's draws: image and crop origin (host ints, from
+        the host generator) and the supersampled background."""
+        Cp = self._s1_crop
+        Cs = Cp * max(int(self.cfg.ssaa), 1)
+        g = self.host_generator
+        img = int(torch.randint(0, B, (), generator=g))
+        cy0 = int(torch.randint(0, max(H - Cp, 1), (), generator=g))
+        cx0 = int(torch.randint(0, max(W - Cp, 1), (), generator=g))
+        bg = torch.rand((Cs, Cs, 3), generator=self.generator,
+                        device=self.device)
+        return {"img": img, "origin": (cy0, cx0), "bg": bg}
+
+    def _stage1_crop_loss(self, images_u8, poses, mvps, intrinsics,
+                          draws: Dict[str, object]):
+        """Loss of one crop render: photometric + mask, the mesh
+        regularizers, the perceptual term; returns (loss, metrics,
+        trig_id, per-pixel loss)."""
+        from ..data.rays import pixel_dirs_cam
+        from ..models.stage1 import (edge_length_loss, laplacian_loss,
+                                     normal_consistency_loss, offsets_loss,
+                                     render_stage1_crop)
+        from .losses import perceptual_loss
+        cfg, dev = self.cfg, self.device
+        rspec = self._raster_spec()
+        ss = max(int(cfg.ssaa), 1)
+        Cp = rspec.crop
+        Cs = Cp * ss
+        v_real, f_real, e_real, p_real, v_inner = self.s1_counts
+        B, H, W, C = images_u8.shape
+        img = draws["img"]
+        cy0, cx0 = draws["origin"]
+        gt_raw = images_u8[img, cy0:cy0 + Cp, cx0:cx0 + Cp].float() / 255.0
+        if cfg.background == "white":
+            bg = torch.ones((Cs, Cs, 3), device=dev)
+            bg_lo = torch.ones((Cp, Cp, 3), device=dev)
+        else:
+            bg = draws["bg"]
+            bg_lo = bg.reshape(Cp, ss, Cp, ss, 3).mean(dim=(1, 3))
+        if C == 4:
+            gt_mask = gt_raw[..., 3:]
+            gt_rgb = gt_raw[..., :3] * gt_mask + bg_lo * (1 - gt_mask)
+            gt_white = gt_raw[..., :3] * gt_mask + (1 - gt_mask)
+        else:
+            gt_mask, gt_rgb, gt_white = None, gt_raw, gt_raw
+
+        # view directions at the supersampled pixel centers
+        sub = (torch.arange(Cs, dtype=torch.float32, device=dev) + 0.5) / ss
+        jj = (cy0 + sub[:, None]).expand(Cs, Cs)
+        ii = (cx0 + sub[None, :]).expand(Cs, Cs)
+        dcam = pixel_dirs_cam(ii.reshape(-1), jj.reshape(-1), intrinsics)
+        dirs = (dcam @ poses[img, :3, :3].T).reshape(Cs, Cs, 3)
+
+        out = render_stage1_crop(
+            self.params, self.vertices_offsets, self.mesh_v, self.mesh_f,
+            mvps[img], (cy0, cx0), dirs, bg, self._stage1_nspec(), rspec,
+            H, W, shading="full", contracted=cfg.contract,
+            pos_gradient_boost=cfg.pos_gradient_boost, ssaa=ss,
+            alpha_mode=cfg.s1_alpha, f_valid=f_real, shell_k=cfg.s1_shell,
+            shell_h=cfg.s1_shell_h)
+
+        loss_pix = cfg.lambda_rgb * ((out["image"] - gt_rgb) ** 2).mean(-1)
+        if gt_mask is not None and cfg.lambda_mask > 0:
+            loss_pix = loss_pix + cfg.lambda_mask * (
+                (out["weights_sum"] - gt_mask[..., 0]) ** 2)
+        loss = loss_pix.mean()
+
+        verts = self.mesh_v + self.vertices_offsets
+        if cfg.lambda_lap > 0:
+            loss = loss + cfg.lambda_lap * laplacian_loss(
+                verts, self.mesh_edges, self.mesh_deg, v_real, e_real)
+        if cfg.lambda_normal > 0:
+            loss = loss + cfg.lambda_normal * normal_consistency_loss(
+                verts, self.mesh_f, self.mesh_pairs, p_real)
+        if cfg.lambda_edgelen > 0:
+            loss = loss + cfg.lambda_edgelen * edge_length_loss(
+                verts, self.mesh_edges, e_real)
+        if cfg.lambda_offsets > 0:
+            loss = loss + cfg.lambda_offsets * offsets_loss(
+                self.vertices_offsets, v_inner, cfg.bound, v_real)
+        if cfg.lambda_lpips > 0:
+            loss = loss + cfg.lambda_lpips * perceptual_loss(out["image"],
+                                                             gt_rgb)
+
+        def psnr(a, b):
+            return -10.0 * torch.log10(
+                ((a - b) ** 2).mean().detach().clamp(min=1e-12))
+        metrics = {
+            "loss": loss.detach(),
+            "psnr": psnr(out["image"], gt_rgb),
+            "psnr_white": psnr(out["image_white"], gt_white),
+            # triangles/fragments past the raster budgets: nonzero means the
+            # render (and its gradients) had holes
+            "overflow": out["overflow"],
+            "n_live": out["n_live"],
+            "n_overlap": out["n_overlap"],
+        }
+        return loss, metrics, out["trig_id"], loss_pix
+
+    def stage1_step(self, images_u8, poses, mvps, intrinsics,
+                    draws: Optional[Dict[str, object]] = None):
+        """One stage-1 optimizer step (no EMA: the reference keeps none in
+        stage 1); accumulates per-face errors and pixel counts from the
+        winning triangle ids.  Returns the metrics (device tensors)."""
+        if draws is None:
+            B, H, W, _ = images_u8.shape
+            draws = self.stage1_draw(B, H, W)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics, trig_id, loss_pix = self._stage1_crop_loss(
+            images_u8, poses, mvps, intrinsics, draws)
+        loss.backward()
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.optimizer.step()
+        self.lr_scheduler.step()
+
+        ss = max(int(self.cfg.ssaa), 1)
+        lp = loss_pix.detach()
+        if ss > 1:
+            lp = lp.repeat_interleave(ss, 0).repeat_interleave(ss, 1)
+        tid = trig_id.reshape(-1)
+        valid = tid >= 0
+        safe = torch.where(valid, tid, 0)
+        self.tri_errors.index_add_(0, safe, torch.where(valid, lp.reshape(-1),
+                                                        0.0))
+        self.tri_counts.index_add_(0, safe, valid.float())
+        self.step += 1
+        return metrics
+
+    def _snap_stage1_mesh(self) -> None:
+        """Snap the fresh inner mesh onto the field's apparent surface and
+        persist it as mesh_0_updated.ply (offsets train relative to the
+        snapped vertices; it is never snapped again)."""
+        from ..meshing.io import write_ply
+        from ..models.stage1 import snap_to_apparent_surface
+        cfg, mesh = self.cfg, self.stage1_mesh
+        v1, f1 = int(mesh.v_cumsum[1]), int(mesh.f_cumsum[1])
+        # the band must cover the placement error: >= 0.09, 3 passes
+        band = max(12.0 * 2.0 * cfg.real_bound / max(cfg.mcubes_reso, 1),
+                   0.09)
+        mesh.vertices[:v1] = snap_to_apparent_surface(
+            self.params, mesh.vertices[:v1], mesh.triangles[:f1],
+            self.net_spec, band=band, n_samples=64, passes=3)
+        self.mesh_v[:v1] = torch.from_numpy(mesh.vertices[:v1]).to(
+            self.device)
+        mdir = os.path.join(self.workspace, "mesh_stage0")
+        os.makedirs(mdir, exist_ok=True)
+        write_ply(os.path.join(mdir, "mesh_0_updated.ply"),
+                  mesh.vertices[:v1], mesh.triangles[:f1])
+
+    def train_stage1(self, dataset: Dataset,
+                     valid_dataset: Optional[Dataset] = None,
+                     max_steps: Optional[int] = None):
+        """Stage-1 training up to step max_steps (default cfg.iters): the
+        surface snap at step 0, refines at cfg.refine_steps (under
+        cfg.refine), logs ~10 times, evals every steps // n_eval steps and
+        checkpoints every steps // n_ckpt steps and at the end."""
+        from ..models.stage1 import refine_and_decimate
+        self._require_stage1("train_stage1")
+        cfg = self.cfg
+        steps = max_steps if max_steps is not None else cfg.iters
+        if steps != cfg.iters and self._vert_horizon != steps:
+            # the vertex lr decays over the steps actually run
+            self._vert_horizon = steps
+            self.lr_scheduler = make_stage1_scheduler(
+                cfg, self.optimizer, self.step, steps)
+        images, poses, intrinsics = self._prep_train_arrays(dataset)
+        mvps = torch.from_numpy(np.asarray(dataset.mvps, np.float32)).to(
+            self.device)
+        eval_interval = max(1, steps // max(cfg.n_eval, 1))
+        save_interval = max(1, steps // max(cfg.n_ckpt, 1))
+        log_interval = max(1, steps // 10)
+        t0 = time.perf_counter()
+        if getattr(self, "_s1_want_snap", False) and self.step == 0:
+            self._s1_want_snap = False
+            self._snap_stage1_mesh()
+        last = None
+        while self.step < steps:
+            if cfg.refine and self.step + 1 in cfg.refine_steps:
+                v_real, f_real = self._s1_real_shape
+                self.stage1_mesh = refine_and_decimate(
+                    self.stage1_mesh,
+                    self.vertices_offsets.detach()[:v_real].cpu().numpy(),
+                    self.tri_errors[:f_real].cpu().numpy(),
+                    self.tri_counts[:f_real].cpu().numpy(),
+                    cfg, self.workspace, max_faces=self._s1_face_budget)
+                self._reset_stage1_params()
+                # (step, faces before, faces after) of each refine
+                self.stats.setdefault("refines", []).append(
+                    (self.step + 1, f_real, self.stage1_mesh.num_faces))
+                self.log(f"[INFO] refine at step {self.step + 1}: {f_real} "
+                         f"-> {self.stage1_mesh.num_faces} faces")
+            last = self.stage1_step(images, poses, mvps, intrinsics)
+            if self.step % log_interval == 0 or self.step == steps:
+                entry = dict(step=self.step, loss=float(last["loss"]),
+                             psnr=float(last["psnr"]),
+                             psnr_white=float(last["psnr_white"]),
+                             overflow=int(last["overflow"]),
+                             faces=self.stage1_mesh.num_faces,
+                             seconds=time.perf_counter() - t0)
+                self.train_log.append(entry)
+                self.log(f"[stage1 {self.step}/{steps}] "
+                         f"loss={entry['loss']:.6f} psnr={entry['psnr']:.2f} "
+                         f"psnr_white={entry['psnr_white']:.2f} "
+                         f"f={entry['faces']} {entry['seconds']:.1f}s")
+                if entry["overflow"] > 0:
+                    self.log(f"[WARN] raster budget overflow: "
+                             f"{entry['overflow']} triangles/fragments "
+                             f"dropped this step; the render has holes")
+            if valid_dataset is not None and self.step % eval_interval == 0:
+                self.evaluate(valid_dataset, name=f"s1_step{self.step}",
+                              stage1=True)
+            if self.step % save_interval == 0 or self.step == steps:
+                self.save_checkpoint()
+        return last
+
+    @torch.no_grad()
+    def render_image_stage1(self, pose: np.ndarray, mvp: np.ndarray,
+                            intrinsics, H: int, W: int,
+                            bg_color: float = 1.0) -> Dict[str, np.ndarray]:
+        """Full-frame stage-1 render of the live weights, crop by crop, at
+        ssaa x supersampling with the eval coverage (s1_alpha_eval); host
+        image [H, W, 3], depth and weights_sum (a raster overflow is
+        logged)."""
+        from ..models.stage1 import render_stage1_crop
+        self._require_stage1("render_image_stage1")
+        cfg, dev = self.cfg, self.device
+        rspec = self._raster_spec()
+        Cp = rspec.crop
+        ss = max(int(cfg.ssaa), 1)
+        Cs = Cp * ss
+        image = np.zeros((H, W, 3), np.float32)
+        depth = np.zeros((H, W), np.float32)
+        wsum = np.zeros((H, W), np.float32)
+        overflow = 0
+        fx, fy, cx, cy = (float(v) for v in np.asarray(intrinsics))
+        bg = torch.full((Cs, Cs, 3), float(bg_color), device=dev)
+        mvp_t = torch.from_numpy(np.asarray(mvp, np.float32)).to(dev)
+        sub = (np.arange(Cs) + 0.5) / ss
+        for y0 in range(0, H, Cp):
+            for x0 in range(0, W, Cp):
+                jj, ii = np.meshgrid(y0 + sub, x0 + sub, indexing="ij")
+                dcam = np.stack([(ii - cx) / fx, -(jj - cy) / fy,
+                                 -np.ones_like(ii)], -1)
+                dirs = (dcam.reshape(-1, 3) @ np.asarray(pose)[:3, :3].T
+                        ).reshape(Cs, Cs, 3).astype(np.float32)
+                out = render_stage1_crop(
+                    self.params, self.vertices_offsets, self.mesh_v,
+                    self.mesh_f, mvp_t, (y0, x0),
+                    torch.from_numpy(dirs).to(dev), bg, self.net_spec, rspec,
+                    H, W, shading="full", contracted=cfg.contract,
+                    alpha_mode=cfg.s1_alpha_eval, f_valid=self.s1_counts[1],
+                    ssaa=ss, shell_k=cfg.s1_shell, shell_h=cfg.s1_shell_h)
+                h, w = min(Cp, H - y0), min(Cp, W - x0)
+                image[y0:y0 + h, x0:x0 + w] = out["image"][:h, :w].cpu().numpy()
+                depth[y0:y0 + h, x0:x0 + w] = out["depth"][:h, :w].cpu().numpy()
+                wsum[y0:y0 + h, x0:x0 + w] = out["weights_sum"][
+                    :h, :w].cpu().numpy()
+                overflow += int(out["overflow"])
+        if overflow > 0:
+            self.log(f"[WARN] stage-1 eval raster overflow: {overflow} "
+                     f"dropped across crops; the image has holes")
+        return {"image": image, "depth": depth, "weights_sum": wsum}
+
     # -------------------------------------------------------------- eval
     @torch.no_grad()
     def render_image(self, pose: np.ndarray, intrinsics, H: int, W: int,
@@ -546,21 +983,20 @@ class Trainer:
         """Render the dataset's frames and score them with self.metrics;
         returns {metric: value}.  track_best keeps the best first metric in
         stats["best"] and saves the "best" checkpoint when it improves;
-        stats["eval_rounds"] holds each frame's march rounds."""
+        stats["eval_rounds"] holds each frame's march rounds (stage 0).
+        stage1 (default: cfg.stage > 0) renders the mesh with the live
+        weights (render_image_stage1)."""
         if stage1 is None:
             stage1 = self.cfg.stage > 0
-        if stage1:
-            raise NotImplementedError(
-                "the stage-1 eval render is not ported yet (ROADMAP A4)")
         for m in self.metrics:
             m.clear()
         self.stats["eval_rounds"] = []
         B = dataset.num_frames if max_frames is None else min(
             max_frames, dataset.num_frames)
         for i in range(B):
-            out = self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
-                                    dataset.H, dataset.W)
-            self.stats["eval_rounds"].append(out["rounds"])
+            out = self._render_frame(dataset, i, stage1)
+            if not stage1:
+                self.stats["eval_rounds"].append(out["rounds"])
             pred = out["image"]
             if dataset.images is not None:
                 gt = dataset.images[i].astype(np.float32) / 255.0
@@ -607,8 +1043,7 @@ class Trainer:
         [B, H, W, 3] as an .npz; returns the path written."""
         frames = []
         for i in range(dataset.num_frames):
-            out = self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
-                                    dataset.H, dataset.W)
+            out = self._render_frame(dataset, i, self.cfg.stage > 0)
             frames.append((np.clip(out["image"], 0, 1) * 255).astype(np.uint8))
         os.makedirs(self.workspace, exist_ok=True)
         path = os.path.join(self.workspace, f"{name}_rgb.mp4")
@@ -632,15 +1067,39 @@ class Trainer:
         self.log(f"[INFO] wrote test video: {path}")
         return path
 
-    def save_mesh(self, resolution: int = 512, decimate_target: float = 3e5,
-                  dataset: Optional[Dataset] = None):
-        raise NotImplementedError(
-            "stage-0 mesh export is not ported yet (ROADMAP A3); pass "
-            "--test_no_mesh")
+    def _render_frame(self, dataset: Dataset, i: int, stage1: bool):
+        if stage1:
+            return self.render_image_stage1(
+                dataset.poses[i], dataset.mvps[i], dataset.intrinsics_for(i),
+                dataset.H, dataset.W)
+        return self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
+                                 dataset.H, dataset.W)
 
-    def export_stage1(self, resolution: int = 4096):
-        raise NotImplementedError(
-            "the stage-1 export is not ported yet (ROADMAP A4)")
+    def save_mesh(self, resolution: int = 512, decimate_target: float = 3e5,
+                  dataset: Optional[Dataset] = None) -> Dict[str, float]:
+        """Stage-0 mesh export -> <workspace>/mesh_stage0/mesh_0.ply, culled
+        against dataset's cameras under cfg.mesh_visibility_culling; returns
+        (and keeps in stats["mesh_seconds"]) the wall seconds of its
+        stages."""
+        from ..meshing.export import export_stage0_mesh
+        secs = export_stage0_mesh(
+            self, os.path.join(self.workspace, "mesh_stage0"),
+            resolution=resolution, decimate_target=int(decimate_target),
+            dataset=dataset)
+        self.stats["mesh_seconds"] = secs
+        return secs
+
+    def export_stage1(self, resolution: int = 4096) -> Dict[str, float]:
+        """The textured mesh for renderer.html -> <workspace>/mesh_stage1/;
+        returns (and keeps in stats["export_seconds"]) the wall seconds of
+        its stages."""
+        from ..meshing.export import export_stage1_package
+        self._require_stage1("export_stage1")
+        secs = export_stage1_package(
+            self, os.path.join(self.workspace, "mesh_stage1"),
+            h0=resolution, w0=resolution)
+        self.stats["export_seconds"] = secs
+        return secs
 
     # ------------------------------------------------------------ checkpoints
     def _ckpt_path(self, tag: str) -> str:
@@ -651,10 +1110,18 @@ class Trainer:
         return os.path.join(self.workspace, "checkpoints",
                             f"ngp_stage{self.cfg.stage}_{tag}.ckpt")
 
+    def _named_params(self) -> Dict[str, torch.Tensor]:
+        """The trained tensors by their JAX pytree names: the field's, and
+        vertices_offsets in stage 1."""
+        named = dict(self.params.named_parameters())
+        if self.vertices_offsets is not None:
+            named["vertices_offsets"] = self.vertices_offsets
+        return named
+
     def _payload(self) -> Dict[str, object]:
         """The JAX format-2 payload in plain dicts, lists and numpy arrays
         (see convert.read_jax_checkpoint), plus the torch generators."""
-        named = dict(self.params.named_parameters())
+        named = self._named_params()
         mu, nu, count = {}, {}, 0
         for k, p in named.items():
             st = self.optimizer.state.get(p)
@@ -677,14 +1144,20 @@ class Trainer:
             "step": self.step,
             "key": None,
         }
-        return {
+        payload = {
             "state": state, "num_rays": self.num_rays,
             "stage": self.cfg.stage, "stats": copy.deepcopy(self.stats),
             "format": 2, "framework": "torch", "net_spec": repr(self.net_spec),
             "rng": {"device": self.device.type,
                     "generator": self.generator.get_state().numpy(),
-                    "grid_generator": self.grid_generator.get_state().numpy()},
+                    "grid_generator": self.grid_generator.get_state().numpy(),
+                    "host_generator":
+                        self.host_generator.get_state().numpy()},
         }
+        if self._s1_real_shape is not None:
+            # the real (unpadded) topology: offsets transfer only to it
+            payload["s1_shape"] = tuple(self._s1_real_shape)
+        return payload
 
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
         """Write <workspace>/checkpoints/ngp_stage<s>_<tag>.ckpt (tag: the
@@ -734,15 +1207,19 @@ class Trainer:
                 clean = False
         return clean
 
-    def load_checkpoint(self, path: Optional[str] = None) -> bool:
+    def load_checkpoint(self, path: Optional[str] = None,
+                        stage: Optional[int] = None) -> bool:
         """Load a format-2 pickle checkpoint of the port or of the JAX
-        package (default: this stage's _latest); False if there is none.
-        Parameters, EMA and the density grid merge non-strictly (see
-        _merge); the optimizer, step and EMA count carry over only from a
-        clean checkpoint of the same stage, otherwise they restart."""
+        package (default: stage `stage`'s _latest, cfg.stage's unless
+        given); False if there is none.  Parameters, EMA and the density
+        grid merge non-strictly (see _merge); saved vertex offsets of
+        another stage-1 topology are dropped; the optimizer, step and EMA
+        count carry over only from a clean checkpoint of the same stage,
+        otherwise they restart."""
         if path is None:
+            stage = self.cfg.stage if stage is None else stage
             base = os.path.join(self.workspace, "checkpoints",
-                                f"ngp_stage{self.cfg.stage}_latest")
+                                f"ngp_stage{stage}_latest")
             path = base + ".ckpt"
             if not os.path.exists(path) and os.path.exists(base + ".ocp"):
                 path = base + ".ocp"
@@ -753,9 +1230,19 @@ class Trainer:
                 f"{path}: orbax checkpoints are not ported yet (ROADMAP A6)")
         payload = read_jax_checkpoint(path)
         st = payload["state"]
-        named = dict(self.params.named_parameters())
-        clean = self._merge(named, st["params"], "params")
-        clean = self._merge(self.ema_params, st["ema_params"], "ema") and clean
+        params, ema = st["params"], st["ema_params"]
+        ck_shape = payload.get("s1_shape")
+        if (ck_shape is not None and self._s1_real_shape is not None
+                and tuple(ck_shape) != tuple(self._s1_real_shape)):
+            self.log(f"[WARN] checkpoint stage-1 topology {tuple(ck_shape)} "
+                     f"!= current {tuple(self._s1_real_shape)}: dropping the "
+                     f"saved vertices_offsets (optimizer restarts)")
+            params = {k: v for k, v in params.items()
+                      if k != "vertices_offsets"}
+            ema = {k: v for k, v in ema.items() if k != "vertices_offsets"}
+        named = self._named_params()
+        clean = self._merge(named, params, "params")
+        clean = self._merge(self.ema_params, ema, "ema") and clean
         r = st["render"]
         if tuple(np.shape(r["density_grid"])) == tuple(
                 self.render.density_grid.shape):
@@ -774,6 +1261,9 @@ class Trainer:
                 self.generator.set_state(torch.from_numpy(rng["generator"]))
                 self.grid_generator.set_state(
                     torch.from_numpy(rng["grid_generator"]))
+            if rng is not None and "host_generator" in rng:
+                self.host_generator.set_state(
+                    torch.from_numpy(rng["host_generator"]))
         self.num_rays = int(payload.get("num_rays", self.cfg.num_rays))
         self.log(f"[INFO] loaded checkpoint {path} (step {self.step})")
         return True
@@ -790,4 +1280,9 @@ class Trainer:
                 "exp_avg": torch.tensor(np.asarray(mu[k]), device=p.device),
                 "exp_avg_sq": torch.tensor(np.asarray(nu[k]), device=p.device),
             }
-        self.lr_scheduler = make_lr_scheduler(self.cfg, self.optimizer, count)
+        if self.vertices_offsets is not None:
+            self.lr_scheduler = make_stage1_scheduler(
+                self.cfg, self.optimizer, count, self._vert_horizon)
+        else:
+            self.lr_scheduler = make_lr_scheduler(self.cfg, self.optimizer,
+                                                  count)

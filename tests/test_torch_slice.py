@@ -215,12 +215,14 @@ def test_port_training_loss_falls(tmp_path):
 
 def test_unported_options_raise():
     for kw in (dict(sdf=True), dict(bound=2.0), dict(patch_size=4),
-               dict(color_space="linear")):
+               dict(color_space="linear"),
+               dict(enable_offset_nerf_grad=True)):
         with pytest.raises(NotImplementedError):
             ttr.Trainer(tiny(TConfig, **kw), device="cpu")
     cfg = tiny(TConfig)
     ds = dataset_from_frames(cfg, render_synthetic_frames(**SCENE))
-    with pytest.raises(NotImplementedError):       # the stage-1 eval (A8)
+    # the stage-1 eval is ported; without a stage-1 mesh it says so
+    with pytest.raises(RuntimeError, match="setup_stage1"):
         ttr.Trainer(cfg, device="cpu").evaluate(ds, stage1=True)
 
 
