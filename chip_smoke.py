@@ -68,16 +68,38 @@ Phases, in order; any failure exits non-zero:
      falling, overflow 0, K2 and K3 launched by the stage-1 steps alone,
      the val PSNR after 128 steps not more than 0.1 dB below the one after
      64 (the gap to the field's stage-0 val PSNR printed, not gated); 8 more
-     steps profiled, the rasterizer's forward + backward timed against a
-     step; export_stage1 at texture 4096.  Wall seconds of the density
+     steps profiled; K2 and K3 held against their plain versions on the
+     arguments one more step gives them (4 shell layers); the rasterizer's
+     forward + backward timed against a step; export_stage1 at texture
+     4096.  Wall seconds of the density
      query, marching cubes, cull, clean + decimate, unwrap, bake, inpaint
      and the JPEGs; faces at each refine; peak memory.
+  9. sdf: bench.py's stage-0 configuration with sdf=True (NeuS): the
+     double-sphere pretrain (cut to SDF_PRETRAIN iterations), gated by
+     sdf(0) < 0 < sdf(0.9, 0, 0); 128 stage-0 steps (losses and eikonal
+     terms finite, the loss falls, K1-K3 launched by these steps alone;
+     ms/step, peak memory); the eval on the 4 val views (PSNR finite, ms
+     per frame); 8 steps profiled; K2 and K3 held against their plain
+     versions on the arguments one more step gives them (the pool's
+     points, and the FD normal's 6 taps of each as one call); save_mesh at
+     256^3 (not empty, at least half its vertices within 0.05 of the
+     analytic surface); a stage-1 Trainer under enable_offset_nerf_grad
+     trains 32 steps (losses finite, overflow 0, K2/K3 launched by its
+     steps, the offsets' last gradient finite and non-zero); on 32 more
+     crops the field query's share of the offsets' gradient, K2/K3 held
+     against plain at a crop's arguments, and on the crop of the largest
+     share the gradient with K2/K3 replaced by their plain versions (within
+     1e-3 relative L2 of the kernels') and with the barycentrics detached;
+     export_stage1 at 1024.
+The kernels' "max_abs_err" is the largest over phase 3 and the holds at
+phases 8's and 9's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
 phase 4 is 0; "stage1_launches": the stage-1 training's, phase 8 for K2
-and K3, phase 7 for K4 and K4b), the last line the device record.  Imports only
-the port, torch, numpy and the standard library.
+and K3, phase 7 for K4 and K4b; "sdf_launches" and "sdf_stage1_launches":
+phase 9's stage-0 and stage-1 training's), the last line the device
+record.  Imports only the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -110,6 +132,11 @@ CLI_TEXTURE = 1024         # phase 7's texture side (phase 8: 4096)
 S1_STEPS = 128             # phase 8
 MESH_FIELD_STEPS = 256     # phase 8: the phase-4 field trains on first
 PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
+SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
+SDF_STEPS = 128            # phase 9's stage-0 steps
+SDF_MCUBES = 256           # phase 9's marching grid
+SDF_S1_STEPS = 32          # phase 9's stage-1 steps
+SDF_SHARE_CROPS = 32       # phase 9's crops for the field's gradient share
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -1312,7 +1339,8 @@ def raster_share(trainer, ds, steps):
 def phase_stage1(dev, field, ds, val):
     """Phase 8: the phase-4 field's mesh at the default 512^3 with
     visibility culling, then stage 1 at bench width with -O's stage-1
-    recipe; returns the stage-1 training's launch counts."""
+    recipe; returns the stage-1 training's launch counts and K2's and K3's
+    largest |err| against plain at a stage-1 step's shapes."""
     from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.meshing.io import read_ply
     from nerf2mesh_tpu_torch.utils.trainer import Trainer
@@ -1393,6 +1421,10 @@ def phase_stage1(dev, field, ds, val):
                                 for _ in range(PROFILE_STEPS)],
                        f"stage-1 steps {S1_STEPS}-{S1_STEPS + PROFILE_STEPS}",
                        per=PROFILE_STEPS)
+        calls = []
+        with inwin_calls(calls):        # K2/K3 at one step's 4 shell layers
+            t1.stage1_step(images, poses, mvps, intr)
+        errs = hold_inwin(calls, "stage-1 step")
         ms_r, ms_s, spec = raster_share(t1, ds, PROFILE_STEPS)
         log(f"[stage1] rasterize_crop forward+backward {ms_r:.2f} ms of a "
             f"{ms_s:.2f} ms step ({ms_r / ms_s:.1%}; CUDA events, mean of "
@@ -1407,7 +1439,294 @@ def phase_stage1(dev, field, ds, val):
         log(f"[stage1] export_stage1(4096) in {t_exp:.1f} s: seconds {esecs};"
             f" textures {shapes}; mesh v={len(v)} f={len(f)}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        return launches
+        return launches, errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# phase 9: SDF mode (NeuS) at bench width
+# --------------------------------------------------------------------------
+
+def sdf_window(trainer, ds, steps):
+    """`steps` SDF training steps, each loss and eikonal term fetched;
+    returns (losses, eikonal terms, ms/step, launches of the run alone,
+    peak GiB)."""
+    from nerf2mesh_tpu_torch import kernels
+    losses, eiks = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = trainer.train_steps(ds, 1)
+        losses.append(m["loss"])
+        eiks.append(m["eikonal"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return ([float(v) for v in losses], [float(v) for v in eiks], ms,
+            launches, peak)
+
+
+@contextlib.contextmanager
+def inwin_calls(calls=None, plain=False):
+    """Within: K2's and K3's wrappers append each call's arguments to
+    `calls` (if given) as (name, args), the tensors copied (the optimizer
+    updates the table in place after the forward); with plain=True they
+    compute with their plain versions instead of launching."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    real = {"inwin_fwd": se.inwin_fwd, "inwin_bwd": se.inwin_bwd}
+    use = ({"inwin_fwd": se.inwin_fwd_plain, "inwin_bwd": se.inwin_bwd_plain}
+           if plain else real)
+
+    def wrap(name):
+        def call(*args):
+            if calls is not None:
+                calls.append((name, tuple(a.detach().clone()
+                                          if torch.is_tensor(a) else a
+                                          for a in args)))
+            return use[name](*args)
+        return call
+
+    for name in real:
+        setattr(se, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(se, name, fn)
+
+
+def hold_inwin(calls, label):
+    """K2 and K3 against their plain versions on the arguments a path gave
+    them (`calls` from inwin_calls): K2 within TOL, K3 by atomic_tol_margin.
+    Fails if either was not called.  Returns {name: max |err|}."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    errs = {}
+    for name, args in calls:
+        g_or_table, x, levels = args[0], args[1], args[5]
+        if name == "inwin_fwd":
+            err = float((se.inwin_fwd(*args) - se.inwin_fwd_plain(*args))
+                        .abs().max())
+            bad = not err <= TOL[name][0]
+        else:
+            err = float((se.inwin_bwd(*args) - se.inwin_bwd_plain(*args))
+                        .abs().max())
+            bad = atomic_tol_margin(se.inwin_bwd, se.inwin_bwd_plain,
+                                    g_or_table, args[1:]) < 0
+        most = int(torch.unique(x, dim=0, return_counts=True)[1].max())
+        log(f"[kernels] {label}: {name} on the path's {x.shape[0]} points "
+            f"(at most {most} at one position), levels {levels[0]}-"
+            f"{levels[-1]}: max|err| {err:.3e}")
+        if bad:
+            raise AssertionError(f"{label}: {name} disagrees with its plain "
+                                 f"version: {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+    for name in ("inwin_fwd", "inwin_bwd"):
+        if name not in errs:
+            raise AssertionError(f"{label}: {name} was not called")
+    return errs
+
+
+@contextlib.contextmanager
+def bary_detached():
+    """Within: stage 1's interpolated surface points take no gradient
+    through the barycentrics' dependence on the vertex positions (only
+    through the interpolation weights times the vertices)."""
+    from nerf2mesh_tpu_torch.models import stage1
+    real = stage1.interpolate
+    stage1.interpolate = lambda attrs, rast, tris: real(
+        attrs, dict(rast, bary=rast["bary"].detach()), tris)
+    try:
+        yield
+    finally:
+        stage1.interpolate = real
+
+
+def offsets_field_share(t1, ds, crops=SDF_SHARE_CROPS):
+    """The field query's share of the offsets' gradient over `crops`
+    stage-1 draws (no optimizer step): per draw |field| / |g(with)|, field =
+    g(with) - g(without enable_offset_nerf_grad).  On the draw of the
+    largest share, two witnesses: the same passes with K2/K3 replaced by
+    their plain versions (the gradients must agree within 1e-3 relative L2)
+    and with the barycentrics detached (bary_detached).  K2/K3 are held
+    against plain at the first draw's arguments.  Returns (shares, the
+    witnesses' record, {kernel: max |err|})."""
+    images, poses, intr = t1._prep_train_arrays(ds)
+    mvps = torch.from_numpy(np.asarray(ds.mvps, np.float32)).to(t1.device)
+    B, H, W, _ = images.shape
+    cfg = t1.cfg
+
+    def grad(draws, flag, calls=None, plain=False, bary=True):
+        t1.cfg = dataclasses.replace(cfg, enable_offset_nerf_grad=flag)
+        t1.optimizer.zero_grad(set_to_none=True)
+        with inwin_calls(calls, plain), (contextlib.nullcontext() if bary
+                                         else bary_detached()):
+            loss, _, _, _ = t1._stage1_crop_loss(images, poses, mvps, intr,
+                                                 draws)
+            loss.backward()
+        return t1.vertices_offsets.grad.detach().clone()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    calls, runs = [], []
+    try:
+        for i in range(crops):
+            draws = t1.stage1_draw(B, H, W)
+            g_with = grad(draws, True, calls if i == 0 else None)
+            g_without = grad(draws, False)
+            runs.append((float((g_with - g_without).norm() / g_with.norm()),
+                         draws, g_with, g_without))
+        share, draws, g_with, g_without = max(runs, key=lambda r: r[0])
+        field = g_with - g_without
+        p_with, p_without = grad(draws, True, plain=True), grad(
+            draws, False, plain=True)
+        p_field = p_with - p_without
+        nb_field = grad(draws, True, bary=False) - g_without
+        errs = hold_inwin(calls, "sdf stage 1 (one crop)")
+    finally:
+        t1.cfg = cfg
+        t1.optimizer.zero_grad(set_to_none=True)
+    witness = dict(
+        share=share, plain_share=float(p_field.norm() / p_with.norm()),
+        plain_rel=rel(p_with, g_with), plain_field_rel=rel(p_field, field),
+        detached_share=float(nb_field.norm() / (g_without + nb_field).norm()),
+        field_max=float(field.abs().max()),
+        detached_field_max=float(nb_field.abs().max()),
+        rest_max=float(g_without.abs().max()))
+    if not (witness["plain_rel"] <= 1e-3 and witness["plain_field_rel"] <= 1e-3):
+        raise AssertionError(f"stage-1 offsets' gradient with the plain "
+                             f"encode differs from the kernels': {witness}")
+    return [r[0] for r in runs], witness, errs
+
+
+def phase_sdf(dev):
+    """Phase 9: SDF mode at bench width: pretrain, stage 0, eval, profile,
+    the SDF mesh, stage 1 under enable_offset_nerf_grad and its export;
+    returns the stage-0 training's launch counts, with the stage-1
+    training's under "stage1_<kernel>", and K2's and K3's largest |err|
+    against plain at this phase's shapes."""
+    from nerf2mesh_tpu_torch.models.network import density
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_sdf_")
+    try:
+        cfg = bench_config(sdf=True)
+        ds, val = scene(cfg)
+        trainer = Trainer(cfg, device=dev, workspace=tmp)
+        t0 = time.perf_counter()
+        loss = trainer.sdf_pretrain(iters=SDF_PRETRAIN)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        with torch.no_grad():
+            s = density(trainer.params, torch.tensor(
+                [[0.0, 0.0, 0.0], [0.9, 0.0, 0.0]], device=dev),
+                trainer.net_spec).tolist()
+        log(f"[sdf] pretrain {SDF_PRETRAIN} iterations (cut from 2000) of "
+            f"8192 points in {t_pre:.1f} s, last loss {loss:.6f}; sdf(0) "
+            f"{s[0]:.4f}, sdf(0.9, 0, 0) {s[1]:.4f}")
+        if not s[0] < 0 < s[1]:
+            raise AssertionError(f"pretrain: sdf(0) {s[0]}, sdf(0.9) {s[1]}")
+
+        trainer.mark_untrained(ds)
+        losses, eiks, ms_step, launches, peak = sdf_window(
+            trainer, ds, SDF_STEPS)
+        log(f"[sdf] {SDF_STEPS} steps: {ms_step:.2f} ms/step (every step's "
+            f"loss fetched); losses first {np.round(losses[:4], 5).tolist()} "
+            f"last {np.round(losses[-4:], 5).tolist()}; eikonal first "
+            f"{np.round(eiks[:2], 5).tolist()} last "
+            f"{np.round(eiks[-2:], 5).tolist()}; peak memory {peak:.2f} GiB;"
+            f" launches {launches}; rays {trainer.num_rays}")
+        if not all(math.isfinite(v) for v in losses + eiks):
+            raise AssertionError(f"non-finite SDF loss: {losses} {eiks}")
+        first, last8 = np.mean(losses[:8]), np.mean(losses[-8:])
+        if not last8 < first:
+            raise AssertionError(f"SDF loss did not fall: first-8 mean "
+                                 f"{first}, last-8 mean {last8}")
+        for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} was not launched by SDF training")
+
+        psnr, ms_frame, _ = run_eval(trainer, val, "sdf",
+                                     ("occ_lookup", "inwin_fwd"))
+        log(f"[sdf] eval PSNR {psnr:.4f}, {ms_frame:.1f} ms/frame")
+        profile_region(lambda: trainer.train_steps(ds, PROFILE_STEPS),
+                       f"sdf steps {SDF_STEPS}-{SDF_STEPS + PROFILE_STEPS}",
+                       per=PROFILE_STEPS)
+        # K2/K3 at one more step's shapes: the pool's points and the FD
+        # normal's 6 taps of each (one call of 6N points)
+        calls = []
+        with inwin_calls(calls):
+            trainer.train_steps(ds, 1)
+        errs = hold_inwin(calls, "sdf step")
+
+        trainer.save_checkpoint()
+        t0 = time.perf_counter()
+        secs = trainer.save_mesh(resolution=SDF_MCUBES, decimate_target=3e5)
+        t_mesh = time.perf_counter() - t0
+        nv, nf, share = surface_share(
+            os.path.join(tmp, "mesh_stage0", "mesh_0.ply"), cfg.scale)
+        log(f"[sdf] save_mesh {SDF_MCUBES}^3 in {t_mesh:.1f} s: v={nv} "
+            f"f={nf}, surface share {share:.3f} (within 0.05); seconds "
+            f"{secs}")
+        if nf == 0 or share < 0.5:
+            raise AssertionError(f"SDF mesh: {nf} faces, share {share}")
+
+        cfg1 = bench_config(sdf=True, stage=1, iters=SDF_S1_STEPS, n_eval=1,
+                            n_ckpt=1)
+        t1 = Trainer(cfg1, device=dev, workspace=tmp)
+        t1.setup_stage1(ds)
+        if not t1.load_checkpoint(stage=0):
+            raise AssertionError("no stage-0 checkpoint")
+        s1_launches = {}
+        real = counting(Trainer, "stage1_step", s1_launches)
+        try:
+            t0 = time.perf_counter()
+            t1.train_stage1(ds)
+            torch.cuda.synchronize()
+            t_s1 = time.perf_counter() - t0
+        finally:
+            Trainer.stage1_step = real
+        g = t1.vertices_offsets.grad
+        tl = t1.train_log
+        losses1 = [e["loss"] for e in tl]
+        g_ok = bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        shares, wit, errs1 = offsets_field_share(t1, ds)
+        log(f"[sdf] stage 1 (enable_offset_nerf_grad, shell "
+            f"{cfg1.s1_shell}, stochastic {cfg1.s1_stochastic}) "
+            f"{SDF_S1_STEPS} steps in {t_s1:.1f} s ("
+            f"{t_s1 / SDF_S1_STEPS * 1e3:.1f} ms a step, the checkpoint "
+            f"included): log {tl}; offsets' last "
+            f"gradient |g|max {float(g.abs().max()):.3e}, finite "
+            f"{bool(torch.isfinite(g).all())}; the field query's share of "
+            f"the offsets' gradient over {len(shares)} crops "
+            f"{np.round(shares, 4).tolist()} (median "
+            f"{np.median(shares):.4f}); on the crop of the largest: "
+            f"{ {k: float(f'{v:.4g}') for k, v in wit.items()} } (plain_*: "
+            f"K2/K3 replaced by their plain versions; detached_*: the "
+            f"barycentrics detached); launches {s1_launches}")
+        if not all(math.isfinite(v) for v in losses1):
+            raise AssertionError(f"non-finite SDF stage-1 loss: {losses1}")
+        if any(e["overflow"] for e in tl):
+            raise AssertionError(f"raster overflow: {tl}")
+        if not g_ok:
+            raise AssertionError("the offsets' gradient is zero or not "
+                                 "finite")
+        for k in ("inwin_fwd", "inwin_bwd"):
+            if s1_launches.get(k, 0) <= 0:
+                raise AssertionError(f"{k} was not launched by SDF stage 1")
+        t0 = time.perf_counter()
+        esecs = t1.export_stage1(resolution=CLI_TEXTURE)
+        shapes = check_stage1_package(os.path.join(tmp, "mesh_stage1"),
+                                      False)
+        log(f"[sdf] export_stage1({CLI_TEXTURE}) in "
+            f"{time.perf_counter() - t0:.1f} s: seconds {esecs}; textures "
+            f"{shapes}")
+        launches.update({"stage1_" + k: v for k, v in s1_launches.items()})
+        return launches, {k: max(errs[k], errs1[k]) for k in errs}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1425,17 +1744,25 @@ def main() -> int:
     ws_launches = phase_winsort(dev)
     with no_pillow():
         cli_launches = phase_cli(dev)
-        s1_launches = phase_stage1(dev, field, ds, val)
+        s1_launches, s1_errs = phase_stage1(dev, field, ds, val)
+    del field
+    sdf_launches, sdf_errs = phase_sdf(dev)
     for r in results:
+        # the largest error over phase 3 and the paths' own shapes
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            e[r["name"]] for e in (s1_errs, sdf_errs) if r["name"] in e])
         path = (ws_launches if r["name"].startswith("winsort") else
                 cli_launches if r["name"].startswith("sweep") else launches)
         r["launches"] = path[r["name"]]
         r["stage1_launches"] = (cli_launches["stage1_" + r["name"]]
                                 if r["name"].startswith("sweep") else
                                 s1_launches.get(r["name"], 0))
+        r["sdf_launches"] = sdf_launches.get(r["name"], 0)
+        r["sdf_stage1_launches"] = sdf_launches.get("stage1_" + r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
-            "stage1_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "stage1_launches", "sdf_launches", "sdf_stage1_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,11 +2,12 @@
 
 Usage:  python -m nerf2mesh_tpu_torch.main <blender dir> [flags of config.py]
 
-Runs on the first CUDA card.  Stage 0: --ckpt latest|scratch|<path>, then
-either --test (test eval with PSNR, SSIM and LPIPS, the test video, and the
-mesh unless --test_no_mesh) or training with validation evals, the final
-val and test evals, the video, the sharpen phase (under -O or
---sharpen_steps) and its checkpoint, and the mesh export to
+Runs on the first CUDA card.  Stage 0: --ckpt latest|scratch|<path> (under
+--sdf, scratch first fits the SDF to a double sphere), then either --test
+(test eval with PSNR, SSIM and LPIPS, the test video, and the mesh unless
+--test_no_mesh) or training with validation evals, the final val and test
+evals, the video, the sharpen phase (under -O or --sharpen_steps; never
+under --sdf) and its checkpoint, and the mesh export to
 <workspace>/mesh_stage0/mesh_0.ply (culled against the training views under
 --mesh_visibility_culling).  Stage 1 (--stage 1): loads that mesh and the
 checkpoint (--ckpt latest falls back to the stage-0 one), trains the vertex
@@ -17,8 +18,9 @@ non-zero when there is no card; from Python, ``main(argv, device="cpu")``
 runs on the CPU.
 
 Not ported yet (NotImplementedError naming the ROADMAP item, raised before
-any work): SDF (A5), the colmap/dtu providers, bound > 1 and more than one
-device (A7); --vis_pose (A7) raises once the datasets are loaded.
+any work): the colmap/dtu providers, bound > 1 and more than one device
+(A7), the trainer's A6 options; --vis_pose (A7) raises once the datasets
+are loaded.
 """
 
 from __future__ import annotations
@@ -68,7 +70,10 @@ def main(argv: Optional[List[str]] = None, device=None):
     if cfg.ckpt == "latest":
         if not trainer.load_checkpoint() and cfg.stage == 1:
             trainer.load_checkpoint(stage=0)
-    elif cfg.ckpt != "scratch" and cfg.ckpt:
+    elif cfg.ckpt == "scratch":
+        if cfg.sdf and cfg.stage == 0:
+            trainer.sdf_pretrain()
+    elif cfg.ckpt:
         trainer.load_checkpoint(cfg.ckpt)
 
     if cfg.test:
@@ -107,7 +112,7 @@ def main(argv: Optional[List[str]] = None, device=None):
     if not cfg.test_no_video:
         trainer.test_video(test_ds)
 
-    if cfg.stage == 0 and cfg.sharpen_steps > 0:
+    if cfg.stage == 0 and cfg.sharpen_steps > 0 and not cfg.sdf:
         # mesh-preparation sharpening after the quality evals and before the
         # export (Config.sharpen_steps)
         trainer.log(f"[INFO] sharpen phase: +{cfg.sharpen_steps} steps @ "

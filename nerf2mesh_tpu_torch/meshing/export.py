@@ -2,10 +2,10 @@
 
 ``export_stage0_mesh``: chunked density query of the live field on the
 marching grid, masked by the trained density grid -> marching tetrahedra
-(host) -> visibility culling against the training cameras (the rasterizer's
-triangle ids per view) -> clean -> decimate -> mesh_0.ply.  The outer
-cascades of bound > 1 scenes are not ported (check_supported refuses them,
-ROADMAP A7).  A failure of any step, the cull included, fails the export.
+(host; in SDF mode the SDF's zero level, unmasked) -> visibility culling
+against the training cameras (the rasterizer's triangle ids per view) ->
+clean -> decimate -> mesh_0.ply.  The outer cascades of bound > 1 scenes
+are not ported (check_supported refuses them, ROADMAP A7).  A failure of any step, the cull included, fails the export.
 
 ``export_stage1_package``: per cascade, unwrap UVs, bake the diffuse and
 specular-feature textures by rasterizing in UV space and querying the
@@ -128,17 +128,21 @@ def export_stage0_mesh(trainer, out_dir: str, resolution: int = 512,
     secs["density"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    # mask untrained/unoccupied space by the density grid, dilated by one
-    # cell (a surface crossing an unoccupied cell would punch a hole)
-    grid = trainer.render.density_grid[0].cpu().numpy()
-    keep = grid > density_thresh
-    d = keep.copy()
-    for ax in (0, 1, 2):
-        d |= np.roll(keep, 1, ax) | np.roll(keep, -1, ax)
-    reps = int(np.ceil(resolution / grid.shape[0]))
-    mask = np.repeat(np.repeat(np.repeat(d, reps, 0), reps, 1), reps,
-                     2)[:resolution, :resolution, :resolution]
-    verts, tris = marching_cubes(sigmas * mask, density_thresh)
+    if cfg.sdf:
+        verts, tris = marching_cubes(-sigmas, 0.0)
+    else:
+        # mask untrained/unoccupied space by the density grid, dilated by
+        # one cell (a surface crossing an unoccupied cell would punch a
+        # hole)
+        grid = trainer.render.density_grid[0].cpu().numpy()
+        keep = grid > density_thresh
+        d = keep.copy()
+        for ax in (0, 1, 2):
+            d |= np.roll(keep, 1, ax) | np.roll(keep, -1, ax)
+        reps = int(np.ceil(resolution / grid.shape[0]))
+        mask = np.repeat(np.repeat(np.repeat(d, reps, 0), reps, 1), reps,
+                         2)[:resolution, :resolution, :resolution]
+        verts, tris = marching_cubes(sigmas * mask, density_thresh)
     verts = verts / (resolution - 1.0) * 2 - 1
     secs["mcubes"] = time.perf_counter() - t0
     n_mc = len(tris)

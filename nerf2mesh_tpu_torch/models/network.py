@@ -17,8 +17,9 @@ table the plain ``hashgrid_encode``.  Parameters keep the JAX pytree layout:
 ``table`` [total, 3] and ``*_net.<layer>.w`` [in, out] (utils/convert.py
 maps between the two).
 
-Not ported yet (NotImplementedError): SDF mode, per-image codes, separate
-tables (ROADMAP queue A).
+SDF mode adds the central-difference normal (``finite_diff_normal``) and
+the double-sphere pretraining loss (``sdf_pretrain_loss``).  Not ported
+yet (NotImplementedError): per-image codes, separate tables (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -74,8 +75,6 @@ class NetworkSpec:
 
 
 def check_supported(spec: NetworkSpec) -> None:
-    if spec.sdf:
-        raise NotImplementedError("SDF mode is not ported yet (ROADMAP A5)")
     if spec.ind_dim > 0:
         raise NotImplementedError(
             "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A6)")
@@ -95,6 +94,8 @@ class NeRFField(nn.Module):
         self.sigma_net = MLP(3 + L, 1, 32, 2, generator)
         self.color_net = MLP(3 + 2 * L, 3 + sd, 64, 3, generator)
         self.specular_net = MLP(sd + 3, 3, 32, 2, generator)
+        if spec.sdf:
+            self.variance = nn.Parameter(torch.tensor(0.3))
 
 
 def _mask_levels(h, max_level, gspec: HashGridSpec):
@@ -138,6 +139,8 @@ def encode_fields(params: NeRFField, x01: torch.Tensor, spec: NetworkSpec,
 def _density_from_feat(params: NeRFField, x, hd, spec: NetworkSpec):
     h = params.sigma_net(torch.cat([x.float(), hd], dim=-1),
                          spec.compute_dtype)
+    if spec.sdf:
+        return h[..., 0]
     return trunc_exp(h[..., 0])
 
 
@@ -149,7 +152,8 @@ def _geo_feat_from_feat(params: NeRFField, x, hc, spec: NetworkSpec):
 
 def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
             max_level: Optional[int] = None) -> torch.Tensor:
-    """sigma (after trunc_exp). x: [N, 3] in [-bound, bound]."""
+    """sigma (after trunc_exp), or the raw SDF value in SDF mode.  x: [N, 3]
+    in [-bound, bound]."""
     b = spec.bound
     if not splat_supported(spec.density_grid_spec):
         hd, _, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level)
@@ -235,3 +239,36 @@ def rgb_train(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
     if full_flag:
         return (diffuse + specular).clamp(0.0, 1.0), specular
     return diffuse, torch.zeros_like(specular)
+
+
+_FD_SIGNS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+             (0, 0, -1))
+
+
+def finite_diff_normal(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
+                       epsilon: float = 1e-4,
+                       max_level: Optional[int] = None) -> torch.Tensor:
+    """Central-difference gradient of the SDF [N, 3] (JAX
+    network.finite_diff_normal): the 6 taps x +- epsilon along each axis,
+    clipped to the bound, go through ONE density call of 6N points, so the
+    splat path sorts them once."""
+    b = spec.bound
+    offsets = torch.tensor(_FD_SIGNS, dtype=torch.float32,
+                           device=x.device) * epsilon
+    xs = (x[None, :, :] + offsets[:, None, :]).clamp(-b, b)      # [6, N, 3]
+    vals = density(params, xs.reshape(-1, 3), spec, max_level).reshape(6, -1)
+    return torch.stack([0.5 * (vals[0] - vals[1]) / epsilon,
+                        0.5 * (vals[2] - vals[3]) / epsilon,
+                        0.5 * (vals[4] - vals[5]) / epsilon], dim=-1)
+
+
+def sdf_pretrain_loss(params: NeRFField, xyzs: torch.Tensor,
+                      spec: NetworkSpec, r1: float = 0.5,
+                      r2: float = 1.5) -> torch.Tensor:
+    """Double-sphere SDF target at the points xyzs [N, 3] (JAX
+    network.sdf_pretrain_loss, which draws them itself): the distance to
+    the nearer of the spheres of radius r1 (inside) and r2 (outside), mean
+    squared error."""
+    d = torch.linalg.norm(xyzs, dim=-1)
+    gt = torch.where(d < (r1 + r2) / 2, d - r1, r2 - d)
+    return ((density(params, xyzs, spec) - gt) ** 2).mean()

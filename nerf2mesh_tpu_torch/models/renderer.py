@@ -3,8 +3,10 @@
 Occupancy-grid state, the EMA-max density-grid update (one of 8 x-slabs per
 call, round-robin), ``mark_untrained_grid`` (numpy), the training render
 ``render_train`` with valid-sample pool compaction, and the early-exit eval
-march (``render_eval_segment``, ``render_frame_queue``).  SDF/NeuS alpha,
-cascades and the trainable density grid are not ported yet (ROADMAP queue A).
+march (``render_eval_segment``, ``render_frame_queue``).  In SDF mode the
+field's raw SDF becomes a NeuS alpha (``neus_alpha_from_sdf``) from the
+finite-difference normal.  Cascades and the trainable density grid are not
+ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from ..data.rays import safe_normalize
 from ..ops.composite import composite_rays
 from ..ops.sampling import near_far_from_aabb, occupied_length, sample_rays
-from .network import NeRFField, NetworkSpec, density, field_forward
+from .network import (NeRFField, NetworkSpec, density, field_forward,
+                      finite_diff_normal)
 
 
 @dataclass(frozen=True)
@@ -48,8 +51,6 @@ class RenderSpec:
 
 
 def check_supported(spec: RenderSpec) -> None:
-    if spec.sdf:
-        raise NotImplementedError("SDF rendering is not ported yet (ROADMAP A5)")
     if spec.contract or spec.cascades > 1:
         raise NotImplementedError(
             "cascades / contracted scenes are not ported yet (ROADMAP A7)")
@@ -118,6 +119,9 @@ def _update_density_slab(params: NeRFField, state: RenderState,
         half = bound / H
         pts = xyzs01 * (bound - half)
         sig = density(params, pts + noise[cas], net_spec, max_level)
+        if spec.sdf:
+            inv_s = sdf_inv_s(params)
+            sig = torch.sigmoid(-sig * inv_s) * inv_s
         tmp.append(sig.reshape(sh, H, H))
     tmp_slab = torch.stack(tmp, dim=0)                      # [CAS, HX, H, H]
 
@@ -202,6 +206,34 @@ def mark_untrained_grid(state: RenderState, poses: np.ndarray, intrinsics,
         state.density_grid.device))
 
 
+def sdf_inv_s(params: NeRFField) -> torch.Tensor:
+    """The NeuS sharpness 1/s = exp(10 * variance), clipped to [1e-6, 1e6]."""
+    return torch.exp(params.variance * 10.0).clamp(1e-6, 1e6)
+
+
+def neus_alpha_from_sdf(sdf, normal, dirs, dts, inv_s, cos_anneal_ratio):
+    """NeuS conversion of an SDF sample and its unit normal to an alpha
+    (JAX renderer.neus_alpha_from_sdf): the SDF estimated half a step
+    before and after the sample along the ray, through the logistic CDF."""
+    true_cos = (dirs * normal).sum(dim=-1)
+    iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+                 + torch.relu(-true_cos) * cos_anneal_ratio)
+    est_prev = sdf - iter_cos * dts * 0.5
+    est_next = sdf + iter_cos * dts * 0.5
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    return ((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)).clamp(0.0, 1.0)
+
+
+def _sdf_alpha(params, x, sdf, dirs, dts, net_spec, epsilon, max_level,
+               cos_anneal_ratio):
+    """(NeuS alpha, raw FD normal) of the SDF samples sdf at x."""
+    raw_normal = finite_diff_normal(params, x, net_spec, epsilon, max_level)
+    alpha = neus_alpha_from_sdf(sdf, safe_normalize(raw_normal), dirs, dts,
+                                sdf_inv_s(params), cos_anneal_ratio)
+    return alpha, raw_normal
+
+
 def compact_ids(flat_valid: torch.Tensor, P: int) -> torch.Tensor:
     """First P indices of the True entries of flat_valid [M], padded with M
     (an out-of-range id that writes nowhere) - ``jnp.nonzero(size=P,
@@ -236,13 +268,18 @@ def render_train(
     max_level: Optional[int] = None,
     aabb: Optional[torch.Tensor] = None,
     pool_size: Optional[int] = None,
+    cos_anneal_ratio: float = 1.0,
+    normal_epsilon: float = 1e-4,
 ) -> Dict[str, torch.Tensor]:
     """One training-mode volumetric render (reference renderer.py:676-748).
 
     pool_size: valid samples are compacted into a pool of that size before
     the field evaluation, so the field costs O(pool) instead of
     O(rays * samples).  Rays whose valid samples did not fit leave the loss
-    (`ray_kept`); `pool_overflow` counts the clipped samples."""
+    (`ray_kept`); `pool_overflow` counts the clipped samples.  In SDF mode
+    the samples' alpha is NeuS's from the FD normal at normal_epsilon, and
+    `normal` holds the raw normals of the evaluated points (zero at the
+    out-of-pool slots, whose taps all clip to one corner)."""
     check_supported(spec)
     N = rays_o.shape[0]
     if aabb is None:
@@ -263,6 +300,10 @@ def render_train(
         dirs_flat = dirs[:, None, :].expand(N, K, 3).reshape(N * K, 3)
         sigmas, rgbs, speculars, enc_cnt = field_forward(
             params, pts, dirs_flat, net_spec, full_flag, max_level)
+        if spec.sdf:
+            sigmas, normal = _sdf_alpha(
+                params, pts, sigmas, dirs_flat, m.dts.reshape(-1), net_spec,
+                normal_epsilon, max_level, cos_anneal_ratio)
         sig_nk, rgb_nk = sigmas.reshape(N, K), rgbs.reshape(N, K, 3)
         pp_xyz, pp_valid, pp_spec = pts, m.valid.reshape(-1), speculars
         ray_kept = torch.ones((N,), dtype=torch.bool, device=rays_o.device)
@@ -279,6 +320,10 @@ def render_train(
 
         sigmas_p, rgbs_p, spec_p, enc_cnt = field_forward(
             params, x_pool, d_pool, net_spec, full_flag, max_level)
+        if spec.sdf:
+            sigmas_p, normal = _sdf_alpha(
+                params, x_pool, sigmas_p, d_pool, m.dts.reshape(-1)[ids_c],
+                net_spec, normal_epsilon, max_level, cos_anneal_ratio)
         sigmas_p = torch.where(in_pool, sigmas_p, 0.0)
         rgbs_p = torch.where(in_pool[:, None], rgbs_p, 0.0)
         sig_nk = _scatter_pool(sigmas_p, ids, N * K).reshape(N, K)
@@ -293,7 +338,7 @@ def render_train(
     out = composite_rays(sig_nk, rgb_nk, m.ts, m.dts, m.valid,
                          T_thresh=spec.T_thresh, alpha_mode=spec.sdf)
     image = out["image"] + (1.0 - out["weights_sum"][:, None]) * bg_color
-    return dict(
+    results = dict(
         image=image,
         depth=out["depth"],
         weights_sum=out["weights_sum"],
@@ -307,6 +352,9 @@ def render_train(
         speculars=pp_spec,
         encode_resid=enc_cnt,
     )
+    if spec.sdf:
+        results["normal"] = normal
+    return results
 
 
 @torch.no_grad()
@@ -329,7 +377,9 @@ def render_eval_segment(
     Places spec.num_fine samples at the fixed spacing sample_dt from
     `nears`, composites them with transmittance starting at 1, and reports
     where the march stopped (`t_exit`).  The caller accumulates across
-    segments and drops finished rays.  No background here.
+    segments and drops finished rays.  No background here.  In SDF mode
+    the alpha is NeuS's with the FD normal at epsilon 1e-4 and the cos
+    anneal ratio 1 (7 encodes a sample).
 
     Only the valid samples go through the field: an exact compaction to
     their count (one host sync).  The JAX package's fixed-size pool with a
@@ -347,9 +397,13 @@ def render_eval_segment(
     rgb = torch.zeros((N * K, 3), device=rays_o.device)
     if ids.numel():
         dirs = safe_normalize(rays_d)
-        sig_v, rgb_v, _, _ = field_forward(
-            params, m.xyzs.reshape(N * K, 3)[ids], dirs[ids // K], net_spec,
-            shading != "diffuse")
+        x_v, d_v = m.xyzs.reshape(N * K, 3)[ids], dirs[ids // K]
+        sig_v, rgb_v, _, _ = field_forward(params, x_v, d_v, net_spec,
+                                           shading != "diffuse")
+        if spec.sdf:
+            sig_v, _ = _sdf_alpha(params, x_v, sig_v, d_v,
+                                  m.dts.reshape(-1)[ids], net_spec, 1e-4,
+                                  None, 1.0)
         sig[ids] = sig_v
         rgb[ids] = rgb_v
     out = composite_rays(sig.reshape(N, K), rgb.reshape(N, K, 3), m.ts, m.dts,

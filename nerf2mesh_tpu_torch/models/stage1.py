@@ -255,11 +255,10 @@ def render_stage1_crop(
     resolution) and average-pooled; trig_id stays at the raster resolution.
     shell_k > 1 composites shell_k field samples along the view ray in a
     shell_h-wide shell around the surface, one field pass per layer, with
-    the field's transmittance weights detached."""
-    if enable_offset_nerf_grad:
-        raise NotImplementedError(
-            "enable_offset_nerf_grad (the SDF path's vertex gradient through "
-            "the field) is not ported yet (ROADMAP A5)")
+    the field's transmittance weights detached.  enable_offset_nerf_grad
+    keeps the surface points in the graph, so the offsets also take the
+    gradient of the field query (on the splat path only through the MLPs'
+    raw x input: the encode detaches its positions, as JAX's does)."""
     Cp = raster_spec.crop
     s = max(int(ssaa), 1)
     if s > 1:
@@ -280,7 +279,8 @@ def render_stage1_crop(
     xyzs = interpolate(verts, rast, mesh_f)                     # [Cs, Cs, 3]
     if contracted:
         xyzs = contract(xyzs)
-    xyzs = xyzs.detach()
+    if not enable_offset_nerf_grad:
+        xyzs = xyzs.detach()
 
     d = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
     flat_x = xyzs.reshape(-1, 3)

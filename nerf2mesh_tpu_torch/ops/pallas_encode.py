@@ -185,7 +185,8 @@ def sweep_bwd_plain(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor,
 def _sweep_dx(table, x01, g3, spec, idx, per_dim, oob):
     """dx [N, 3]: scale_l times the corner values against the derivative of
     the trilinear weights, zero for out-of-bounds points (plain PyTorch on
-    every device: no ported path needs it yet)."""
+    every device: only stage 1's offset gradient under
+    enable_offset_nerf_grad asks for it)."""
     N, L, C = g3.shape
     vals = gather_rows(table.detach(), idx.reshape(-1)).reshape(N, L, 8, C)
     sgn = 2.0 * corner_bits(x01.device).float() - 1.0                # [8, 3]

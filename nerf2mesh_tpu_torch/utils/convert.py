@@ -249,7 +249,9 @@ class _JaxPickler(pickle._Pickler):
         self.memoize(obj)
 
 
-def _label(name: str) -> str:
+def param_label(name: str) -> str:
+    """The JAX optimizer's label of a parameter: "vert" (the stage-1
+    offsets), "slow" (0.1x the lr) or "base"."""
     if name == "vertices_offsets":
         return "vert"
     return "slow" if name in _SLOW_PARAMS else "base"
@@ -266,7 +268,7 @@ def jax_state(payload: Dict[str, Any], seed: int = 0) -> _JaxRecord:
     inner = {}
     for label in ("base", "slow", "vert"):
         def part(tree):
-            return {k: (v if _label(k) == label else _JaxRecord("MaskedNode"))
+            return {k: (v if param_label(k) == label else _JaxRecord("MaskedNode"))
                     for k, v in tree.items()}
         adam = _JaxRecord("ScaleByAdamState", count, part(opt["mu"]),
                           part(opt["nu"]))

@@ -21,6 +21,11 @@ checkpoint every ``iters // n_ckpt`` steps and at the end.  Checkpoints are
 the JAX package's format-2 pickle payload in plain data (utils/convert.py
 reads the JAX package's too); ``test_video`` writes the test trajectory.
 
+SDF mode (``cfg.sdf``): ``sdf_pretrain`` fits the raw field to a double
+sphere first (the CLI runs it under ``--ckpt scratch``); the render turns
+the SDF into NeuS alphas, the eikonal term joins the loss, the encode stays
+exact, and ``variance`` trains at a tenth of the lr.
+
 ``save_mesh`` exports the stage-0 mesh (meshing/export.py).  Stage 1
 (``setup_stage1``, ``train_stage1``): the stage-0 mesh's vertices get
 learnable offsets (a second Adam group with its own decaying lr), and each
@@ -29,12 +34,14 @@ with per-face errors accumulated for the refines; stage 1 keeps no EMA and
 evaluates the live weights (``render_image_stage1``).  ``export_stage1``
 writes the textured mesh for renderer.html.  After a refine the Adam
 moments restart but the step count stays global (the lr schedule and the
-bias correction continue, as optax's count does).
+bias correction continue, as optax's count does).  Under
+``enable_offset_nerf_grad`` (which ``--sdf`` turns on) the offsets also
+take the gradient of the field query at the surface points.
 
 The trainer runs on the card unless the caller asks for another device.
 
 Not ported yet (NotImplementedError, ROADMAP queue A): orbax checkpoints,
-SDF, cascades/contraction, depth supervision, patches, per-image codes,
+cascades/contraction, depth supervision, patches, per-image codes,
 linear color space, the trainable density grid and multi-device training.
 """
 
@@ -54,14 +61,14 @@ from ..config import Config
 from ..data.png import write_image
 from ..data.provider import Dataset
 from ..data.rays import get_rays
-from ..models.network import NeRFField, NetworkSpec
+from ..models.network import NeRFField, NetworkSpec, sdf_pretrain_loss
 from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
                                init_render_state, mark_untrained_grid,
                                render_eval_segment, render_frame_queue,
                                render_train, update_density_grid)
 from ..ops.hashgrid import hashgrid_tv_loss
-from .convert import (flatten_params, params_to_numpy, read_jax_checkpoint,
-                      render_state_from_jax)
+from .convert import (flatten_params, param_label, params_to_numpy,
+                      read_jax_checkpoint, render_state_from_jax)
 from .losses import CRITERIA
 from .metrics import PSNRMeter
 
@@ -87,9 +94,22 @@ def make_lr_scheduler(cfg: Config, opt, step: int = 0):
         opt, lambda it: sched(it) / cfg.lr, last_epoch=step - 1)
 
 
-def make_optimizer(cfg: Config, params):
-    """Adam(eps=1e-15) + the lr schedule."""
-    opt = torch.optim.Adam(params, lr=cfg.lr, eps=1e-15)
+def split_slow(field: torch.nn.Module):
+    """(base parameters, those at 0.1x the lr: convert.param_label's
+    "slow") of the field."""
+    base, slow = [], []
+    for name, p in field.named_parameters():
+        (slow if param_label(name) == "slow" else base).append(p)
+    return base, slow
+
+
+def make_optimizer(cfg: Config, params, slow=()):
+    """Adam(eps=1e-15) + the lr schedule; the `slow` parameters (SDF
+    variance) in a second group at 0.1x the lr."""
+    groups = [{"params": list(params)}]
+    if slow:
+        groups.append({"params": list(slow), "lr": 0.1 * cfg.lr})
+    opt = torch.optim.Adam(groups, lr=cfg.lr, eps=1e-15)
     return opt, make_lr_scheduler(cfg, opt)
 
 
@@ -106,18 +126,20 @@ def vert_schedule(cfg: Config, vert_horizon: Optional[int] = None):
 
 
 def make_stage1_optimizer(cfg: Config, field_params, offsets, step: int = 0,
-                          vert_horizon: Optional[int] = None):
-    """Adam(eps=1e-15) over two groups, the field (lr_schedule) and the
-    vertex offsets (vert_schedule), as the JAX package's "base" and "vert"
-    labels; fresh moments.  At step > 0 every parameter's count is set to
-    `step` and the schedules are positioned there, as the JAX package keeps
-    optax's count global across a refine's optimizer reset."""
-    field_params = list(field_params)
-    opt = torch.optim.Adam([{"params": field_params},
-                            {"params": [offsets], "lr": 1.0}],
-                           lr=cfg.lr, eps=1e-15)
+                          vert_horizon: Optional[int] = None, slow=()):
+    """Adam(eps=1e-15) over the field (lr_schedule), the vertex offsets
+    (vert_schedule) and the `slow` field parameters (0.1x lr_schedule), as
+    the JAX package's "base", "vert" and "slow" labels; fresh moments.  At
+    step > 0 every parameter's count is set to `step` and the schedules are
+    positioned there, as the JAX package keeps optax's count global across
+    a refine's optimizer reset."""
+    field_params, slow = list(field_params), list(slow)
+    groups = [{"params": field_params}, {"params": [offsets], "lr": 1.0}]
+    if slow:
+        groups.append({"params": slow, "lr": 0.1 * cfg.lr})
+    opt = torch.optim.Adam(groups, lr=cfg.lr, eps=1e-15)
     if step > 0:
-        for p in field_params + [offsets]:
+        for p in field_params + [offsets] + slow:
             opt.state[p] = {"step": torch.tensor(float(step)),
                             "exp_avg": torch.zeros_like(p),
                             "exp_avg_sq": torch.zeros_like(p)}
@@ -126,12 +148,16 @@ def make_stage1_optimizer(cfg: Config, field_params, offsets, step: int = 0,
 
 def make_stage1_scheduler(cfg: Config, opt, step: int,
                           vert_horizon: Optional[int] = None):
-    """LambdaLR of the two stage-1 groups positioned at `step`."""
+    """LambdaLR of the stage-1 groups (base, vert[, slow]) positioned at
+    `step`."""
     sched, vs = lr_schedule(cfg), vert_schedule(cfg, vert_horizon)
-    base, vert = opt.param_groups
+    base, vert, *slow = opt.param_groups
     base["initial_lr"], vert["initial_lr"] = cfg.lr, 1.0
+    for g in slow:
+        g["initial_lr"] = 0.1 * cfg.lr
     return torch.optim.lr_scheduler.LambdaLR(
-        opt, [lambda it: sched(it) / cfg.lr, vs], last_epoch=step - 1)
+        opt, [lambda it: sched(it) / cfg.lr, vs]
+        + [lambda it: sched(it) / cfg.lr] * len(slow), last_epoch=step - 1)
 
 
 class StepDynamics(NamedTuple):
@@ -146,14 +172,13 @@ class StepDynamics(NamedTuple):
 
 def check_supported(cfg: Config) -> None:
     unsupported = {
-        "sdf": (cfg.sdf, "A5"), "contract": (cfg.contract, "A7"),
+        "contract": (cfg.contract, "A7"),
         "bound > 1 (cascades)": (cfg.cascades > 1, "A7"),
         "patch_size > 1": (cfg.patch_size > 1, "A6"),
         "ind_dim > 0": (cfg.ind_dim > 0, "A6"),
         "color_space=linear": (cfg.color_space == "linear", "A6"),
         "enable_cam_near_far": (cfg.enable_cam_near_far, "A6"),
         "trainable_density_grid": (cfg.trainable_density_grid, "A6"),
-        "enable_offset_nerf_grad": (cfg.enable_offset_nerf_grad, "A5"),
     }
     for name, (on, item) in unsupported.items():
         if on:
@@ -193,7 +218,7 @@ class Trainer:
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.params = NeRFField(self.net_spec, init_gen).to(self.device)
         self.optimizer, self.lr_scheduler = make_optimizer(
-            cfg, self.params.parameters())
+            cfg, *split_slow(self.params))
         # the EMA weights live in a second field (eval renders from it);
         # ema_params names its tensors
         self.ema_field = copy.deepcopy(self.params).requires_grad_(False)
@@ -286,7 +311,9 @@ class Trainer:
         cx, cy) floats; draws: img_idx, pix_idx [num_rays] int, bg
         [num_rays, 3], u [num_rays, num_fine] (see draw)."""
         cfg, rspec, nspec = self.cfg, self.render_spec, self.net_spec
-        if cfg.stochastic_fine:
+        if cfg.stochastic_fine and not cfg.sdf:
+            # not in SDF mode: the 1-corner estimate makes the 6 taps of the
+            # FD normal mutually inconsistent
             nspec = dataclasses.replace(nspec, encode_stochastic=True)
         B, H, W, C = images_u8.shape
         img_idx, pix_idx = draws["img_idx"], draws["pix_idx"]
@@ -308,7 +335,8 @@ class Trainer:
             draws["u"], rspec, nspec, full_flag=dyn.full_shading,
             max_level=dyn.max_level,
             aabb=self._aabb_t,
-            pool_size=pool)
+            pool_size=pool, cos_anneal_ratio=dyn.cos_anneal_ratio,
+            normal_epsilon=dyn.normal_epsilon)
 
         pred_rgb = out["image"]
         loss_per_ray = cfg.lambda_rgb * CRITERIA[cfg.criterion](
@@ -338,6 +366,17 @@ class Trainer:
             n_valid = out["pp_valid"].sum().clamp(min=1)
             loss = loss + cfg.lambda_specular * spec_l.sum() / n_valid
 
+        if cfg.sdf and cfg.lambda_eikonal > 0:
+            # double where: the out-of-pool slots' FD normals are exactly
+            # zero, and sqrt's gradient there is inf; masking only the value
+            # would still backpropagate 0 * inf = NaN into every parameter
+            pv = out["pp_valid"]
+            nrm2 = (out["normal"] ** 2).sum(dim=-1)
+            nrm = torch.sqrt(torch.where(pv, nrm2, 1.0))
+            eik = torch.where(pv, (nrm - 1.0) ** 2, 0.0)
+            eik = eik.sum() / pv.sum().clamp(min=1)
+            loss = loss + cfg.lambda_eikonal * eik
+
         if cfg.lambda_tv > 0:
             # TV on the first 16384 pool points (an unbiased subsample)
             n_tv = min(16384, out["xyzs"].shape[0])
@@ -358,6 +397,8 @@ class Trainer:
             "pool_overflow": out["pool_overflow"],
             "encode_resid": out["encode_resid"],
         }
+        if cfg.sdf and cfg.lambda_eikonal > 0:
+            metrics["eikonal"] = eik.detach()
         return loss, metrics
 
     def train_step(self, images_u8, poses, intrinsics, num_rays: int,
@@ -390,6 +431,39 @@ class Trainer:
         self.ema_count = n
         self.step += 1
         return metrics
+
+    def sdf_pretrain(self, iters: int = 2000, batch_size: int = 8192,
+                     points=None) -> float:
+        """Fit the raw SDF to the double sphere (JAX trainer.sdf_pretrain):
+        a fresh Adam(lr 1e-3) over every parameter, then the EMA weights :=
+        the live ones.  points: an iterable of [batch_size, 3] point batches,
+        one a step (default: uniform draws from a generator seeded 42 on
+        the trainer's device).  Returns the last loss.
+
+        Runs max(1, iters // chunk) * chunk steps with chunk = min(100,
+        iters), as the JAX package's scan chunks do: it drops the remainder
+        of iters % 100."""
+        if iters < 1:
+            raise ValueError(f"sdf_pretrain: iters={iters}, needs >= 1")
+        opt = torch.optim.Adam(self.params.parameters(), lr=1e-3)
+        gen = torch.Generator(self.device).manual_seed(42)
+        b = self.net_spec.bound
+        points = None if points is None else iter(points)
+        chunk = min(100, iters)
+        for _ in range(max(1, iters // chunk) * chunk):
+            x = (torch.rand((batch_size, 3), generator=gen,
+                            device=self.device) * (2 * b) - b
+                 if points is None else next(points).to(self.device))
+            opt.zero_grad(set_to_none=True)
+            loss = sdf_pretrain_loss(self.params, x, self.net_spec)
+            loss.backward()
+            opt.step()
+        with torch.no_grad():
+            for k, p in self.params.named_parameters():
+                self.ema_params[k].copy_(p)
+        last = float(loss.detach())
+        self.log(f"[INFO] sdf pretrain done, loss={last:.6f}")
+        return last
 
     # -------------------------------------------------------------- train loop
     def mark_untrained(self, dataset: Dataset) -> None:
@@ -604,9 +678,10 @@ class Trainer:
                 and self._s1_real_shape == real_shape):
             self.vertices_offsets = torch.nn.Parameter(
                 torch.zeros((Vp, 3), device=dev))
+            base, slow = split_slow(self.params)
             self.optimizer, self.lr_scheduler = make_stage1_optimizer(
-                self.cfg, self.params.parameters(), self.vertices_offsets,
-                self.step, self._vert_horizon)
+                self.cfg, base, self.vertices_offsets, self.step,
+                self._vert_horizon, slow)
             with torch.no_grad():
                 for k, p in self.params.named_parameters():
                     self.ema_params[k].copy_(p)
@@ -631,7 +706,10 @@ class Trainer:
 
     def _stage1_nspec(self):
         cfg = self.cfg
-        if cfg.s1_stochastic and not cfg.sdf:
+        # not when the offsets take the field's gradient: the 1-corner
+        # estimate has no positional gradient
+        if (cfg.s1_stochastic and not cfg.sdf
+                and not cfg.enable_offset_nerf_grad):
             return dataclasses.replace(self.net_spec, encode_stochastic=True)
         return self.net_spec
 
@@ -692,6 +770,7 @@ class Trainer:
             self.params, self.vertices_offsets, self.mesh_v, self.mesh_f,
             mvps[img], (cy0, cx0), dirs, bg, self._stage1_nspec(), rspec,
             H, W, shading="full", contracted=cfg.contract,
+            enable_offset_nerf_grad=cfg.enable_offset_nerf_grad,
             pos_gradient_boost=cfg.pos_gradient_boost, ssaa=ss,
             alpha_mode=cfg.s1_alpha, f_valid=f_real, shell_k=cfg.s1_shell,
             shell_h=cfg.s1_shell_h)

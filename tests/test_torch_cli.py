@@ -174,6 +174,52 @@ print("ok")
         res.stdout[-3000:] + res.stderr[-3000:]
 
 
+def test_sdf_cli_pretrains_skips_sharpen_and_runs_stage1(tmp_path,
+                                                         monkeypatch):
+    """--sdf --ckpt scratch at 32^2, 6 levels of the ref table: the
+    double-sphere pretrain runs (cut to 200 steps of 2048 points for the
+    CPU), the sharpen phase does not (the JAX CLI skips it under SDF), and
+    the SDF mesh is written; then --stage 1 --iters 4 loads it and the
+    stage-0 checkpoint, trains the offsets through the field query and
+    writes mesh_stage1/."""
+    from nerf2mesh_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from nerf2mesh_tpu_torch.meshing.io import read_ply
+    root = generate_synthetic_dataset(str(tmp_path / "scene"), H=32, W=32,
+                                      n_train=6, n_val=2, n_test=2)
+    ws = tmp_path / "ws"
+    pretrains = []
+    real = Trainer.sdf_pretrain
+
+    def short(self, iters=2000, batch_size=8192, points=None):
+        pretrains.append((iters, batch_size))
+        return real(self, iters=200, batch_size=2048)
+
+    monkeypatch.setattr(Trainer, "sdf_pretrain", short)
+    argv = [root, "--workspace", str(ws), "--sdf", "--bound", "1",
+            "--scale", "0.8", "--dt_gamma", "0", "--num_rays", "256",
+            "--num_points", "4096", "--grid_size", "32", "--num_levels", "6",
+            "--grid_layout", "ref", "--log2_hashmap_size", "14",
+            "--random_image_batch", "--mark_untrained", "--n_eval", "1",
+            "--n_ckpt", "1", "--test_no_video"]
+    t0 = main(argv + ["--ckpt", "scratch", "--iters", "8", "--sharpen_steps",
+                      "4", "--mcubes_reso", "32"], device="cpu")
+    assert pretrains == [(2000, 8192)]
+    assert t0.cfg.sharpen_steps == 4 and t0.step == 8
+    assert [e["step"] for e in t0.train_log][-1] == 8
+    assert all(np.isfinite(e["loss"]) for e in t0.train_log)
+    v, f = read_ply(str(ws / "mesh_stage0" / "mesh_0.ply"))
+    assert len(f) > 0
+    t1 = main(argv + ["--stage", "1", "--iters", "4", "--texture_size", "64"],
+              device="cpu")
+    assert pretrains == [(2000, 8192)] and t1.step == 4
+    assert t1.cfg.enable_offset_nerf_grad and not t1.cfg.s1_stochastic
+    assert all(np.isfinite(e["loss"]) and e["overflow"] == 0
+               for e in t1.train_log), t1.train_log
+    assert float(t1.vertices_offsets.detach().abs().max()) > 0
+    assert sorted(os.listdir(ws / "mesh_stage1")) == [
+        "feat0_0.jpg", "feat1_0.jpg", "mesh_0.mtl", "mesh_0.obj", "mlp.json"]
+
+
 def stage1_workspace(tmp_path):
     """A 32^2 scene and a workspace holding a stage-0 icosphere mesh; the
     stage-1 configs of both packages for it."""
@@ -307,13 +353,13 @@ def test_unported_cli_paths_raise(tmp_path):
             "--grid_size", "16", "--test_no_mesh"]
     for extra, item in ((["--data_format", "colmap"], "A7"),
                         (["--mesh_shape", "2"], "A7"),
-                        (["--bound", "2"], "A7"), (["--sdf"], "A5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            main(base + extra, device="cpu")
-        # SDF names its own item with or without the flag
-        if item == "A5":
+                        (["--bound", "2"], "A7"),
+                        (["--patch_size", "4"], "A6"),
+                        (["--color_space", "linear"], "A6")):
+        # each names its item before any work, with or without the mesh
+        for argv in (base + extra, base[:-1] + extra):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                main(base[:-1] + extra, device="cpu")
+                main(argv, device="cpu")
     cfg = dataclasses.replace(Config(), bound=1.0, num_levels=4,
                               log2_hashmap_size=12, grid_size=16,
                               workspace=str(tmp_path / "ws"),

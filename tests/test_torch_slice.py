@@ -214,10 +214,11 @@ def test_port_training_loss_falls(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in (dict(sdf=True), dict(bound=2.0), dict(patch_size=4),
-               dict(color_space="linear"),
-               dict(enable_offset_nerf_grad=True)):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(bound=2.0), "A7"), (dict(patch_size=4), "A6"),
+                     (dict(color_space="linear"), "A6"),
+                     (dict(ind_dim=4), "A6"),
+                     (dict(trainable_density_grid=True), "A6")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ttr.Trainer(tiny(TConfig, **kw), device="cpu")
     cfg = tiny(TConfig)
     ds = dataset_from_frames(cfg, render_synthetic_frames(**SCENE))
