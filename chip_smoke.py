@@ -61,7 +61,8 @@ Phases, in order; any failure exits non-zero:
      decode and mlp.json's keys; main --stage 1 --test, and a fresh stage-1
      Trainer reproduces the stage-1 val PSNR within 1e-4 dB;
   8. stage1 (Pillow blocked): the phase-4 field trains 256 more steps, then
-     save_mesh at 512^3 with decimate_target 3e5 and visibility culling
+     save_mesh at S1_MCUBES^3 (cut from the default 512^3) with
+     decimate_target 3e5 and visibility culling
      against the 24 train views; a stage-1 Trainer at bench.py's width
      with -O's stage-1 recipe (s1_shell 4, s1_stochastic, refine at -O's
      ratios, ssaa 2, full 256^2 crops) trains 128 steps: losses finite and
@@ -71,7 +72,7 @@ Phases, in order; any failure exits non-zero:
      steps profiled; K2 and K3 held against their plain versions on the
      arguments one more step gives them (4 shell layers); the rasterizer's
      forward + backward timed against a step; export_stage1 at texture
-     4096.  Wall seconds of the density
+     S1_TEXTURE (cut from the default 4096).  Wall seconds of the density
      query, marching cubes, cull, clean + decimate, unwrap, bake, inpaint
      and the JPEGs; faces at each refine; peak memory.
   9. sdf: bench.py's stage-0 configuration with sdf=True (NeuS): the
@@ -91,15 +92,45 @@ Phases, in order; any failure exits non-zero:
      share the gradient with K2/K3 replaced by their plain versions (within
      1e-3 relative L2 of the kernels') and with the barycentrics detached;
      export_stage1 at 1024.
+ 10. unbounded (Pillow blocked): a COLMAP capture written by
+     generate_colmap_dataset (256x256, UNB_VIEWS views of the spheres
+     inside a textured environment sphere, every 8th view val) through
+     nerf2mesh_tpu_torch.main --data_format colmap at bench.py's width,
+     in three runs, each mesh decimated to UNB_DECIMATE (the outer
+     cascades to half): (a) the LLFF recipe (runall_llff.sh: -O's flags
+     but fp16 and the visibility cull, --bound 4 --enable_cam_near_far, 3
+     cascades, no sharpen phase): UNB_STEPS steps, the val eval, the inner
+     mesh at UNB_MCUBES^3 and the outer cascades', then --stage 1 --iters
+     UNB_S1_STEPS (-O's shell recipe, a
+     refine at step 32), the export at UNB_TEXTURE^2 and a stage-1 reload
+     that reproduces the recorded val PSNR within 1e-4 dB; (b) the 360
+     recipe's geometry (runall_360.sh: --bound 16 --enable_cam_center
+     --enable_cam_near_far --lambda_entropy 1e-3 --lambda_tv 2e-8, 5
+     cascades): UNB360_STEPS steps, the eval and the meshes at
+     UNB_SIDE_MCUBES^3; (c) (b) plus --contract (grid bound 2, 2
+     cascades): CON_STEPS steps, the meshes, CON_S1_STEPS stage-1 steps
+     (no refine) and the export at CON_TEXTURE^2.  Each run: logged losses
+     finite and falling, val PSNR finite, K1-K3 launched by its training
+     (K2/K3 by its stage-1 steps), K1 held exact and K2/K3 within phase 3's
+     tolerances against their plain versions on one more step's arguments,
+     and timed there beside phase 3's times; mesh_0.ply within the unit
+     box and an outer cascade's mesh past it, within the bound; overflow 0;
+     one OBJ a cascade.  Printed: ms/step and the idle share (8 profiled
+     steps), the untrained marks' wall, eval ms and march rounds a frame,
+     the val PSNR of the diffuse render (the eval shades "full" before
+     diffuse_step), pack_bits ms at the run's cascades, the export stages'
+     walls, peak memory.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
-phases 8's and 9's shapes.
+phases 8's, 9's and 10's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
 phase 4 is 0; "stage1_launches": the stage-1 training's, phase 8 for K2
 and K3, phase 7 for K4 and K4b; "sdf_launches" and "sdf_stage1_launches":
-phase 9's stage-0 and stage-1 training's), the last line the device
-record.  Imports only the port, torch, numpy and the standard library.
+phase 9's stage-0 and stage-1 training's; "unbounded_launches": phase 10's
+three stage-0 trainings' by run, "llff", "360" and "contract", and
+"unbounded_stage1_launches" its two stage-1 trainings', "llff" and
+"contract"), the last line the device record.  Imports only the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -126,10 +157,12 @@ N_VAL = 4                  # eval views (phases 5 and 6)
 WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
 CLI_STEPS = 512            # phase 7 (a field that marches to a mesh)
-CLI_MCUBES = 256           # phase 7's marching grid (phase 8: 512)
+CLI_MCUBES = 256           # phase 7's marching grid
 CLI_S1_STEPS = 64          # phase 7's stage 1 (a refine at step 32)
-CLI_TEXTURE = 1024         # phase 7's texture side (phase 8: 4096)
+CLI_TEXTURE = 1024         # phase 7's texture side
 S1_STEPS = 128             # phase 8
+S1_MCUBES = 256            # phase 8's marching grid (the default 512)
+S1_TEXTURE = 2048          # phase 8's texture side (the default 4096)
 MESH_FIELD_STEPS = 256     # phase 8: the phase-4 field trains on first
 PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
@@ -137,6 +170,20 @@ SDF_STEPS = 128            # phase 9's stage-0 steps
 SDF_MCUBES = 256           # phase 9's marching grid
 SDF_S1_STEPS = 32          # phase 9's stage-1 steps
 SDF_SHARE_CROPS = 32       # phase 9's crops for the field's gradient share
+UNB_VIEWS = 32             # phase 10's COLMAP capture (every 8th is val)
+UNB_SIZE = 256             # its frames' side
+UNB_STEPS = 256            # phase 10a (LLFF recipe, bound 4) stage-0 steps
+UNB_MCUBES = 256           # phase 10a's inner marching grid (default 512)
+UNB_S1_STEPS = 64          # phase 10a's stage 1
+UNB_TEXTURE = 1024         # phase 10a's texture side (default 4096)
+UNB360_STEPS = 128         # phase 10b (the 360 recipe's geometry, bound 16)
+UNB_SIDE_MCUBES = 128      # phase 10b's and 10c's inner marching grid
+UNB_DECIMATE = 6e4         # phase 10's decimate_target (default 3e5): the
+#                            outer cascades get half each, and stage 1's
+#                            face budget (87,381 at 256^2) is shared
+CON_STEPS = 64             # phase 10c (10b + --contract)
+CON_S1_STEPS = 16          # phase 10c's stage 1
+CON_TEXTURE = 512          # phase 10c's texture side
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -1337,7 +1384,7 @@ def raster_share(trainer, ds, steps):
 
 
 def phase_stage1(dev, field, ds, val):
-    """Phase 8: the phase-4 field's mesh at the default 512^3 with
+    """Phase 8: the phase-4 field's mesh at S1_MCUBES^3 with
     visibility culling, then stage 1 at bench width with -O's stage-1
     recipe; returns the stage-1 training's launch counts and K2's and K3's
     largest |err| against plain at a stage-1 step's shapes."""
@@ -1359,12 +1406,13 @@ def phase_stage1(dev, field, ds, val):
         field.cfg = dataclasses.replace(field.cfg, mesh_visibility_culling=True)
         field.save_checkpoint()
         t0 = time.perf_counter()
-        secs = field.save_mesh(resolution=512, decimate_target=3e5,
+        secs = field.save_mesh(resolution=S1_MCUBES, decimate_target=3e5,
                                dataset=ds)
         t_mesh = time.perf_counter() - t0
         nv, nf, share = surface_share(
             os.path.join(tmp, "mesh_stage0", "mesh_0.ply"), field.cfg.scale)
-        log(f"[stage1] save_mesh 512^3 in {t_mesh:.1f} s: v={nv} f={nf}, "
+        log(f"[stage1] save_mesh {S1_MCUBES}^3 in {t_mesh:.1f} s: v={nv} "
+            f"f={nf}, "
             f"surface share {share:.3f}; seconds {secs}")
         if nf == 0:
             raise AssertionError("empty stage-0 mesh")
@@ -1432,11 +1480,12 @@ def phase_stage1(dev, field, ds, val):
 
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        esecs = t1.export_stage1(resolution=4096)
+        esecs = t1.export_stage1(resolution=S1_TEXTURE)
         t_exp = time.perf_counter() - t0
         shapes = check_stage1_package(os.path.join(tmp, "mesh_stage1"), False)
         v, f = read_ply(os.path.join(tmp, "mesh_stage0", "mesh_0_updated.ply"))
-        log(f"[stage1] export_stage1(4096) in {t_exp:.1f} s: seconds {esecs};"
+        log(f"[stage1] export_stage1({S1_TEXTURE}) in {t_exp:.1f} s: "
+            f"seconds {esecs};"
             f" textures {shapes}; mesh v={len(v)} f={len(f)}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         return launches, errs
@@ -1731,6 +1780,310 @@ def phase_sdf(dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the unbounded-scene path (COLMAP, cascades, contraction)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def occ_calls(calls):
+    """Within: the sampler's K1 wrapper appends each call's (words, idx) to
+    `calls`, copied."""
+    from nerf2mesh_tpu_torch.ops import sampling
+    real = sampling.occ_lookup
+
+    def call(words, idx):
+        calls.append((words.clone(), idx.clone()))
+        return real(words, idx)
+
+    sampling.occ_lookup = call
+    try:
+        yield
+    finally:
+        sampling.occ_lookup = real
+
+
+def hold_step_kernels(trainer, ds, label, ref_ms):
+    """K1 (exact), K2 and K3 against their plain versions on the arguments
+    one more training step gives them, and timed on the largest of each
+    beside phase 3's times (ref_ms); pack_bits timed on the run's grid.
+    Returns {name: max|err|}."""
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    from nerf2mesh_tpu_torch.ops.occ_sweep import (occ_lookup,
+                                                   occ_lookup_plain, pack_bits)
+    occ, calls = [], []
+    with occ_calls(occ), inwin_calls(calls):
+        trainer.train_steps(ds, 1)
+    if not occ:
+        raise AssertionError(f"{label}: occ_lookup was not called")
+    errs = hold_inwin(calls, label)
+    words, idx = max(occ, key=lambda c: c[1].numel())
+    n_bad = sum(int((occ_lookup(w, i) != occ_lookup_plain(w, i)).sum())
+                for w, i in occ)
+    if n_bad:
+        raise AssertionError(f"{label}: occ_lookup disagrees on {n_bad} "
+                             f"cells")
+    errs["occ_lookup"] = 0.0
+    fwd = max((a for n, a in calls if n == "inwin_fwd"),
+              key=lambda a: a[1].shape[0])
+    bwd = max((a for n, a in calls if n == "inwin_bwd"),
+              key=lambda a: a[1].shape[0])
+    grid = trainer.render.occ_grid
+    ms = {"occ_lookup": cuda_time_ms(lambda: occ_lookup(words, idx)),
+          "inwin_fwd": cuda_time_ms(lambda: se.inwin_fwd(*fwd)),
+          "inwin_bwd": cuda_time_ms(lambda: se.inwin_bwd(*bwd)),
+          "pack_bits": cuda_time_ms(lambda: pack_bits(grid))}
+    log(f"[unbounded] {label}: K1 exact on {len(occ)} calls; at this run's "
+        f"arguments (K1 {idx.numel()} cells of {words.numel()} words, "
+        f"{grid.shape[0]} cascades; K2 {fwd[1].shape[0]} points at levels "
+        f"{fwd[5][0]}-{fwd[5][-1]}; K3 {bwd[1].shape[0]} points): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + "; phase 3's: " + ", ".join(f"{k} {ref_ms[k]:.4f} ms"
+                                      for k in ("occ_lookup", "inwin_fwd",
+                                                "inwin_bwd")))
+    return errs
+
+
+def unbounded_stage0(dev, scene_dir, ws, run, flags, ref_ms):
+    """One stage-0 CLI run on the COLMAP capture at bench width; returns
+    (the trainer, its argv, the training's launch counts, K1-K3's max|err|
+    at its step's arguments)."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.data.colmap import load_colmap_dataset
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.meshing.io import read_ply
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    # -O's flags but fp16 (the bench's MLPs are fp32) and the visibility
+    # cull: with the cameras inside a cascade's box its subdivision of the
+    # faces near them grows 4x a pass for 6 passes (ROADMAP C)
+    base = dict(data_format="colmap", scale=-1.0, n_eval=1, n_ckpt=1,
+                test_no_video=True, refine=True, mcubes_reso=UNB_MCUBES,
+                decimate_target=UNB_DECIMATE)
+    argv = cli_argv(scene_dir, ws, **dict(base, **flags))
+    cfg = parse_args(argv)
+    log(f"[unbounded] {run}: main {' '.join(argv[1:])}")
+    train_launches, t_mark = {}, []
+    real_mark = Trainer.mark_untrained
+
+    def timed_mark(self, dataset):
+        t0 = time.perf_counter()
+        real_mark(self, dataset)
+        torch.cuda.synchronize()
+        t_mark.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    real = counting(Trainer, "train", train_launches)
+    Trainer.mark_untrained = timed_mark
+    try:
+        t0 = time.perf_counter()
+        trainer = cli_main(argv, device=dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    finally:
+        Trainer.train = real
+        Trainer.mark_untrained = real_mark
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tl = trainer.train_log
+    losses = [e["loss"] for e in tl]
+    a, b = next(e for e in tl if e["step"] >= cfg.iters // 2), tl[-1]
+    ms_step = (b["seconds"] - a["seconds"]) / (b["step"] - a["step"]) * 1e3
+    log(f"[unbounded] {run}: main ran {t_main:.1f} s (mark_untrained "
+        f"{t_mark} s, host numpy), {cfg.cascades} "
+        f"cascades, grid bound {cfg.grid_bound}, aabb "
+        f"{np.round(trainer._aabb, 4).tolist()}; logged losses "
+        f"{np.round(losses, 5).tolist()}; steps {a['step']}-{b['step']}: "
+        f"{ms_step:.2f} ms/step; peak memory {peak:.2f} GiB; evals "
+        f"{trainer.stats['results']}; training launches {train_launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{run}: non-finite logged loss: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"{run}: loss did not fall: {losses}")
+    for key in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+        if train_launches.get(key, 0) <= 0:
+            raise AssertionError(f"{run}: {key} was not launched by training")
+    if not all(math.isfinite(v) for r in trainer.stats["results"]
+               for v in r.values()):
+        raise AssertionError(f"{run}: evals {trainer.stats['results']}")
+
+    mdir = os.path.join(ws, "mesh_stage0")
+    meshes = {}
+    for c in range(cfg.cascades):
+        p = os.path.join(mdir, f"mesh_{c}.ply")
+        if os.path.exists(p):
+            v, f = read_ply(p)
+            meshes[c] = (len(v), len(f), float(np.abs(v).max())
+                         if len(v) else 0.0)
+    log(f"[unbounded] {run}: meshes (cascade: vertices, faces, max|v|) "
+        f"{meshes}; export seconds {trainer.stats['mesh_seconds']}")
+    if 0 not in meshes or meshes[0][1] == 0 or meshes[0][2] > 1 + 1e-5:
+        raise AssertionError(f"{run}: mesh_0.ply {meshes.get(0)}")
+    outer = [m for c, m in meshes.items() if c > 0 and m[1] > 0]
+    if not any(1.0 < m[2] <= cfg.bound + 1e-4 for m in outer):
+        raise AssertionError(f"{run}: no outer cascade's mesh past the unit "
+                             f"box within the bound: {meshes}")
+
+    train, val = (load_colmap_dataset(cfg, "train"),
+                  load_colmap_dataset(cfg, "val"))
+    run_eval(trainer, val, f"unbounded {run}", ("occ_lookup", "inwin_fwd"))
+    # before diffuse_step the eval's full shading adds the untrained
+    # specular head; the diffuse render is what the steps have trained
+    psnr_d = [float(-10 * np.log10(np.mean((trainer.render_image(
+        val.poses[i], val.intrinsics_for(i), val.H, val.W,
+        shading="diffuse")["image"] - val.images[i][..., :3] / 255.0) ** 2)))
+        for i in range(val.num_frames)]
+    log(f"[unbounded] {run}: val PSNR of the diffuse render "
+        f"{np.round(psnr_d, 4).tolist()} (mean {np.mean(psnr_d):.4f})")
+    profile_region(lambda: trainer.train_steps(train, PROFILE_STEPS),
+                   f"unbounded {run} steps {cfg.iters}-"
+                   f"{cfg.iters + PROFILE_STEPS}", per=PROFILE_STEPS)
+    errs = hold_step_kernels(trainer, train, f"unbounded {run} step", ref_ms)
+    return trainer, argv, train_launches, errs, meshes
+
+
+def unbounded_stage1(dev, argv, run, s1_flags, texture, reload):
+    """Stage 1 through the CLI over every cascade's mesh and its export;
+    with reload, --test and a fresh stage-1 Trainer reproducing the
+    recorded val PSNR.  Returns (stage-1 launches, K2/K3 max|err| on a
+    step's arguments)."""
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.data.colmap import load_colmap_dataset
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.utils.convert import read_jax_checkpoint
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    s1_argv = argv + ["--stage", "1", "--texture_size", str(texture)] \
+        + s1_flags
+    cfg = parse_args(s1_argv)
+    ws = cfg.workspace
+    s1_launches = {}
+    real = counting(Trainer, "stage1_step", s1_launches)
+    try:
+        t0 = time.perf_counter()
+        s1 = cli_main(s1_argv, device=dev)
+        torch.cuda.synchronize()
+        t_s1 = time.perf_counter() - t0
+    finally:
+        Trainer.stage1_step = real
+    tl = s1.train_log
+    mesh = s1.stage1_mesh
+    log(f"[unbounded] {run} stage 1 ran {t_s1:.1f} s over "
+        f"{len(mesh.v_cumsum) - 1} cascades (faces "
+        f"{np.diff(mesh.f_cumsum).tolist()}): log {tl}; refines "
+        f"{s1.stats.get('refines')}; evals {s1.stats['results']}; export "
+        f"seconds {s1.stats['export_seconds']}; stage-1 training launches "
+        f"{s1_launches}")
+    if not all(math.isfinite(e["loss"]) for e in tl) or any(
+            e["overflow"] for e in tl):
+        raise AssertionError(f"{run} stage-1 log: {tl}")
+    for key in ("inwin_fwd", "inwin_bwd"):
+        if s1_launches.get(key, 0) <= 0:
+            raise AssertionError(f"{run}: {key} was not launched by stage 1")
+    out = os.path.join(ws, "mesh_stage1")
+    objs = sorted(n for n in os.listdir(out) if n.endswith(".obj"))
+    want = [f"mesh_{c}.obj" for c in range(cfg.cascades)]
+    with open(os.path.join(out, "mlp.json")) as f:
+        mlp = json.load(f)
+    if objs != want or mlp["cascade"] != cfg.cascades or \
+            mlp["bound"] != cfg.grid_bound:
+        raise AssertionError(f"{run}: export {objs}, mlp.json bound "
+                             f"{mlp['bound']} cascade {mlp['cascade']}")
+    check_stage1_package(out, True)
+    ds = load_colmap_dataset(cfg, "train")
+    images, poses, intr = s1._prep_train_arrays(ds)
+    mvps = torch.from_numpy(np.asarray(ds.mvps, np.float32)).to(dev)
+    calls = []
+    with inwin_calls(calls):
+        s1.stage1_step(images, poses, mvps, intr)
+    errs = hold_inwin(calls, f"unbounded {run} stage-1 step")
+    if reload:
+        saved = read_jax_checkpoint(
+            os.path.join(ws, "checkpoints", "ngp_stage1_latest.ckpt"))
+        psnr = float(saved["stats"]["results"][0]["PSNR"])
+        tester = cli_main(s1_argv + ["--test"], device=dev)
+        fresh = Trainer(cfg, device=dev)
+        fresh.setup_stage1(ds)
+        if not fresh.load_checkpoint():
+            raise AssertionError(f"{run}: no stage-1 checkpoint to load")
+        res = fresh.evaluate(load_colmap_dataset(cfg, "val"),
+                             name="s1_reload", track_best=False)
+        log(f"[unbounded] {run} stage-1 --test at step {tester.step}; a "
+            f"fresh Trainer at step {fresh.step}: val PSNR "
+            f"{res['PSNR']:.6f} vs {psnr:.6f} recorded")
+        if not abs(res["PSNR"] - psnr) <= 1e-4:
+            raise AssertionError(f"{run}: stage-1 reloaded PSNR "
+                                 f"{res['PSNR']} != {psnr}")
+    return s1_launches, errs
+
+
+def phase_unbounded(dev, ref_ms):
+    """Phase 10: the COLMAP capture through the CLI in three runs (the LLFF
+    recipe at bound 4 with stage 1, the 360 recipe's geometry at bound 16,
+    and that contracted with stage 1); returns ({run: stage-0 training
+    launches}, {run: stage-1 training launches}, K1-K3's max|err| at the
+    runs' shapes)."""
+    from nerf2mesh_tpu_torch.data.synthetic import generate_colmap_dataset
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_unb_")
+    try:
+        t0 = time.perf_counter()
+        scene_dir = generate_colmap_dataset(
+            os.path.join(tmp, "scene"), H=UNB_SIZE, W=UNB_SIZE,
+            n_images=UNB_VIEWS)
+        log(f"[unbounded] COLMAP capture ({UNB_VIEWS} views at {UNB_SIZE}^2) "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        launches, s1_launches, errs = {}, {}, {}
+
+        def merge(e):
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+
+        # (a) the LLFF recipe, then stage 1 with a refine and a reload
+        ws = os.path.join(tmp, "llff")
+        tr, argv, launches["llff"], e, _ = unbounded_stage0(
+            dev, scene_dir, ws, "llff", dict(
+                bound=4.0, enable_cam_near_far=True, iters=UNB_STEPS),
+            ref_ms)
+        merge(e)
+        del tr
+        s1_launches["llff"], e = unbounded_stage1(
+            dev, argv, "llff", ["--iters", str(UNB_S1_STEPS), "--s1_shell",
+                                "4", "--s1_stochastic",
+                                "--refine_steps_ratio", "0.5"],
+            UNB_TEXTURE, True)
+        merge(e)
+
+        # (b) the 360 recipe's geometry at bound 16
+        flags360 = dict(bound=16.0, enable_cam_center=True,
+                        enable_cam_near_far=True, lambda_entropy=1e-3,
+                        lambda_tv=2e-8)
+        tr, _, launches["360"], e, _ = unbounded_stage0(
+            dev, scene_dir, os.path.join(tmp, "360"), "360",
+            dict(flags360, iters=UNB360_STEPS, mcubes_reso=UNB_SIDE_MCUBES),
+            ref_ms)
+        merge(e)
+        del tr
+
+        # (c) (b) contracted, with stage 1 (no refines: 16 steps)
+        tr, argv, launches["contract"], e, _ = unbounded_stage0(
+            dev, scene_dir, os.path.join(tmp, "contract"), "contract",
+            dict(flags360, contract=True, iters=CON_STEPS,
+                 mcubes_reso=UNB_SIDE_MCUBES), ref_ms)
+        merge(e)
+        del tr
+        s1_launches["contract"], e = unbounded_stage1(
+            dev, [a for a in argv if a != "--refine"], "contract",
+            ["--iters", str(CON_S1_STEPS), "--s1_shell", "4",
+             "--s1_stochastic"],
+            CON_TEXTURE, False)
+        merge(e)
+        return launches, s1_launches, errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1738,19 +2091,34 @@ def main() -> int:
     card, name = phase_device()
     log(card)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def lap(label):
+        log(f"[time] {label} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_build()
     results = phase_kernels(dev)
+    lap("phases 2-3")
     launches, field, ds, val = phase_slice(dev)
     ws_launches = phase_winsort(dev)
+    lap("phases 4-6")
     with no_pillow():
         cli_launches = phase_cli(dev)
+        lap("phase 7")
         s1_launches, s1_errs = phase_stage1(dev, field, ds, val)
     del field
+    lap("phase 8")
     sdf_launches, sdf_errs = phase_sdf(dev)
+    lap("phase 9")
+    with no_pillow():
+        unb_launches, unb_s1_launches, unb_errs = phase_unbounded(
+            dev, {r["name"]: r["ms"] for r in results})
+    lap("phase 10")
     for r in results:
         # the largest error over phase 3 and the paths' own shapes
         r["max_abs_err"] = max([r["max_abs_err"]] + [
-            e[r["name"]] for e in (s1_errs, sdf_errs) if r["name"] in e])
+            e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs)
+            if r["name"] in e])
         path = (ws_launches if r["name"].startswith("winsort") else
                 cli_launches if r["name"].startswith("sweep") else launches)
         r["launches"] = path[r["name"]]
@@ -1759,8 +2127,13 @@ def main() -> int:
                                 s1_launches.get(r["name"], 0))
         r["sdf_launches"] = sdf_launches.get(r["name"], 0)
         r["sdf_stage1_launches"] = sdf_launches.get("stage1_" + r["name"], 0)
+        r["unbounded_launches"] = {k: v.get(r["name"], 0)
+                                   for k, v in unb_launches.items()}
+        r["unbounded_stage1_launches"] = {k: v.get(r["name"], 0)
+                                          for k, v in unb_s1_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
+            "unbounded_launches", "unbounded_stage1_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

@@ -7,9 +7,10 @@ port's codec, data/png.py) with the keys JAX's reader takes: ``fl_x`` /
 ``fl_y`` or ``camera_angle_x`` / ``camera_angle_y``, ``cx`` / ``cy``,
 ``h`` / ``w``, and a ``mask`` directory beside ``images/`` paths as alpha;
 ``dataset_from_frames`` builds the identical Dataset from in-memory frames
-(data/synthetic.py).  Downscaling, resizing an image to the json's size
-and the trainval/all splits are not ported yet (ROADMAP A6), nor are the
-colmap / dtu formats (ROADMAP A7).
+(data/synthetic.py).  The COLMAP reader is data/colmap.py.  Not ported
+yet (NotImplementedError): downscaling and resizing an image to the json's
+size, the trainval/all splits (ROADMAP A6), the colmap-style single
+transforms.json and the dtu format (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -31,13 +32,15 @@ class Dataset:
     """In-memory dataset; all arrays are host numpy."""
     poses: np.ndarray                 # [B, 4, 4] cam2world, float32
     images: Optional[np.ndarray]      # [B, H, W, C] uint8
-    intrinsics: np.ndarray            # [4] fx fy cx cy
+    intrinsics: np.ndarray            # [4] fx fy cx cy, or [B, 4] a view
     H: int
     W: int
     projection: np.ndarray            # [4, 4]
     mvps: np.ndarray                  # [B, 4, 4]
     training: bool
     cam_near_far: Optional[np.ndarray] = None   # [B, 2] or None
+    pts_aabb: Optional[np.ndarray] = None       # [6] colmap: sparse-point box
+    pts3d: Optional[np.ndarray] = None          # [P, 3] colmap: sparse points
 
     @property
     def num_frames(self) -> int:

@@ -5,7 +5,9 @@ uint8 RGBA frames as the JAX package's ``generate_synthetic_dataset``, but
 returns them in memory, so a run needs neither disk nor Pillow;
 ``generate_synthetic_dataset`` writes them as a nerf-synthetic directory
 (transforms_{split}.json + PNGs, written by Pillow where it is importable,
-else by the port's codec, data/png.py).
+else by the port's codec, data/png.py).  ``generate_colmap_dataset`` writes
+the JAX package's COLMAP-format scene (sparse/0/*.bin + images/*.png, the
+spheres inside a textured environment sphere), with the same draws.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ class SphereScene:
     light_dir: np.ndarray = field(default_factory=lambda: np.array(
         [0.5, 0.8, 0.3], np.float32))
 
+    env_radius: float = 0.0   # >0: enclose the scene in a textured sphere
+
     def trace(self, rays_o: np.ndarray, rays_d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Returns rgb [N,3] in [0,1] and alpha [N]."""
         N = rays_o.shape[0]
@@ -57,6 +61,21 @@ class SphereScene:
             rgb[hit] = col[None, :] * lam[:, None]
             alpha[hit] = 1.0
             best_t[hit] = t[hit]
+        if self.env_radius > 0:
+            # background: the inside of an enclosing sphere with a smooth
+            # pattern (colmap-style captures have geometry on every ray)
+            miss = ~np.isfinite(best_t)
+            if miss.any():
+                b = np.sum(rays_o[miss] * d[miss], -1)
+                cc = np.sum(rays_o[miss] ** 2, -1) - self.env_radius ** 2
+                t = -b + np.sqrt(np.maximum(b * b - cc, 0))
+                p = rays_o[miss] + t[:, None] * d[miss]
+                n = p / self.env_radius
+                rgb[miss] = 0.5 + 0.35 * np.stack([
+                    np.sin(3 * n[:, 0]) * np.cos(2 * n[:, 1]),
+                    np.sin(4 * n[:, 1]),
+                    np.cos(3 * n[:, 2])], -1)
+                alpha[miss] = 1.0
         return rgb, alpha
 
     def sdf(self, pts: np.ndarray) -> np.ndarray:
@@ -154,4 +173,109 @@ def generate_synthetic_dataset(root: str, scene: SphereScene | None = None,
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": fr["camera_angle_x"],
                        "frames": frames}, f)
+    return root
+
+
+def generate_colmap_dataset(
+    root: str,
+    scene: SphereScene | None = None,
+    H: int = 96,
+    W: int = 96,
+    n_images: int = 20,
+    radius: float = 2.8,
+    n_points: int = 2000,
+    seed: int = 0,
+) -> str:
+    """Write a synthetic COLMAP-format dataset (sparse/0/{cameras,images,
+    points3D}.bin + images/frame_*.png) rendered from the analytic scene,
+    the one the JAX package's generate_colmap_dataset writes from the same
+    seed: one PINHOLE camera with a 45-degree field of view, n_images
+    cameras on a sphere of `radius` looking at the origin, and n_points
+    sparse points on the spheres and the environment sphere (1-based ids,
+    each with its track of the images it projects into).  Returns root."""
+    from .colmap_utils import (Camera, Image, Point3D, rotmat2qvec,
+                               write_cameras_binary, write_images_binary,
+                               write_points3d_binary)
+
+    # colmap-style captures have real background geometry on every ray
+    scene = scene or SphereScene(env_radius=radius * 2.0)
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+
+    fl = W / (2 * np.tan(np.deg2rad(45) / 2))
+    cams = {1: Camera(1, "PINHOLE", W, H,
+                      np.array([fl, fl, W / 2, H / 2], np.float64))}
+
+    # sparse points on the spheres and on the background (pts_aabb and the
+    # per-view near/far derive from them)
+    pts = []
+    n_obj = (2 * n_points // 3) // len(scene.radii)
+    for c, r in zip(scene.centers, scene.radii):
+        d = rng.normal(size=(n_obj, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pts.append(c + r * d)
+    if scene.env_radius > 0:
+        d = rng.normal(size=(n_points - n_obj * len(scene.radii), 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pts.append(d * scene.env_radius)
+    pts3d = np.concatenate(pts)
+
+    images = {}
+    points = {}
+    tracks = {i: [] for i in range(len(pts3d))}
+    for k in range(n_images):
+        theta = np.arccos(rng.uniform(0.05, 0.95))
+        phi = rng.uniform(0, 2 * np.pi)
+        center = np.array([radius * np.sin(theta) * np.sin(phi),
+                           radius * np.cos(theta),
+                           radius * np.sin(theta) * np.cos(phi)])
+        # CV convention: +z forward (towards the origin), x right, y down
+        fwd = -center / np.linalg.norm(center)
+        upw = np.array([0.0, 1, 0])
+        right = np.cross(fwd, upw)
+        right /= np.linalg.norm(right) + 1e-9
+        ydown = np.cross(fwd, right)
+        R_c2w = np.stack([right, ydown, fwd], axis=-1)
+        Rw2c = R_c2w.T
+        t = -Rw2c @ center
+
+        # CV rays: dir_cam = [(i - cx) / f, (j - cy) / f, 1]
+        jj, ii = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5,
+                             indexing="ij")
+        dirs_cam = np.stack([(ii - W / 2) / fl, (jj - H / 2) / fl,
+                             np.ones_like(ii)], -1).reshape(-1, 3)
+        dirs_w = dirs_cam @ R_c2w.T
+        rays_o = np.broadcast_to(center, dirs_w.shape)
+        rgb, alpha = scene.trace(rays_o.astype(np.float32),
+                                 dirs_w.astype(np.float32))
+        img = (np.clip(rgb.reshape(H, W, 3), 0, 1) * 255).astype(np.uint8)
+        name = f"frame_{k:04d}.png"
+        write_image(os.path.join(root, "images", name), img)
+
+        # the sparse points this view sees: its xys and the points' tracks
+        pc = (pts3d @ Rw2c.T) + t
+        vis = pc[:, 2] > 0.1
+        uv = np.stack([pc[:, 0] / pc[:, 2] * fl + W / 2,
+                       pc[:, 1] / pc[:, 2] * fl + H / 2], -1)
+        vis &= (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+        vis_ids = np.nonzero(vis)[0]
+        xys = uv[vis_ids]
+        p3d_ids = vis_ids + 1   # colmap ids are 1-based
+        for j, pid in enumerate(vis_ids):
+            tracks[pid].append((k + 1, j))
+        images[k + 1] = Image(
+            k + 1, rotmat2qvec(Rw2c), t, 1, name,
+            xys, p3d_ids.astype(np.int64))
+
+    for i, p in enumerate(pts3d):
+        tr = tracks[i] or [(1, 0)]
+        points[i + 1] = Point3D(
+            i + 1, p, np.array([128, 128, 128]), 0.5,
+            np.array([a for a, _ in tr]), np.array([b for _, b in tr]))
+
+    sp = os.path.join(root, "sparse", "0")
+    write_cameras_binary(cams, os.path.join(sp, "cameras.bin"))
+    write_images_binary(images, os.path.join(sp, "images.bin"))
+    write_points3d_binary(points, os.path.join(sp, "points3D.bin"))
     return root

@@ -1,6 +1,12 @@
 """CLI entry point of the port (counterpart of nerf2mesh_tpu/main.py).
 
-Usage:  python -m nerf2mesh_tpu_torch.main <blender dir> [flags of config.py]
+Usage:  python -m nerf2mesh_tpu_torch.main <data dir> [flags of config.py]
+
+The data dir is a blender scene (transforms_{split}.json), or a COLMAP
+capture under --data_format colmap (sparse/0/*.bin + images/): then the ray
+box shrinks to the sparse points' box before training, and the unbounded
+recipes run at --bound > 1 (cascades), with --contract, --enable_cam_center
+and --enable_cam_near_far.
 
 Runs on the first CUDA card.  Stage 0: --ckpt latest|scratch|<path> (under
 --sdf, scratch first fits the SDF to a double sphere), then either --test
@@ -18,9 +24,9 @@ non-zero when there is no card; from Python, ``main(argv, device="cpu")``
 runs on the CPU.
 
 Not ported yet (NotImplementedError naming the ROADMAP item, raised before
-any work): the colmap/dtu providers, bound > 1 and more than one device
-(A7), the trainer's A6 options; --vis_pose (A7) raises once the datasets
-are loaded.
+any work): the dtu provider and more than one device (A7), the trainer's
+A6 options (depth supervision among them); --vis_pose (A7) raises once the
+datasets are loaded.
 """
 
 from __future__ import annotations
@@ -36,7 +42,6 @@ def main(argv: Optional[List[str]] = None, device=None):
     import torch
 
     from .config import parse_args
-    from .data.provider import load_nerf_dataset as load_dataset
     from .utils.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
     from .utils.trainer import Trainer, check_supported
 
@@ -48,7 +53,11 @@ def main(argv: Optional[List[str]] = None, device=None):
                 "runs on the card (from Python, main(argv, device='cpu') "
                 "runs it on the CPU)")
         device = "cuda:0"
-    if cfg.data_format != "nerf":
+    if cfg.data_format == "colmap":
+        from .data.colmap import load_colmap_dataset as load_dataset
+    elif cfg.data_format == "nerf":
+        from .data.provider import load_nerf_dataset as load_dataset
+    else:
         raise NotImplementedError(f"the {cfg.data_format} provider is not "
                                   "ported yet (ROADMAP A7)")
     if any(int(n) > 1 for n in cfg.mesh_shape):
@@ -96,6 +105,8 @@ def main(argv: Optional[List[str]] = None, device=None):
     valid_ds = load_dataset(cfg, split="val")
     if cfg.vis_pose:
         raise NotImplementedError("--vis_pose is not ported yet (ROADMAP A7)")
+    if cfg.data_format == "colmap":
+        trainer.update_aabb(train_ds.pts_aabb)
 
     trainer.metrics = [PSNRMeter()]
     if cfg.stage == 1:

@@ -4,14 +4,22 @@
 marching grid, masked by the trained density grid -> marching tetrahedra
 (host; in SDF mode the SDF's zero level, unmasked) -> visibility culling
 against the training cameras (the rasterizer's triangle ids per view) ->
-clean -> decimate -> mesh_0.ply.  The outer cascades of bound > 1 scenes
-are not ported (check_supported refuses them, ROADMAP A7).  A failure of any step, the cull included, fails the export.
+clean -> decimate -> mesh_0.ply.  At bound > 1 the outer cascades follow
+(reference renderer.py:546-672): each cascade c >= 1 marches its own
+density grid at min(env_reso, grid_size), carves the centre the inner
+cascades cover, scales to its bound, drops what lies outside the ray box,
+cleans, decimates to half the target, culls, and writes mesh_{c}.ply; a
+cascade with nothing left writes no file, as in the JAX package.  In SDF
+mode the contracted field's zero level at grid bound 2, carved and
+uncontracted, is mesh_1.ply.  A failure of any step, the cull included,
+fails the export.
 
 ``export_stage1_package``: per cascade, unwrap UVs, bake the diffuse and
 specular-feature textures by rasterizing in UV space and querying the
 field's geo_feat at the interpolated world positions, inpaint chart borders,
 downscale by ssaa, and write OBJ + MTL + JPEGs and the specular MLP as
-mlp.json for renderer.html.
+mlp.json for renderer.html.  Under contraction the unwrap and the bake take
+the contracted positions.
 
 Both return the wall seconds of their stages.
 """
@@ -26,6 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..ops.contraction import contract_np, uncontract_np
 from . import meshops
 from .io import write_obj, write_ply
 from .marching_cubes import marching_cubes
@@ -108,14 +117,12 @@ def mark_unseen_triangles(verts: np.ndarray, tris: np.ndarray,
 def export_stage0_mesh(trainer, out_dir: str, resolution: int = 512,
                        decimate_target: int = 300000,
                        dataset=None) -> Dict[str, float]:
-    """The inner mesh in [-1, 1]^3 -> <out_dir>/mesh_0.ply; culled against
-    dataset's cameras when it is given and cfg.mesh_visibility_culling.
-    Returns the wall seconds of: density, mcubes, cull, clean_decimate."""
+    """The inner mesh in [-1, 1]^3 -> <out_dir>/mesh_0.ply, and at bound > 1
+    the outer cascades' mesh_{c}.ply; culled against dataset's cameras when
+    it is given and cfg.mesh_visibility_culling.  Returns the wall seconds
+    of: density, mcubes, cull, clean_decimate (the inner mesh) and, at
+    bound > 1, outer."""
     cfg = trainer.cfg
-    if trainer.render_spec.grid_bound > 1:
-        raise NotImplementedError(
-            "the outer-cascade mesh export (bound > 1) is not ported yet "
-            "(ROADMAP A7)")
     os.makedirs(out_dir, exist_ok=True)
     dev = trainer.device
     secs: Dict[str, float] = {}
@@ -167,7 +174,82 @@ def export_stage0_mesh(trainer, out_dir: str, resolution: int = 512,
     write_ply(os.path.join(out_dir, "mesh_0.ply"), verts, tris)
     trainer.log(f"[INFO] exported mesh_0.ply: v={verts.shape} f={tris.shape} "
                 f"(marched {n_mc} faces, {n_cull} after the cull)")
+
+    if trainer.render_spec.grid_bound > 1:
+        t0 = time.perf_counter()
+        _export_outer_cascades(trainer, out_dir, resolution, decimate_target,
+                               dataset, density_thresh)
+        secs["outer"] = time.perf_counter() - t0
     return secs
+
+
+def _export_outer_cascades(trainer, out_dir: str, resolution: int,
+                           decimate_target: int, dataset,
+                           density_thresh: float) -> None:
+    """mesh_{c}.ply of the cascades c >= 1 (JAX export.py:362-442)."""
+    cfg, rspec = trainer.cfg, trainer.render_spec
+    dec = decimate_target // 2
+    if cfg.sdf:
+        # the contracted field's zero level, its centre carved
+        sig = _query_density_grid(trainer, resolution, bound=2.0)
+        v_out, t_out = marching_cubes(-sig, 0.0)
+        v_out = v_out / (resolution - 1.0) * 2 - 1
+        v_out, t_out = meshops.remove_selected_verts(
+            v_out, t_out, meshops.select_inside_box(0.5))
+        v_out = v_out * (2.0 - 2.0 / resolution)
+        v_out, t_out = meshops.clean_mesh(
+            v_out, t_out, min_f=cfg.clean_min_f, min_d=cfg.clean_min_d)
+        if dec > 0 and len(t_out) > dec * 2:
+            v_out, t_out = meshops.decimate_mesh(v_out, t_out, dec * 2)
+        v_out = uncontract_np(v_out)
+        v_out, t_out = meshops.remove_selected_verts(
+            v_out, t_out, meshops.select_outside_box(trainer._aabb))
+        if len(t_out) > 0:
+            write_ply(os.path.join(out_dir, "mesh_1.ply"), v_out, t_out)
+            trainer.log(f"[INFO] exported mesh_1.ply: v={v_out.shape} "
+                        f"f={t_out.shape}")
+        return
+    grid_all = trainer.render.density_grid.cpu().numpy()
+    for cas in range(1, rspec.cascades):
+        occ = np.nan_to_num(np.array(grid_all[cas], np.float32), nan=0.0)
+        # the grid's own resolution at most: env_reso above it is ignored,
+        # as in the JAX package
+        reso = min(cfg.env_reso, int(occ.shape[0]))
+        bound = min(2 ** cas, rspec.grid_bound)
+        half = bound / reso
+        if reso != occ.shape[0]:
+            from scipy.ndimage import zoom
+            occ = np.nan_to_num(zoom(occ, reso / occ.shape[0], order=1),
+                                nan=0.0)
+        v_out, t_out = marching_cubes(occ, density_thresh)
+        if len(t_out) == 0:
+            continue
+        v_out = v_out / (reso - 1.0) * 2 - 1
+        v_out, t_out = meshops.remove_selected_verts(
+            v_out, t_out, meshops.select_inside_box(0.45))
+        if len(v_out) == 0:
+            continue
+        v_out = v_out * (bound - half)
+        aabb = trainer._aabb.copy()
+        aabb[:3] += half
+        aabb[3:] -= half
+        v_out, t_out = meshops.remove_selected_verts(
+            v_out, t_out, meshops.select_outside_box(aabb))
+        v_out, t_out = meshops.clean_mesh(
+            v_out, t_out, min_f=cfg.clean_min_f, min_d=cfg.clean_min_d)
+        if len(t_out) == 0:
+            continue
+        if dec > 0 and len(t_out) > dec:
+            v_out, t_out = meshops.decimate_mesh(v_out, t_out, dec)
+        if dataset is not None and cfg.mesh_visibility_culling:
+            vis_mask = mark_unseen_triangles(v_out, t_out, dataset.mvps,
+                                             dataset.H, dataset.W,
+                                             device=trainer.device)
+            v_out, t_out = meshops.remove_masked_trigs(
+                v_out, t_out, vis_mask, dilation=cfg.visibility_mask_dilation)
+        write_ply(os.path.join(out_dir, f"mesh_{cas}.ply"), v_out, t_out)
+        trainer.log(f"[INFO] exported mesh_{cas}.ply: v={v_out.shape} "
+                    f"f={t_out.shape}")
 
 
 def _grow(mask: torch.Tensor, n: int, dilate: bool) -> torch.Tensor:
@@ -212,6 +294,7 @@ def export_stage1_package(trainer, out_dir: str, h0: int = 2048,
     from ..data.jpeg import resize_bilinear, save_jpeg
     from ..models.network import density, geo_feat
     from ..models.rasterizer import RasterSpec, interpolate, rasterize_crop
+    from ..ops.contraction import contract
     from .uvatlas import unwrap_uv
 
     cfg = trainer.cfg
@@ -265,10 +348,7 @@ def export_stage1_package(trainer, out_dir: str, h0: int = 2048,
              - mesh.v_cumsum[cas])
 
         t0 = time.perf_counter()
-        if cfg.contract:
-            raise NotImplementedError(
-                "the contracted stage-1 export is not ported yet (ROADMAP A7)")
-        vmapping, ft, vt = unwrap_uv(v, f)
+        vmapping, ft, vt = unwrap_uv(contract_np(v) if cfg.contract else v, f)
         secs["unwrap"] += time.perf_counter() - t0
         trainer.log(f"[INFO] unwrap cas {cas}: charts over v={len(v)} "
                     f"f={len(f)} -> uvv={len(vt)}")
@@ -336,6 +416,8 @@ def export_stage1_package(trainer, out_dir: str, h0: int = 2048,
             # the field runs on the covered pixels of many tiles at once
             pix = iy * tile + ix
             pts = interpolate(world_attr, r, sub).reshape(-1, 3)[pix]
+            if cfg.contract:
+                pts = contract(pts)
             nrm = (interpolate(nrm_attr, r, sub).reshape(-1, 3)[pix]
                    if shell_k > 1 else pts)
             pending.append(((y0 + iy) * w + x0 + ix, pts, nrm))

@@ -17,9 +17,12 @@ table the plain ``hashgrid_encode``.  Parameters keep the JAX pytree layout:
 ``table`` [total, 3] and ``*_net.<layer>.w`` [in, out] (utils/convert.py
 maps between the two).
 
-SDF mode adds the central-difference normal (``finite_diff_normal``) and
-the double-sphere pretraining loss (``sdf_pretrain_loss``).  Not ported
-yet (NotImplementedError): per-image codes, separate tables (ROADMAP A6).
+The field covers [-bound, bound]^3 of its spec (the grid bound: the
+scene's bound, or 2 under contraction), with the finest level at 2048 *
+bound cells.  SDF mode adds the central-difference normal
+(``finite_diff_normal``) and the double-sphere pretraining loss
+(``sdf_pretrain_loss``).  Not ported yet (NotImplementedError): per-image
+codes, separate tables (ROADMAP A6).
 """
 
 from __future__ import annotations

@@ -5,8 +5,12 @@ call, round-robin), ``mark_untrained_grid`` (numpy), the training render
 ``render_train`` with valid-sample pool compaction, and the early-exit eval
 march (``render_eval_segment``, ``render_frame_queue``).  In SDF mode the
 field's raw SDF becomes a NeuS alpha (``neus_alpha_from_sdf``) from the
-finite-difference normal.  Cascades and the trainable density grid are not
-ported yet (ROADMAP queue A).
+finite-difference normal.
+
+At bound > 1 the grid has 1 + ceil(log2(grid bound)) cascades, cascade c
+covering [-min(2^c, grid bound), +...]^3; under contraction the field and
+the grid see contracted positions in [-2, 2]^3 (grid bound 2, two
+cascades).  The trainable density grid is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -48,12 +52,6 @@ class RenderSpec:
     def cascades(self) -> int:
         gb = self.grid_bound
         return 1 + int(math.ceil(math.log2(gb))) if gb > 1 else 1
-
-
-def check_supported(spec: RenderSpec) -> None:
-    if spec.contract or spec.cascades > 1:
-        raise NotImplementedError(
-            "cascades / contracted scenes are not ported yet (ROADMAP A7)")
 
 
 @dataclass
@@ -270,8 +268,12 @@ def render_train(
     pool_size: Optional[int] = None,
     cos_anneal_ratio: float = 1.0,
     normal_epsilon: float = 1e-4,
+    cam_near_far: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """One training-mode volumetric render (reference renderer.py:676-748).
+
+    cam_near_far [N, 2]: each ray's view near/far (enable_cam_near_far),
+    which clamps the aabb's slab.
 
     pool_size: valid samples are compacted into a pool of that size before
     the field evaluation, so the field costs O(pool) instead of
@@ -280,12 +282,14 @@ def render_train(
     the samples' alpha is NeuS's from the FD normal at normal_epsilon, and
     `normal` holds the raw normals of the evaluated points (zero at the
     out-of-pool slots, whose taps all clip to one corner)."""
-    check_supported(spec)
     N = rays_o.shape[0]
     if aabb is None:
         rb = spec.bound
         aabb = torch.tensor([-rb, -rb, -rb, rb, rb, rb], device=rays_o.device)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, spec.min_near)
+    if cam_near_far is not None:
+        nears = torch.maximum(nears, cam_near_far[:, 0])
+        fars = torch.minimum(fars, cam_near_far[:, 1])
     m = sample_rays(
         rays_o, rays_d, occ_grid, nears, fars,
         num_coarse=spec.num_coarse, num_fine=spec.num_fine,
@@ -385,7 +389,6 @@ def render_eval_segment(
     their count (one host sync).  The JAX package's fixed-size pool with a
     lax.cond dense fallback was a static-shape device workaround and gives
     the same values."""
-    check_supported(spec)
     N, K = rays_o.shape[0], spec.num_fine
     m = sample_rays(
         rays_o, rays_d, occ_grid, nears, fars,

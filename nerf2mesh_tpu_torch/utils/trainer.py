@@ -38,11 +38,18 @@ bias correction continue, as optax's count does).  Under
 ``enable_offset_nerf_grad`` (which ``--sdf`` turns on) the offsets also
 take the gradient of the field query at the surface points.
 
+Unbounded scenes (bound > 1): the density grid has one cascade per
+octave of the grid bound and the sampler picks each point's cascade;
+``update_aabb`` shrinks the ray box to the colmap points' box, a colmap
+dataset's per-view intrinsics give each ray its own, and under
+``enable_cam_near_far`` each ray's near/far is clamped to its view's.
+Under ``contract`` the field sees contracted positions (grid bound 2).
+
 The trainer runs on the card unless the caller asks for another device.
 
-Not ported yet (NotImplementedError, ROADMAP queue A): orbax checkpoints,
-cascades/contraction, depth supervision, patches, per-image codes,
-linear color space, the trainable density grid and multi-device training.
+Not ported yet (NotImplementedError, ROADMAP A6): orbax checkpoints,
+depth supervision, patches, per-image codes, linear color space and the
+trainable density grid; multi-device training (A7).
 """
 
 from __future__ import annotations
@@ -172,13 +179,12 @@ class StepDynamics(NamedTuple):
 
 def check_supported(cfg: Config) -> None:
     unsupported = {
-        "contract": (cfg.contract, "A7"),
-        "bound > 1 (cascades)": (cfg.cascades > 1, "A7"),
         "patch_size > 1": (cfg.patch_size > 1, "A6"),
         "ind_dim > 0": (cfg.ind_dim > 0, "A6"),
         "color_space=linear": (cfg.color_space == "linear", "A6"),
-        "enable_cam_near_far": (cfg.enable_cam_near_far, "A6"),
         "trainable_density_grid": (cfg.trainable_density_grid, "A6"),
+        "enable_sparse_depth": (cfg.enable_sparse_depth, "A6"),
+        "enable_dense_depth": (cfg.enable_dense_depth, "A6"),
     }
     for name, (on, item) in unsupported.items():
         if on:
@@ -245,6 +251,7 @@ class Trainer:
         self._aabb = np.array([-cfg.bound] * 3 + [cfg.bound] * 3, np.float32)
         self._aabb_t = torch.from_numpy(self._aabb).to(self.device)
         self._train_arrays_for = None
+        self._train_cnf = None
         self.metrics = [PSNRMeter()]
         self.stats: Dict[str, object] = {"results": [], "best": None}
         # one entry per logged training step: step, loss, psnr, the rays
@@ -263,6 +270,14 @@ class Trainer:
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
+
+    def update_aabb(self, aabb: np.ndarray) -> None:
+        """Shrink the ray box to aabb [6] (a colmap dataset's pts_aabb),
+        clipped to the bound."""
+        b = self.cfg.bound
+        self._aabb = np.clip(np.asarray(aabb, np.float32), -b, b)
+        self._aabb_t = torch.from_numpy(self._aabb).to(self.device)
+        self.log(f"[INFO] update_aabb: {self._aabb.tolist()}")
 
     # -------------------------------------------------------------- step fns
     def dynamics(self, step: int) -> StepDynamics:
@@ -304,12 +319,13 @@ class Trainer:
 
     def _loss_and_metrics(self, params: NeRFField, render, images_u8, poses,
                           intrinsics, dyn: StepDynamics, num_rays: int,
-                          draws: Dict[str, torch.Tensor]):
+                          draws: Dict[str, torch.Tensor], cam_near_far=None):
         """Loss of one ray batch and its metrics (tensors, not synced).
 
         images_u8 [B, H, W, C] uint8; poses [B, 4, 4]; intrinsics (fx, fy,
-        cx, cy) floats; draws: img_idx, pix_idx [num_rays] int, bg
-        [num_rays, 3], u [num_rays, num_fine] (see draw)."""
+        cx, cy) floats or a [B, 4] tensor (a view's own); draws: img_idx,
+        pix_idx [num_rays] int, bg [num_rays, 3], u [num_rays, num_fine]
+        (see draw); cam_near_far [B, 2] or None: each view's near/far."""
         cfg, rspec, nspec = self.cfg, self.render_spec, self.net_spec
         if cfg.stochastic_fine and not cfg.sdf:
             # not in SDF mode: the 1-corner estimate makes the 6 taps of the
@@ -318,6 +334,8 @@ class Trainer:
         B, H, W, C = images_u8.shape
         img_idx, pix_idx = draws["img_idx"], draws["pix_idx"]
 
+        if torch.is_tensor(intrinsics):
+            intrinsics = intrinsics[img_idx].unbind(-1)          # per ray
         rays = get_rays(poses[img_idx], intrinsics, H, W, pix_idx)
         gt_raw = images_u8[img_idx, rays["j"], rays["i"]].float() / 255.0
         bg = (torch.ones((num_rays, 3), device=images_u8.device)
@@ -336,7 +354,9 @@ class Trainer:
             max_level=dyn.max_level,
             aabb=self._aabb_t,
             pool_size=pool, cos_anneal_ratio=dyn.cos_anneal_ratio,
-            normal_epsilon=dyn.normal_epsilon)
+            normal_epsilon=dyn.normal_epsilon,
+            cam_near_far=(None if cam_near_far is None
+                          else cam_near_far[img_idx]))
 
         pred_rgb = out["image"]
         loss_per_ray = cfg.lambda_rgb * CRITERIA[cfg.criterion](
@@ -403,7 +423,8 @@ class Trainer:
 
     def train_step(self, images_u8, poses, intrinsics, num_rays: int,
                    dyn: StepDynamics,
-                   draws: Optional[Dict[str, torch.Tensor]] = None):
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   cam_near_far: Optional[torch.Tensor] = None):
         """One optimizer step; returns the step's metrics (device tensors)."""
         if draws is None:
             B, H, W, _ = images_u8.shape
@@ -411,7 +432,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._loss_and_metrics(
             self.params, self.render, images_u8, poses, intrinsics, dyn,
-            num_rays, draws)
+            num_rays, draws, cam_near_far)
         loss.backward()
         # a parameter outside this step's graph (the specular head during the
         # diffuse warmup) gets a zero gradient, as JAX's value_and_grad gives
@@ -522,14 +543,24 @@ class Trainer:
         return max(b, lo)
 
     def _prep_train_arrays(self, dataset: Dataset):
+        """(images, poses, intrinsics) on the device: the intrinsics as
+        floats, or a [B, 4] tensor when the views have their own.  Keeps
+        the views' near/far in self._train_cnf under enable_cam_near_far."""
         if self._train_arrays_for is dataset:
             return self._train_arrays
         dev = self.device
+        intr = np.asarray(dataset.intrinsics, np.float32)
         self._train_arrays = (
             torch.from_numpy(np.ascontiguousarray(dataset.images)).to(dev),
             torch.from_numpy(np.asarray(dataset.poses, np.float32)).to(dev),
-            tuple(float(v) for v in dataset.intrinsics_for(0)),
+            torch.from_numpy(intr).to(dev) if intr.ndim == 2
+            else tuple(float(v) for v in intr),
         )
+        self._train_cnf = (
+            torch.from_numpy(np.asarray(dataset.cam_near_far, np.float32)).to(
+                dev)
+            if self.cfg.enable_cam_near_far
+            and dataset.cam_near_far is not None else None)
         self._train_arrays_for = dataset
         return self._train_arrays
 
@@ -550,7 +581,8 @@ class Trainer:
         nr = (self._bucket(self.num_rays) if cfg.adaptive_num_rays
               else cfg.num_rays)
         metrics = self.train_step(images, poses, intrinsics, nr,
-                                  self.dynamics(step))
+                                  self.dynamics(step),
+                                  cam_near_far=self._train_cnf)
         if self.step % iv == 0:
             self._probe(metrics, nr)
         return metrics, nr
@@ -763,6 +795,8 @@ class Trainer:
         sub = (torch.arange(Cs, dtype=torch.float32, device=dev) + 0.5) / ss
         jj = (cy0 + sub[:, None]).expand(Cs, Cs)
         ii = (cx0 + sub[None, :]).expand(Cs, Cs)
+        if torch.is_tensor(intrinsics):
+            intrinsics = intrinsics[img].unbind(-1)
         dcam = pixel_dirs_cam(ii.reshape(-1), jj.reshape(-1), intrinsics)
         dirs = (dcam @ poses[img, :3, :3].T).reshape(Cs, Cs, 3)
 

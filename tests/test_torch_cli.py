@@ -3,8 +3,9 @@ small-table ref layout, with Pillow and JAX blocked, so that the PNG codec
 writes and reads the scene and the eval images, the video falls back to an
 .npz and the JPEG writer writes the textures: stage 0 with the sharpen
 phase, and the two-stage flow (mesh export, stage 1 with a refine, the
-textured export, --test and a reload); stage-1 checkpoints between the JAX
-package and the port both ways; mlp.json through the viewer emulation; and
+textured export, --test and a reload); the unbounded flow on a COLMAP
+capture at bound 4 (three cascades, the views' near/far); stage-1
+checkpoints between the JAX package and the port both ways; mlp.json through the viewer emulation; and
 the CLI's and the Trainer's refusal to run without a card unless the
 caller asks for the CPU.
 """
@@ -162,6 +163,68 @@ fresh.setup_stage1(load_nerf_dataset(cfg, "train"))
 assert fresh.load_checkpoint() and fresh.step == 8
 res = fresh.evaluate(load_nerf_dataset(cfg, "val"), track_best=False)
 assert abs(res["PSNR"] - psnr) <= 1e-4, (res, psnr)
+mods = [k for k in sys.modules if k.split(".")[0] in ("PIL", "jax",
+        "jaxlib", "nerf2mesh_tpu") and sys.modules[k] is not None]
+assert not mods, mods
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), \
+        res.stdout[-3000:] + res.stderr[-3000:]
+
+
+def test_colmap_cascade_cli_on_the_cpu(tmp_path):
+    """--data_format colmap --bound 4 --enable_cam_near_far through both
+    stages at 32^2 with Pillow and JAX blocked, as tests/test_cascade_e2e.py
+    runs the JAX CLI: the inner mesh within the unit box, an outer
+    cascade's mesh past it and within the bound, then stage 1 over every
+    cascade's mesh and one OBJ set a cascade."""
+    code = f"""
+import sys
+for m in ("PIL", "jax", "nerf2mesh_tpu"):
+    sys.modules[m] = None
+import json, math, os
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from nerf2mesh_tpu_torch.data.synthetic import generate_colmap_dataset
+from nerf2mesh_tpu_torch.main import main
+from nerf2mesh_tpu_torch.meshing.io import read_ply
+root, ws = {str(tmp_path / "scene")!r}, {str(tmp_path / "ws")!r}
+generate_colmap_dataset(root, H=32, W=32, n_images=12, n_points=400)
+argv = [root, "--workspace", ws, "--data_format", "colmap", "--bound", "4",
+        "--scale", "1", "--enable_cam_near_far", "--num_rays", "256",
+        "--num_points", "8192", "--samples_per_ray", "32", "--max_steps",
+        "64", "--grid_size", "32", "--num_levels", "6", "--log2_hashmap_size",
+        "14", "--random_image_batch", "--n_eval", "1", "--n_ckpt", "1",
+        "--test_no_video"]
+t0 = main(argv + ["--ckpt", "scratch", "--diffuse_step", "20", "--iters",
+                  "40", "--mcubes_reso", "48", "--env_reso", "32",
+                  "--decimate_target", "3000", "--clean_min_f", "0"],
+          device="cpu")
+assert t0.render_spec.cascades == 3 and t0._train_cnf is not None
+assert all(math.isfinite(e["loss"]) for e in t0.train_log), t0.train_log
+assert "outer" in t0.stats["mesh_seconds"]
+mdir = os.path.join(ws, "mesh_stage0")
+v0, f0 = read_ply(os.path.join(mdir, "mesh_0.ply"))
+assert len(f0) > 10 and np.abs(v0).max() <= 1.0 + 1e-5
+outer = sorted(p for p in os.listdir(mdir) if p != "mesh_0.ply")
+assert outer == ["mesh_1.ply", "mesh_2.ply"], outer
+vs = [read_ply(os.path.join(mdir, p)) for p in outer]
+assert all(len(f) > 0 for _, f in vs)
+assert 1.0 < max(np.abs(v).max() for v, _ in vs) <= 4.0 + 1e-4
+t1 = main(argv + ["--stage", "1", "--iters", "8", "--lr_vert", "1e-4",
+                  "--texture_size", "64", "--s1_crop", "32"], device="cpu")
+assert t1.step == 8 and len(t1.stage1_mesh.v_cumsum) == 4
+assert all(math.isfinite(e["loss"]) and e["overflow"] == 0
+           for e in t1.train_log), t1.train_log
+out = os.path.join(ws, "mesh_stage1")
+objs = sorted(p for p in os.listdir(out) if p.endswith(".obj"))
+assert objs == ["mesh_0.obj", "mesh_1.obj", "mesh_2.obj"], objs
+mlp = json.load(open(os.path.join(out, "mlp.json")))
+assert mlp["bound"] == 4.0 and mlp["cascade"] == 3
 mods = [k for k in sys.modules if k.split(".")[0] in ("PIL", "jax",
         "jaxlib", "nerf2mesh_tpu") and sys.modules[k] is not None]
 assert not mods, mods
@@ -351,9 +414,11 @@ def test_unported_cli_paths_raise(tmp_path):
     base = [str(tmp_path), "--workspace", str(tmp_path / "ws"), "--bound",
             "1", "--num_levels", "4", "--log2_hashmap_size", "12",
             "--grid_size", "16", "--test_no_mesh"]
-    for extra, item in ((["--data_format", "colmap"], "A7"),
+    for extra, item in ((["--data_format", "dtu"], "A7"),
                         (["--mesh_shape", "2"], "A7"),
-                        (["--bound", "2"], "A7"),
+                        (["--enable_sparse_depth"], "A6"),
+                        (["--data_format", "colmap", "--enable_dense_depth"],
+                         "A6"),
                         (["--patch_size", "4"], "A6"),
                         (["--color_space", "linear"], "A6")):
         # each names its item before any work, with or without the mesh

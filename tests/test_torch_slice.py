@@ -214,7 +214,9 @@ def test_port_training_loss_falls(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw, item in ((dict(bound=2.0), "A7"), (dict(patch_size=4), "A6"),
+    for kw, item in ((dict(enable_sparse_depth=True), "A6"),
+                     (dict(enable_dense_depth=True), "A6"),
+                     (dict(patch_size=4), "A6"),
                      (dict(color_space="linear"), "A6"),
                      (dict(ind_dim=4), "A6"),
                      (dict(trainable_density_grid=True), "A6")):
