@@ -55,12 +55,13 @@ Phases, in order; any failure exits non-zero:
      vertices within 0.05 of the scene's analytic surface; then main --test
      reloads the checkpoint, and a fresh Trainer loaded from it reproduces
      the step-512 val PSNR within 1e-4 dB (8 more steps and one eval frame
-     profiled); then main --stage 1 --refine --iters 64 (a refine at step
-     32, textures 1024^2): finite losses, overflow 0, K4 and K4b launched by
+     profiled); then main --stage 1 --refine --iters CLI_S1_STEPS (a
+     refine at half of them, textures 1024^2): finite losses, overflow 0, K4 and K4b launched by
      the stage-1 training alone, mesh_stage1/ with the OBJ, MTL, JPEGs that
      decode and mlp.json's keys; main --stage 1 --test, and a fresh stage-1
      Trainer reproduces the stage-1 val PSNR within 1e-4 dB;
-  8. stage1 (Pillow blocked): the phase-4 field trains 256 more steps, then
+  8. stage1 (Pillow blocked): the phase-4 field trains MESH_FIELD_STEPS
+     more steps, then
      save_mesh at S1_MCUBES^3 (cut from the default 512^3) with
      decimate_target 3e5 and visibility culling
      against the 24 train views; a stage-1 Trainer at bench.py's width
@@ -97,12 +98,13 @@ Phases, in order; any failure exits non-zero:
      inside a textured environment sphere, every 8th view val) through
      nerf2mesh_tpu_torch.main --data_format colmap at bench.py's width,
      in three runs, each mesh decimated to UNB_DECIMATE (the outer
-     cascades to half): (a) the LLFF recipe (runall_llff.sh: -O's flags
-     but fp16 and the visibility cull, --bound 4 --enable_cam_near_far, 3
-     cascades, no sharpen phase): UNB_STEPS steps, the val eval, the inner
+     cascades to half): (a) the LLFF recipe (runall_llff.sh: -O's flags,
+     fp16 included, but the visibility cull, --bound 4
+     --enable_cam_near_far, 3 cascades, no sharpen phase): UNB_STEPS
+     steps, the val eval, the inner
      mesh at UNB_MCUBES^3 and the outer cascades', then --stage 1 --iters
      UNB_S1_STEPS (-O's shell recipe, a
-     refine at step 32), the export at UNB_TEXTURE^2 and a stage-1 reload
+     refine at half of them), the export at UNB_TEXTURE^2 and a stage-1 reload
      that reproduces the recorded val PSNR within 1e-4 dB; (b) the 360
      recipe's geometry (runall_360.sh: --bound 16 --enable_cam_center
      --enable_cam_near_far --lambda_entropy 1e-3 --lambda_tv 2e-8, 5
@@ -120,8 +122,39 @@ Phases, in order; any failure exits non-zero:
      the val PSNR of the diffuse render (the eval shades "full" before
      diffuse_step), pack_bits ms at the run's cascades, the export stages'
      walls, peak memory.
+ 11. captures (Pillow, cv2 and sklearn blocked): a COLMAP capture written
+     by generate_colmap_dataset as CAP_VIEWS 4:2:0 JPEGs at CAP_SIZE^2 (no
+     images_4/, so --downscale 4 decodes each 1 MP file and resizes it to
+     256^2) with depths/*.npy at CAP_DEPTH^2 (0.7 z + 0.3 of the analytic
+     z-depth, 5% outlier pixels); its train split loaded once with the JPEG
+     decode, the resizes and the RANSAC fits timed (the decode's ms per MP,
+     gated at 0.5 s per MP) and each view's fit checked against the maps'
+     affine (median view within 1% in a and c, 3/4 of the views in a);
+     then three CLI runs at bench width with -O's fp16: (a) the
+     runall_sdf_outdoor.sh recipe (-O's flags but the visibility cull,
+     --sdf --bound 16 --scale CAP_SCALE --downscale 4 --enable_cam_center
+     --enable_cam_near_far --enable_dense_depth --lambda_entropy 1e-3
+     --lambda_normal 1e-1, contracted, 2 cascades): the pretrain cut to
+     SDF_PRETRAIN, CAP_STEPS of the recipe's 30000 steps, the evals, the
+     meshes at CAP_MCUBES^3 decimated to CAP_DECIMATE, then --stage 1
+     --iters CAP_S1_STEPS (one refine, at step 16) and the export at
+     CAP_TEXTURE^2; (b) the LLFF recipe with
+     --enable_sparse_depth, CAP_SPARSE_STEPS steps; (c) a blender scene at
+     OPT_SIZE^2 with -O's fp16 and --downscale 2 --train_split trainval
+     --patch_size 4
+     --color_space linear --trainable_density_grid --lambda_density 1e-4
+     --ind_dim 4, OPT_STEPS steps and the evals.  Each run: logged losses
+     finite and falling, evals finite, K1-K3 launched by its training and
+     held (K1 exact, K2/K3 within phase 3's tolerances) at one more step's
+     arguments, 8 steps profiled (the loss "falls" when the mean of the
+     last quarter of its steps is below the first quarter's: a patch step
+     sees one view); the depth term zero at step 0 (its ramp)
+     and non-zero on every later step that carries depth ((b): those whose
+     sparse-depth draw is on; zero on the others); (a) mesh_0.ply not
+     empty and within the unit box, stage 1 with overflow 0, K2/K3
+     launched and held, one OBJ a cascade.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
-phases 8's, 9's and 10's shapes.
+phases 8's, 9's, 10's and 11's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
@@ -130,7 +163,9 @@ and K3, phase 7 for K4 and K4b; "sdf_launches" and "sdf_stage1_launches":
 phase 9's stage-0 and stage-1 training's; "unbounded_launches": phase 10's
 three stage-0 trainings' by run, "llff", "360" and "contract", and
 "unbounded_stage1_launches" its two stage-1 trainings', "llff" and
-"contract"), the last line the device record.  Imports only the port, torch, numpy and the standard library.
+"contract"; "captures_launches": phase 11's three stage-0 trainings' by
+run, "outdoor", "sparse" and "options", and "captures_stage1_launches"
+its stage-1 training's, "outdoor"), the last line the device record.  Imports only the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -158,25 +193,33 @@ WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
 CLI_STEPS = 512            # phase 7 (a field that marches to a mesh)
 CLI_MCUBES = 256           # phase 7's marching grid
-CLI_S1_STEPS = 64          # phase 7's stage 1 (a refine at step 32)
+CLI_S1_STEPS = 32          # phase 7's stage 1 (a refine at step 16; 64
+#                            until PR 11)
 CLI_TEXTURE = 1024         # phase 7's texture side
 S1_STEPS = 128             # phase 8
 S1_MCUBES = 256            # phase 8's marching grid (the default 512)
-S1_TEXTURE = 2048          # phase 8's texture side (the default 4096)
-MESH_FIELD_STEPS = 256     # phase 8: the phase-4 field trains on first
+S1_TEXTURE = 1024          # phase 8's texture side (the default 4096;
+#                            2048 until PR 11)
+MESH_FIELD_STEPS = 128     # phase 8: the phase-4 field trains on first
+#                            (256 until PR 11)
 PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
 SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
 SDF_STEPS = 128            # phase 9's stage-0 steps
 SDF_MCUBES = 256           # phase 9's marching grid
 SDF_S1_STEPS = 32          # phase 9's stage-1 steps
 SDF_SHARE_CROPS = 32       # phase 9's crops for the field's gradient share
-UNB_VIEWS = 32             # phase 10's COLMAP capture (every 8th is val)
+UNB_VIEWS = 24             # phase 10's COLMAP capture (every 8th is val;
+#                            32 until PR 11)
 UNB_SIZE = 256             # its frames' side
-UNB_STEPS = 256            # phase 10a (LLFF recipe, bound 4) stage-0 steps
-UNB_MCUBES = 256           # phase 10a's inner marching grid (default 512)
-UNB_S1_STEPS = 64          # phase 10a's stage 1
-UNB_TEXTURE = 1024         # phase 10a's texture side (default 4096)
-UNB360_STEPS = 128         # phase 10b (the 360 recipe's geometry, bound 16)
+UNB_STEPS = 128            # phase 10a (LLFF recipe, bound 4) stage-0 steps
+#                            (256 until PR 11)
+UNB_MCUBES = 128           # phase 10a's inner marching grid (default 512;
+#                            256 until PR 11)
+UNB_S1_STEPS = 32          # phase 10a's stage 1 (64 until PR 11)
+UNB_TEXTURE = 512          # phase 10a's texture side (default 4096; 1024
+#                            until PR 11)
+UNB360_STEPS = 64          # phase 10b (the 360 recipe's geometry, bound 16;
+#                            128 until PR 11)
 UNB_SIDE_MCUBES = 128      # phase 10b's and 10c's inner marching grid
 UNB_DECIMATE = 6e4         # phase 10's decimate_target (default 3e5): the
 #                            outer cascades get half each, and stage 1's
@@ -184,6 +227,26 @@ UNB_DECIMATE = 6e4         # phase 10's decimate_target (default 3e5): the
 CON_STEPS = 64             # phase 10c (10b + --contract)
 CON_S1_STEPS = 16          # phase 10c's stage 1
 CON_TEXTURE = 512          # phase 10c's texture side
+CAP_VIEWS = 32             # phase 11's JPEG capture (every 8th is val)
+CAP_SIZE = 1024            # its frames' side: 4:2:0 JPEGs, decoded at 1 MP
+CAP_DEPTH = 384            # its depths/*.npy side
+CAP_AFFINE = (0.7, 0.3)    # the maps are a * z + c of the analytic z-depth
+CAP_OUTLIERS = 0.05        # with this share of outlier pixels
+CAP_SCALE = 0.5            # --scale (runall_sdf_outdoor.sh: 0.2): cameras at
+#                            1.4, the environment at 2.8, so the pretrain's
+#                            outer shell (radius 2) lies in the points' box
+#                            and the outer cascade is not empty (ROADMAP C)
+CAP_STEPS = 128            # phase 11a: stage-0 steps of the 30000 of the
+#                            recipe (its schedule, cut after 128 steps)
+CAP_MCUBES = 128           # phase 11a's marching grid
+CAP_DECIMATE = 3e4         # its decimate_target: the SDF's outer level is
+#                            decimated to it too, and the two share stage
+#                            1's face budget (87,381 at 256^2)
+CAP_S1_STEPS = 32          # phase 11a's stage 1
+CAP_TEXTURE = 512          # phase 11a's texture side
+CAP_SPARSE_STEPS = 64      # phase 11b (the LLFF recipe + sparse depth)
+OPT_SIZE = 512             # phase 11c's blender scene side (--downscale 2)
+OPT_STEPS = 64             # phase 11c (the A6 (d) options)
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -1087,16 +1150,20 @@ def cli_argv(scene_dir, workspace, **kw):
 
 
 @contextlib.contextmanager
-def no_pillow():
-    """Run as on a machine without Pillow: the port's PNG codec and its JPEG
-    writer and downscale take over (what phases 7 and 8 time)."""
+def no_modules(*names):
+    """Run as on a machine without these packages (default Pillow): the
+    port's PNG codec, its JPEG writer and decoder, its resize filters and
+    its RANSAC take over."""
+    names = names or ("PIL",)
     saved = {k: sys.modules.pop(k) for k in list(sys.modules)
-             if k == "PIL" or k.startswith("PIL.")}
-    sys.modules["PIL"] = None
+             if k.split(".")[0] in names}
+    for n in names:
+        sys.modules[n] = None
     try:
         yield
     finally:
-        del sys.modules["PIL"]
+        for n in names:
+            del sys.modules[n]
         sys.modules.update(saved)
 
 
@@ -1294,7 +1361,7 @@ def phase_cli(dev):
             "ref eval frame")
         del fresh, tester, trainer
 
-        # stage 1 on that mesh and checkpoint: a refine at step 32, the
+        # stage 1 on that mesh and checkpoint: a refine at half its steps, the
         # textured export, then --test and a reload
         s1_argv = argv + ["--stage", "1", "--refine", "--iters",
                           str(CLI_S1_STEPS), "--refine_steps_ratio", "0.5",
@@ -1854,9 +1921,10 @@ def unbounded_stage0(dev, scene_dir, ws, run, flags, ref_ms):
     from nerf2mesh_tpu_torch.meshing.io import read_ply
     from nerf2mesh_tpu_torch.utils.trainer import Trainer
 
-    # -O's flags but fp16 (the bench's MLPs are fp32) and the visibility
-    # cull: with the cameras inside a cascade's box its subdivision of the
-    # faces near them grows 4x a pass for 6 passes (ROADMAP C)
+    # -O's flags but the visibility cull (and fp16 outside run (a), as the
+    # bench's MLPs are fp32): with the cameras inside a cascade's box its
+    # subdivision of the faces near them grows 4x a pass for 6 passes
+    # (ROADMAP C)
     base = dict(data_format="colmap", scale=-1.0, n_eval=1, n_ckpt=1,
                 test_no_video=True, refine=True, mcubes_reso=UNB_MCUBES,
                 decimate_target=UNB_DECIMATE)
@@ -2044,8 +2112,8 @@ def phase_unbounded(dev, ref_ms):
         ws = os.path.join(tmp, "llff")
         tr, argv, launches["llff"], e, _ = unbounded_stage0(
             dev, scene_dir, ws, "llff", dict(
-                bound=4.0, enable_cam_near_far=True, iters=UNB_STEPS),
-            ref_ms)
+                bound=4.0, enable_cam_near_far=True, iters=UNB_STEPS,
+                fp16=True), ref_ms)
         merge(e)
         del tr
         s1_launches["llff"], e = unbounded_stage1(
@@ -2084,6 +2152,307 @@ def phase_unbounded(dev, ref_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 11: real-capture input and the last trainer options
+# --------------------------------------------------------------------------
+
+# -O's flags but the visibility cull, which -O cannot turn off: the
+# cameras sit inside the marched box (ROADMAP C)
+O_FLAGS = dict(fp16=True, preload=True, mark_untrained=True,
+               random_image_batch=True, adaptive_num_rays=True, refine=True)
+
+
+@contextlib.contextmanager
+def patched(cls, name, make):
+    """Within: cls.name is make(the original)."""
+    real = getattr(cls, name)
+    setattr(cls, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, into):
+    """Within: each module.name adds its calls' wall seconds to
+    into[name]."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = real[n](*a, **k)
+            into[n] = into.get(n, 0.0) + time.perf_counter() - t0
+            return out
+        return f
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(module, n, f)
+
+
+def capture_load(scene_dir, argv):
+    """Load the capture's train split as the CLI does, timing the JPEG
+    decode, the resizes and the RANSAC fits; check each view's fit against
+    the maps' affine.  Returns the dataset."""
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.data import colmap as colmap_mod
+    from nerf2mesh_tpu_torch.data.resize import resize_linear
+    walls = {}
+    with timed_calls(colmap_mod, ("read_jpeg", "resize_bicubic",
+                                  "resize_linear", "fit_dense_depth"),
+                     walls):
+        t0 = time.perf_counter()
+        ds = colmap_mod.load_colmap_dataset(parse_args(argv), "train")
+        total = time.perf_counter() - t0
+    mp = ds.num_frames * CAP_SIZE * CAP_SIZE / 2 ** 20
+    log(f"[captures] load of {ds.num_frames} train views "
+        f"({CAP_SIZE}^2 4:2:0 JPEGs -> {ds.W}x{ds.H}, {CAP_DEPTH}^2 depth "
+        f"maps): {total:.3f} s, of which JPEG decode "
+        f"{walls.get('read_jpeg', 0):.3f} s "
+        f"({walls.get('read_jpeg', 0) / mp * 1e3:.2f} ms per MP over "
+        f"{mp:.1f} MP), depth resize {walls.get('resize_linear', 0):.3f} s, "
+        f"frame resize {walls.get('resize_bicubic', 0):.3f} s, RANSAC "
+        f"{walls.get('fit_dense_depth', 0):.3f} s")
+    if walls.get("read_jpeg", 0) / mp > 0.5:
+        raise AssertionError("JPEG decode above 0.5 s per MP")
+    # each view's fit maps a * z + c to scale * z: scale / s = a, -b / s = c
+    a_true, c_true = CAP_AFFINE
+    ids = [i for i in range(CAP_VIEWS) if i % 8]
+    errs = []
+    for i, m in zip(ids, ds.dense_depth):
+        raw = resize_linear(np.load(os.path.join(
+            scene_dir, "depths", f"frame_{i:04d}.npy")), ds.W, ds.H)
+        A = np.stack([raw.ravel(), np.ones(raw.size)], 1).astype(np.float64)
+        s_, b_ = np.linalg.lstsq(A, m.ravel().astype(np.float64),
+                                 rcond=None)[0]
+        errs.append((abs(CAP_SCALE / s_ / a_true - 1),
+                     abs(-b_ / s_ / c_true - 1)))
+    e = np.array(errs)
+    log(f"[captures] RANSAC's (a, c) relative errors a view: "
+        f"{np.round(e, 5).tolist()}; median a {np.median(e[:, 0]):.5f}, "
+        f"c {np.median(e[:, 1]):.5f}; views within 1% in a "
+        f"{int((e[:, 0] <= 0.01).sum())}/{len(e)}, in c "
+        f"{int((e[:, 1] <= 0.01).sum())}/{len(e)}")
+    # JAX's sklearn fit on this capture misses 1% in a on 1-3 views and in
+    # c on 8-9 of 28 (its sparse points crowd the spheres' silhouettes):
+    # the median view and 3/4 of the views in a are held to 1%
+    if not (np.median(e, axis=0).max() <= 0.01
+            and (e[:, 0] <= 0.01).mean() >= 0.75):
+        raise AssertionError(f"RANSAC fits: {e.tolist()}")
+    return ds
+
+
+def depth_steps(records, label, sparse):
+    """The depth term of each recorded step: zero at step 0 (the ramp),
+    non-zero on every later step that carries depth (dense: all; sparse:
+    those whose use_sd draw is on) and zero on the others."""
+    vals = [(float(m["depth_loss"]), None if u is None else bool(u))
+            for m, u in records]
+    carry = [v for v, u in vals[1:] if u in (None, True)]
+    rest = [v for v, u in vals[1:] if u is False]
+    log(f"[captures] {label}: depth term on {len(vals)} steps: "
+        f"{len(carry)} carry depth (min {min(carry) if carry else None}), "
+        f"{len(rest)} do not (max {max(rest) if rest else None})")
+    if not carry or min(carry) <= 0 or any(rest) or not all(
+            math.isfinite(v) for v, _ in vals):
+        raise AssertionError(f"{label}: depth terms {vals}")
+
+
+def capture_run(dev, argv, run, ref_ms, max_steps=None, sparse=False):
+    """One stage-0 CLI run of phase 11 (training capped at max_steps, the
+    SDF pretrain cut to SDF_PRETRAIN); gates its losses, evals, launches
+    and depth terms, profiles 8 steps and holds K1-K3 at one more step's
+    arguments.  Returns (trainer, launches, K1-K3 max|err|)."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    cfg = parse_args(argv)
+    log(f"[captures] {run}: main {' '.join(argv[1:])}")
+    launches, records, draws = {}, [], []
+
+    def capped(real):
+        # no eval inside the training: the CLI's final val eval follows it
+        def f(self, ds, val=None, max_steps=None):
+            return real(self, ds, None, max_steps=cap)
+        return f
+
+    def short_pretrain(real):
+        return lambda self, *a, **k: real(self, iters=SDF_PRETRAIN)
+
+    def recording_step(real):
+        def f(self, *a, **k):
+            m = real(self, *a, **k)
+            records.append(m)
+            return m
+        return f
+
+    def recording_draw(real):
+        def f(self, *a, **k):
+            d = real(self, *a, **k)
+            draws.append(d.get("use_sd"))
+            return d
+        return f
+
+    cap = max_steps or cfg.iters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    real = counting(Trainer, "train", launches)
+    try:
+        with patched(Trainer, "sdf_pretrain", short_pretrain), \
+                patched(Trainer, "train_step", recording_step), \
+                patched(Trainer, "draw", recording_draw):
+            Trainer.train = capped(Trainer.train)
+            t0 = time.perf_counter()
+            trainer = cli_main(argv, device=dev)
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+    finally:
+        Trainer.train = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tl = trainer.train_log
+    losses = [e["loss"] for e in tl]
+    half = next(e for e in tl if e["step"] >= cap // 2)
+    ms_step = ((tl[-1]["seconds"] - half["seconds"])
+               / (tl[-1]["step"] - half["step"]) * 1e3)
+    log(f"[captures] {run}: main ran {t_main:.1f} s, {trainer.step} steps "
+        f"({cfg.cascades} cascades, grid bound {cfg.grid_bound}, fp16 "
+        f"{cfg.fp16}); logged losses {np.round(losses, 5).tolist()}; steps "
+        f"{half['step']}-{tl[-1]['step']}: {ms_step:.2f} ms/step (logged "
+        f"wall); peak memory {peak:.2f} GiB; evals "
+        f"{trainer.stats['results']}; training launches {launches}")
+    # every step's loss: a patch step sees one view, so the logged ones
+    # (every cap // 10 steps) are noisy; the first and last quarters'
+    # means are compared
+    steps = [float(m["loss"]) for m in records[:cap]]
+    q = max(1, cap // 4)
+    log(f"[captures] {run}: mean loss of steps 1-{q} {np.mean(steps[:q]):.6f}, "
+        f"of steps {cap - q + 1}-{cap} {np.mean(steps[-q:]):.6f}")
+    if trainer.step != cap or not all(math.isfinite(v)
+                                      for v in losses + steps):
+        raise AssertionError(f"{run}: step {trainer.step}, losses {losses}")
+    if not np.mean(steps[-q:]) < np.mean(steps[:q]):
+        raise AssertionError(f"{run}: loss did not fall: {steps}")
+    for key in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"{run}: {key} was not launched by training")
+    res = trainer.stats["results"]
+    if not res or not all(math.isfinite(v) for r in res for v in r.values()):
+        raise AssertionError(f"{run}: evals {res}")
+    if cfg.enable_sparse_depth or cfg.enable_dense_depth:
+        depth_steps(list(zip(records, draws))[:cap], run, sparse)
+    ds = trainer._train_arrays_for
+    profile_region(lambda: trainer.train_steps(ds, PROFILE_STEPS),
+                   f"captures {run} steps {cap}-{cap + PROFILE_STEPS}",
+                   per=PROFILE_STEPS)
+    errs = hold_step_kernels(trainer, ds, f"captures {run} step", ref_ms)
+    return trainer, launches, errs
+
+
+def phase_captures(dev, ref_ms):
+    """Phase 11: (a) the runall_sdf_outdoor.sh recipe on a JPEG + depth
+    capture, stages 0 and 1; (b) the LLFF recipe with sparse depth; (c)
+    the A6 (d) options on a blender scene; with Pillow, cv2 and sklearn
+    blocked.  Returns ({run: stage-0 launches}, {run: stage-1 launches},
+    K1-K3's max|err| at the runs' shapes)."""
+    from nerf2mesh_tpu_torch.data.synthetic import (generate_colmap_dataset,
+                                                    generate_synthetic_dataset)
+    from nerf2mesh_tpu_torch.meshing.io import read_ply
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_cap_")
+    try:
+        t0 = time.perf_counter()
+        scene_dir = generate_colmap_dataset(
+            os.path.join(tmp, "capture"), H=CAP_SIZE, W=CAP_SIZE,
+            n_images=CAP_VIEWS, image_format="jpeg", jpeg_quality=95,
+            jpeg_subsampling="4:2:0", depth_size=(CAP_DEPTH, CAP_DEPTH),
+            depth_affine=CAP_AFFINE, depth_outliers=CAP_OUTLIERS)
+        log(f"[captures] capture ({CAP_VIEWS} views, {CAP_SIZE}^2 4:2:0 "
+            f"JPEGs, no images_4/, {CAP_DEPTH}^2 depth maps) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches, s1_launches, errs = {}, {}, {}
+
+        def merge(e):
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+
+        # (a) runall_sdf_outdoor.sh, stage 0 then stage 1
+        flags = dict(O_FLAGS, sdf=True, data_format="colmap", bound=16.0,
+                     scale=CAP_SCALE, downscale=4, enable_cam_center=True,
+                     enable_cam_near_far=True, enable_dense_depth=True,
+                     lambda_entropy=1e-3, lambda_normal=1e-1, n_eval=1,
+                     n_ckpt=1, test_no_video=True, mcubes_reso=CAP_MCUBES,
+                     decimate_target=CAP_DECIMATE)
+        ws = os.path.join(tmp, "outdoor")
+        argv = cli_argv(scene_dir, ws, **flags) + ["--ckpt", "scratch"]
+        capture_load(scene_dir, argv)
+        tr, launches["outdoor"], e = capture_run(dev, argv, "outdoor",
+                                                 ref_ms, CAP_STEPS)
+        merge(e)
+        meshes = {}
+        for c in range(tr.cfg.cascades):
+            p = os.path.join(ws, "mesh_stage0", f"mesh_{c}.ply")
+            if os.path.exists(p):
+                v, f = read_ply(p)
+                meshes[c] = (len(v), len(f), float(np.abs(v).max())
+                             if len(v) else 0.0)
+        log(f"[captures] outdoor: meshes (cascade: vertices, faces, max|v|) "
+            f"{meshes}; export seconds {tr.stats['mesh_seconds']}")
+        if 0 not in meshes or meshes[0][1] == 0 or meshes[0][2] > 1 + 1e-5:
+            raise AssertionError(f"outdoor: mesh_0.ply {meshes.get(0)}")
+        del tr
+        argv = [a for a in argv if a not in ("--ckpt", "scratch")]
+        s1_launches["outdoor"], e = unbounded_stage1(
+            dev, argv, "outdoor", ["--iters", str(CAP_S1_STEPS),
+                                   "--refine_steps_ratio", "0.5"],
+            CAP_TEXTURE, False)
+        merge(e)
+
+        # (b) runall_llff.sh with sparse depth
+        flags = dict(O_FLAGS, data_format="colmap", scale=-1.0, downscale=4,
+                     bound=4.0, enable_cam_near_far=True,
+                     enable_sparse_depth=True, iters=CAP_SPARSE_STEPS,
+                     n_eval=1, n_ckpt=1, test_no_video=True,
+                     test_no_mesh=True)
+        tr, launches["sparse"], e = capture_run(
+            dev, cli_argv(scene_dir, os.path.join(tmp, "sparse"), **flags),
+            "sparse", ref_ms, sparse=True)
+        merge(e)
+        del tr
+
+        # (c) the A6 (d) options on a blender scene
+        t0 = time.perf_counter()
+        blender = generate_synthetic_dataset(
+            os.path.join(tmp, "blender"), H=OPT_SIZE, W=OPT_SIZE, n_train=24,
+            n_val=N_VAL, n_test=2)
+        log(f"[captures] blender scene ({OPT_SIZE}^2, 24 + {N_VAL} + 2 "
+            f"views) written in {time.perf_counter() - t0:.1f} s")
+        flags = dict(fp16=True, downscale=2, train_split="trainval",
+                     patch_size=4,
+                     color_space="linear", trainable_density_grid=True,
+                     lambda_density=1e-4, ind_dim=4, iters=OPT_STEPS,
+                     n_eval=1, n_ckpt=1, test_no_video=True,
+                     test_no_mesh=True)
+        tr, launches["options"], e = capture_run(
+            dev, cli_argv(blender, os.path.join(tmp, "options"), **flags),
+            "options", ref_ms)
+        merge(e)
+        if tuple(tr.params.individual_codes.shape) != (tr.cfg.ind_num, 4):
+            raise AssertionError("options: no per-image codes")
+        del tr
+        return launches, s1_launches, errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2102,7 +2471,7 @@ def main() -> int:
     launches, field, ds, val = phase_slice(dev)
     ws_launches = phase_winsort(dev)
     lap("phases 4-6")
-    with no_pillow():
+    with no_modules():
         cli_launches = phase_cli(dev)
         lap("phase 7")
         s1_launches, s1_errs = phase_stage1(dev, field, ds, val)
@@ -2110,14 +2479,18 @@ def main() -> int:
     lap("phase 8")
     sdf_launches, sdf_errs = phase_sdf(dev)
     lap("phase 9")
-    with no_pillow():
+    with no_modules():
         unb_launches, unb_s1_launches, unb_errs = phase_unbounded(
             dev, {r["name"]: r["ms"] for r in results})
     lap("phase 10")
+    with no_modules("PIL", "cv2", "sklearn"):
+        cap_launches, cap_s1_launches, cap_errs = phase_captures(
+            dev, {r["name"]: r["ms"] for r in results})
+    lap("phase 11")
     for r in results:
         # the largest error over phase 3 and the paths' own shapes
         r["max_abs_err"] = max([r["max_abs_err"]] + [
-            e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs)
+            e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs, cap_errs)
             if r["name"] in e])
         path = (ws_launches if r["name"].startswith("winsort") else
                 cli_launches if r["name"].startswith("sweep") else launches)
@@ -2131,10 +2504,14 @@ def main() -> int:
                                    for k, v in unb_launches.items()}
         r["unbounded_stage1_launches"] = {k: v.get(r["name"], 0)
                                           for k, v in unb_s1_launches.items()}
+        r["captures_launches"] = {k: v.get(r["name"], 0)
+                                  for k, v in cap_launches.items()}
+        r["captures_stage1_launches"] = {k: v.get(r["name"], 0)
+                                         for k, v in cap_s1_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "captures_launches", "captures_stage1_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,18 @@ the val split; the test trajectory (``camera_traj`` circle, else a slerp
 through 5 views); a mask/ folder as alpha; per-image MVPs.  Every array is
 the JAX reader's, bit for bit (tests/test_torch_colmap.py).
 
+Depth supervision (colmap_provider.py:229-327): under
+--enable_sparse_depth each view keeps the (row, col) pixels of the sparse
+points it sees, their depths and the weights 2 exp(-(err / mean err)^2);
+under --enable_dense_depth each view's depths/<name>.npy map is resized to
+the frames' size (cv2's INTER_LINEAR, data/resize.py) and mapped by the
+affine that a RANSAC line fit (data/ransac.py, in place of sklearn's)
+finds from the map to the sparse depths at those pixels.
+
 Images are read with Pillow where it is importable, else with the port's
-PNG codec (data/png.py).  Not ported yet (NotImplementedError, ROADMAP
-A6): sparse- and dense-depth supervision, resizing an image whose size
-differs from the camera's after downscale, and JPEG captures without
-Pillow (the port's JPEG decoder has no chroma subsampling).
+PNG codec (data/png.py) and JPEG decoder (data/jpeg.py); a frame whose size
+differs from the camera's after downscale is resized with Pillow's default
+BICUBIC filter (data/resize.py), as JAX's reader does.
 """
 
 from __future__ import annotations
@@ -28,9 +35,12 @@ from typing import Optional
 import numpy as np
 
 from ..config import Config
+from .jpeg import read_jpeg
 from .png import read_image
 from .provider import Dataset
+from .ransac import ransac_line
 from .rays import make_projection
+from .resize import resize_bicubic, resize_linear
 
 
 def _quat(R: np.ndarray) -> np.ndarray:
@@ -100,13 +110,28 @@ def center_poses(poses: np.ndarray, pts3d: Optional[np.ndarray],
 
 def _read_capture(path: str) -> np.ndarray:
     if path.lower().endswith((".jpg", ".jpeg")):
-        try:
-            import PIL  # noqa: F401
-        except ImportError:
-            raise NotImplementedError(
-                f"{path}: JPEG captures need Pillow; the port's JPEG decoder "
-                "has no chroma subsampling (ROADMAP A6)") from None
+        return read_jpeg(path)
     return read_image(path)
+
+
+def fit_dense_depth(dd: np.ndarray, xy: np.ndarray, depth: np.ndarray,
+                    weight: np.ndarray, rng: np.random.Generator):
+    """(scale, bias) mapping a dense map dd [H, W] to the sparse depths at
+    their pixels xy [R, 2] (row, col): the RANSAC line, or when its slope
+    is negative the line through the two heaviest points, or failing that
+    a scale alone (JAX colmap.py:204-216)."""
+    X = dd[tuple(xy.T)].astype(np.float64)
+    Y = np.asarray(depth, np.float64)
+    s, b = ransac_line(X, Y, weight, rng)
+    if s < 0:
+        order = np.argsort(weight)[::-1]
+        x0, y0 = X[order[0]], Y[order[0]]
+        x1, y1 = X[order[1]], Y[order[1]]
+        s = (y0 - y1) / max(x0 - x1, 1e-9)
+        b = y0 - x0 * s
+        if s < 0:
+            s, b = y0 / max(x0, 1e-9), 0.0
+    return float(s), float(b)
 
 
 def _test_trajectory(cfg: Config, poses: np.ndarray, n_test: int):
@@ -149,10 +174,6 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
     from .colmap_utils import (read_cameras_binary, read_images_binary,
                                read_points3d_binary)
 
-    for flag in ("enable_sparse_depth", "enable_dense_depth"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}: depth supervision is not ported yet (ROADMAP A6)")
     root = cfg.path
     downscale = cfg.downscale
     training = split in ("train", "all", "trainval")
@@ -218,6 +239,7 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
     ptskeys = np.array(sorted(ptsdata.keys()))
     pts3d = np.array([ptsdata[k].xyz for k in ptskeys])
     ptserr = np.array([ptsdata[k].error for k in ptskeys])
+    mean_ptserr = float(np.mean(ptserr)) if len(ptserr) else 1.0
 
     poses, pts3d = center_poses(poses, pts3d, cfg.enable_cam_center)
 
@@ -237,10 +259,13 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
     pts_aabb = np.concatenate([pts3d.min(0), pts3d.max(0)]).astype(np.float32)
 
     # per-view near/far from the depths of the sparse points each view sees
-    # (colmap_provider.py:229-270); the points' ids are 1-based and ids not
-    # in the model map to the pad row len(ptskeys)
-    cam_near_far = None
+    # (colmap_provider.py:229-270), and the depth supervision; the points'
+    # ids are 1-based and ids not in the model map to the pad row
+    # len(ptskeys)
+    cam_near_far = sparse_depth = dense_depth = None
     if split != "test":
+        rng = np.random.default_rng(cfg.seed)
+        sd_list, dd_list = [], []
         key_to_id = np.full(int(ptskeys.max()) + 1 if len(ptskeys) else 1,
                             len(ptskeys), np.int64)
         key_to_id[ptskeys] = np.arange(len(ptskeys))
@@ -251,12 +276,38 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
             pids = imdata[k].point3D_ids
             m = (pids != -1) & (xys[:, 0] >= 0) & (xys[:, 0] < first_cam.height) \
                 & (xys[:, 1] >= 0) & (xys[:, 1] < first_cam.width)
-            pts = pts3d[key_to_id[pids[m]]]
+            ids = key_to_id[pids[m]]
+            pts = pts3d[ids]
             P = poses[i]
             depth = (P[:3, 3] - pts) @ P[:3, 2]
             cam_near_far.append([float(depth.min()), float(depth.max())]
                                 if len(depth) else [cfg.min_near, 1000.0])
+            if not (cfg.enable_sparse_depth or cfg.enable_dense_depth):
+                continue
+            xy = np.round(xys[m] / downscale).astype(np.int32)
+            xy[:, 0] = xy[:, 0].clip(0, H - 1)
+            xy[:, 1] = xy[:, 1].clip(0, W - 1)
+            weight = 2 * np.exp(-(ptserr[ids] / mean_ptserr) ** 2)
+            if cfg.enable_sparse_depth:
+                sd_list.append((xy, depth.astype(np.float32),
+                                weight.astype(np.float32)))
+            if cfg.enable_dense_depth:
+                dpath = os.path.join(
+                    root, "depths",
+                    os.path.splitext(os.path.basename(imdata[k].name))[0]
+                    + ".npy")
+                if not os.path.exists(dpath):
+                    raise RuntimeError(
+                        f"{dpath}: dense depth missing; run "
+                        "scripts/extract_depth.py")
+                dd = resize_linear(np.load(dpath), W, H)
+                s_, b_ = fit_dense_depth(dd, xy, depth, weight, rng)
+                dd_list.append((dd * s_ + b_).astype(np.float32))
         cam_near_far = np.asarray(cam_near_far, np.float32)
+        if cfg.enable_sparse_depth:
+            sparse_depth = sd_list
+        if cfg.enable_dense_depth:
+            dense_depth = np.stack(dd_list)
 
     images = None
     if split == "test":
@@ -278,6 +329,10 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
             mask_paths = mask_paths[sel]
         if cam_near_far is not None:
             cam_near_far = cam_near_far[sel]
+        if sparse_depth is not None:
+            sparse_depth = [sparse_depth[i] for i in sel]
+        if dense_depth is not None:
+            dense_depth = dense_depth[sel]
 
         imgs = []
         for i, p in enumerate(img_paths):
@@ -290,10 +345,7 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
                     mask = mask[..., None]
                 img = np.concatenate([img[..., :3], mask[..., :1]], -1)
             if img.shape[0] != H or img.shape[1] != W:
-                raise NotImplementedError(
-                    f"{p}: {img.shape[1]}x{img.shape[0]}, the camera after "
-                    f"downscale {downscale} says {W}x{H}; resizing is not "
-                    "ported yet (ROADMAP A6)")
+                img = resize_bicubic(img, W, H)
             imgs.append(img.astype(np.uint8))
         images = np.stack(imgs)
 
@@ -308,4 +360,5 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
         intrinsics=intrinsics, H=H, W=W,
         projection=projections[0], mvps=mvps,
         training=training, cam_near_far=cam_near_far,
-        pts_aabb=pts_aabb, pts3d=pts3d)
+        pts_aabb=pts_aabb, pts3d=pts3d, sparse_depth=sparse_depth,
+        dense_depth=dense_depth)

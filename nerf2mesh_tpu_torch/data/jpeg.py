@@ -1,25 +1,34 @@
-"""A baseline JPEG writer and a bilinear downscale for machines without Pillow.
+"""A baseline JPEG codec and a bilinear downscale for machines without Pillow.
 
 The stage-1 export writes its feature textures as JPEG (the web viewer loads
 ``feat0_{cas}.jpg`` and ``feat1_{cas}.jpg``), after downscaling them by the
-supersampling factor.  ``encode_jpeg`` writes baseline sequential JPEG/JFIF:
-YCbCr 4:4:4, the standard quantization tables scaled to the quality as
-libjpeg scales them, and the standard Huffman tables of the JPEG
-specification (Annex K).  Every stage is vectorized numpy: the colour
-transform, an 8x8 DCT as two matrix products over all blocks, quantization,
-and the entropy coder, which lists every Huffman symbol of the image with
-its extra bits as one (code, length) pair, orders them by block and
-position, and packs the bits with a cumulative sum.  ``downscale`` is the
-antialiased bilinear reduce of ``F.interpolate`` (PyTorch's, modeled on
-Pillow's BILINEAR resize), rounded to uint8.
+supersampling factor, and COLMAP captures come as JPEG frames.
+``encode_jpeg`` writes baseline sequential JPEG/JFIF: YCbCr at 4:4:4, 4:2:2
+or 4:2:0 (chroma averaged over 2x1 or 2x2 pixels), the standard
+quantization tables scaled to the quality as libjpeg scales them, and the
+standard Huffman tables of the JPEG specification (Annex K).  Every stage
+is vectorized numpy: the colour transform, an 8x8 DCT as two matrix
+products over all blocks, quantization, and the entropy coder, which lists
+every Huffman symbol of the image with its extra bits as one (code, length)
+pair, orders them by block and position, and packs the bits with a
+cumulative sum.  ``downscale`` is the antialiased bilinear reduce of
+``F.interpolate`` (PyTorch's, modeled on Pillow's BILINEAR resize), rounded
+to uint8.
 
-``save_jpeg`` and ``resize_bilinear`` use Pillow where it is importable and
-this code otherwise, as data/png.py does for PNG.  ``decode_jpeg`` reads
-back what ``encode_jpeg`` writes (the export's checks on such machines).
+``decode_jpeg`` is the C++ decoder ``native/jpegdec.cpp`` (built with g++
+at first use into the package's build/, see utils/native.py): baseline
+files, grey or YCbCr at 4:4:4, 4:2:2 or 4:2:0, restart intervals, with
+libjpeg's integer IDCT, fancy chroma upsampling and fixed-point colour
+conversion, so it gives what Pillow's decode gives.  Progressive and
+arithmetic-coded files raise NotImplementedError (ROADMAP A6 (a')).
+
+``save_jpeg``, ``read_jpeg`` and ``resize_bilinear`` use Pillow where it is
+importable and this code otherwise, as data/png.py does for PNG.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -205,41 +214,63 @@ def _dht(cls_id: int, spec) -> bytes:
     return bytes([cls_id]) + bytes(counts) + bytes(symbols)
 
 
-def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
-    """Baseline JPEG of an [H, W, 3] (or [H, W] gray) uint8 image: 4:4:4,
-    standard tables scaled to `quality`."""
+# sampling factors (h, v) of the luma plane; chroma is 1x1
+_SAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2)}
+
+
+def _blocks(p: np.ndarray) -> np.ndarray:
+    """[h, w] plane (multiples of 8) -> [h/8, w/8, 8, 8] blocks."""
+    h, w = p.shape
+    return p.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95,
+                subsampling: str = "4:4:4") -> bytes:
+    """Baseline JPEG of an [H, W, 3] (or [H, W] gray) uint8 image: standard
+    tables scaled to `quality`; colour at `subsampling` "4:4:4", "4:2:2"
+    or "4:2:0" (Pillow's default)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"encode_jpeg: need [H, W] or [H, W, 3] uint8, got "
                          f"{img.shape} {img.dtype}")
+    if subsampling not in _SAMPLING:
+        raise ValueError(f"encode_jpeg: subsampling {subsampling!r}, not one "
+                         f"of {sorted(_SAMPLING)}")
     if img.ndim == 2:
         img = img[..., None]
     H, W, C = img.shape
     if C not in (1, 3):
         raise ValueError(f"encode_jpeg: {C} channels")
-    x = img.astype(np.float64)
+    hs, vs = _SAMPLING[subsampling] if C == 3 else (1, 1)
+    # the planes edge-padded to whole MCUs
+    Hp, Wp = -(-H // (8 * vs)) * 8 * vs, -(-W // (8 * hs)) * 8 * hs
+    x = np.pad(img.astype(np.float64), ((0, Hp - H), (0, Wp - W), (0, 0)),
+               mode="edge")
     if C == 3:
         r, g, b = x[..., 0], x[..., 1], x[..., 2]
         planes = [0.299 * r + 0.587 * g + 0.114 * b,
                   -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
                   0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+        planes[1:] = [p.reshape(Hp // vs, vs, Wp // hs, hs).mean(axis=(1, 3))
+                      for p in planes[1:]]
     else:
         planes = [x[..., 0]]
-    Hp, Wp = -(-H // 8) * 8, -(-W // 8) * 8
     ql, qc = quant_tables(quality)
     A = _dct_matrix()
-    coefs = []
+    my, mx = Hp // (8 * vs), Wp // (8 * hs)
+    mcu = []                    # per component [my, mx, blocks in MCU, 64]
     for c, p in enumerate(planes):
-        p = np.pad(p, ((0, Hp - H), (0, Wp - W)), mode="edge") - 128.0
-        blocks = p.reshape(Hp // 8, 8, Wp // 8, 8).transpose(0, 2, 1, 3)
-        d = A @ blocks @ A.T                              # [by, bx, 8, 8]
+        d = A @ _blocks(p - 128.0) @ A.T                   # [by, bx, 8, 8]
         q = ql if c == 0 else qc
-        d = np.rint(d.reshape(-1, 64) / q).astype(np.int64)
-        coefs.append(d[:, _ZIGZAG])                       # [nb, 64]
-    nb = coefs[0].shape[0]
-    coef = np.stack(coefs, axis=1).reshape(nb * len(planes), 64)
-    comp = np.tile(np.arange(len(planes)), nb)
-    scan = _entropy_code(coef, comp)
+        d = np.rint(d.reshape(d.shape[:2] + (64,)) / q).astype(np.int64)
+        d = d[..., _ZIGZAG]
+        h, v = (hs, vs) if c == 0 else (1, 1)
+        mcu.append(d.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4)
+                   .reshape(my, mx, v * h, 64))
+    coef = np.concatenate(mcu, axis=2)             # scan order: MCU by MCU
+    comp = np.concatenate([np.full(m.shape[2], c)
+                           for c, m in enumerate(mcu)])
+    scan = _entropy_code(coef.reshape(-1, 64), np.tile(comp, my * mx))
 
     out = [b"\xff\xd8",
            _segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
@@ -249,7 +280,8 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
     out.append(_segment(0xFFDB, dqt))
     sof = struct.pack(">BHHB", 8, H, W, C)
     for c in range(C):
-        sof += bytes([c + 1, 0x11, 0 if c == 0 else 1])
+        samp = (hs << 4) | vs if c == 0 else 0x11
+        sof += bytes([c + 1, samp, 0 if c == 0 else 1])
     out.append(_segment(0xFFC0, sof))
     dht = _dht(0x00, _DC_LUMA) + _dht(0x10, _AC_LUMA)
     if C == 3:
@@ -286,128 +318,71 @@ def resize_bilinear(img: np.ndarray, w: int, h: int) -> np.ndarray:
         (w, h), Image.BILINEAR))
 
 
-def save_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
-    """Image.fromarray(img).save(path, quality=quality) with Pillow, else
-    ``encode_jpeg``."""
+def save_jpeg(path: str, img: np.ndarray, quality: int = 95,
+              subsampling: str = "4:2:0") -> None:
+    """Image.fromarray(img).save(path, quality=quality,
+    subsampling=subsampling) with Pillow, else ``encode_jpeg``; the default
+    subsampling is Pillow's."""
     try:
         from PIL import Image
     except ImportError:
         with open(path, "wb") as f:
-            f.write(encode_jpeg(img, quality))
+            f.write(encode_jpeg(img, quality, subsampling))
         return
-    Image.fromarray(np.asarray(img)).save(path, quality=quality)
+    Image.fromarray(np.asarray(img)).save(path, quality=quality,
+                                          subsampling=subsampling)
+
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        from ..utils.native import BUILD_DIR, build_library
+        lib = ctypes.CDLL(build_library("jpegdec", BUILD_DIR))
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def _decode_call(lib, data: bytes, out) -> tuple:
+    dims = (ctypes.c_int32 * 3)()
+    err = ctypes.create_string_buffer(256)
+    ptr, cap = (None, 0) if out is None else (out.ctypes.data, out.size)
+    rc = lib.jpeg_decode(data, len(data), ptr, cap, dims, err, len(err))
+    msg = err.value.decode(errors="replace")
+    if rc == 2:
+        raise NotImplementedError(
+            f"{msg}: only baseline JPEG is read without Pillow (ROADMAP "
+            "A6 (a'))")
+    if rc == 3:
+        raise NotImplementedError(f"{msg} (ROADMAP A6 (a'))")
+    if rc:
+        raise ValueError(f"JPEG decode failed: {msg}")
+    return tuple(dims)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Decode a baseline JPEG with 1x1 sampling in every component (what
-    encode_jpeg writes): [H, W, 3] or [H, W] uint8.  A plain Huffman loop
-    over the scan (seconds per megapixel): the round trip checks of the
-    export on machines without Pillow, not a general reader."""
-    pos, qt, ht, comps = 2, {}, {}, []
-    if data[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG (no SOI)")
-    H = W = 0
-    while True:
-        marker, length = struct.unpack(">HH", data[pos:pos + 4])
-        body = data[pos + 4:pos + 2 + length]
-        pos += 2 + length
-        if marker == 0xFFDB:
-            i = 0
-            while i < len(body):
-                if body[i] >> 4:
-                    raise NotImplementedError("16-bit quantization tables")
-                qt[body[i] & 15] = np.frombuffer(body[i + 1:i + 65], np.uint8)
-                i += 65
-        elif marker == 0xFFC0:
-            _, H, W, nc = struct.unpack(">BHHB", body[:6])
-            for c in range(nc):
-                cid, samp, tq = body[6 + 3 * c:9 + 3 * c]
-                if samp != 0x11:
-                    raise NotImplementedError("chroma subsampling")
-                comps.append([cid, tq, 0, 0])
-        elif marker in (0xFFC1, 0xFFC2, 0xFFC3):
-            raise NotImplementedError("non-baseline JPEG")
-        elif marker == 0xFFC4:
-            i = 0
-            while i < len(body):
-                counts = list(body[i + 1:i + 17])
-                n = sum(counts)
-                table, code, k = {}, 0, 0
-                for length_, cnt in enumerate(counts, start=1):
-                    for _ in range(cnt):
-                        table[(length_, code)] = body[i + 17 + k]
-                        code += 1
-                        k += 1
-                    code <<= 1
-                ht[body[i]] = table
-                i += 17 + n
-        elif marker == 0xFFDA:
-            for c in range(body[0]):
-                cid, tables = body[1 + 2 * c:3 + 2 * c]
-                for comp in comps:
-                    if comp[0] == cid:
-                        comp[2], comp[3] = tables >> 4, 0x10 | (tables & 15)
-            break
-    end = data.rindex(b"\xff\xd9")
-    scan = data[pos:end].replace(b"\xff\x00", b"\xff")
-    bits = np.unpackbits(np.frombuffer(scan, np.uint8))
-    nb = len(bits)
-    bp = 0
+    """A baseline JPEG -> [H, W, 3] (or [H, W] grey) uint8, the array
+    np.asarray(Image.open(...)) gives."""
+    lib = _load()
+    data = bytes(data)
+    H, W, C = _decode_call(lib, data, None)
+    out = np.empty((H, W, C) if C > 1 else (H, W), np.uint8)
+    _decode_call(lib, data, out)
+    return out
 
-    def read(n):
-        nonlocal bp
-        v = 0
-        for _ in range(n):
-            v = (v << 1) | int(bits[bp]) if bp < nb else (v << 1) | 1
-            bp += 1
-        return v
 
-    def huff(table):
-        nonlocal bp
-        code = 0
-        for length_ in range(1, 17):
-            code = (code << 1) | (int(bits[bp]) if bp < nb else 1)
-            bp += 1
-            sym = table.get((length_, code))
-            if sym is not None:
-                return sym
-        raise ValueError("bad Huffman code")
-
-    def extend(v, s):
-        return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
-
-    nbx, nby = -(-W // 8), -(-H // 8)
-    coef = np.zeros((nby * nbx, len(comps), 64), np.int64)
-    pred = [0] * len(comps)
-    for b in range(nby * nbx):
-        for c, (_, _, td, ta) in enumerate(comps):
-            s = huff(ht[td])
-            pred[c] += extend(read(s), s)
-            coef[b, c, 0] = pred[c]
-            k = 1
-            while k < 64:
-                rs = huff(ht[ta])
-                r, s = rs >> 4, rs & 15
-                if s == 0:
-                    if r == 15:
-                        k += 16
-                        continue
-                    break
-                k += r
-                coef[b, c, k] = extend(read(s), s)
-                k += 1
-    A = _dct_matrix()
-    planes = []
-    for c, (_, tq, _, _) in enumerate(comps):
-        z = np.zeros((nby * nbx, 64))
-        # coefficients and the stored table are both in zigzag order
-        z[:, _ZIGZAG] = coef[:, c] * qt[tq].astype(np.float64)[None, :]
-        blocks = A.T @ z.reshape(-1, 8, 8) @ A + 128.0
-        planes.append(blocks.reshape(nby, nbx, 8, 8).transpose(
-            0, 2, 1, 3).reshape(nby * 8, nbx * 8)[:H, :W])
-    if len(planes) == 1:
-        return np.clip(np.rint(planes[0]), 0, 255).astype(np.uint8)
-    y, cb, cr = planes[0], planes[1] - 128.0, planes[2] - 128.0
-    rgb = np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr,
-                    y + 1.772 * cb], -1)
-    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+def read_jpeg(path: str) -> np.ndarray:
+    """np.asarray(Image.open(path)) with Pillow, else ``decode_jpeg``."""
+    try:
+        from PIL import Image
+    except ImportError:
+        with open(path, "rb") as f:
+            return decode_jpeg(f.read())
+    with Image.open(path) as im:
+        return np.asarray(im)

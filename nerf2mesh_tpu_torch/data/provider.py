@@ -6,15 +6,19 @@ directory (its PNGs with Pillow where it is importable, else with the
 port's codec, data/png.py) with the keys JAX's reader takes: ``fl_x`` /
 ``fl_y`` or ``camera_angle_x`` / ``camera_angle_y``, ``cx`` / ``cy``,
 ``h`` / ``w``, and a ``mask`` directory beside ``images/`` paths as alpha;
-``dataset_from_frames`` builds the identical Dataset from in-memory frames
-(data/synthetic.py).  The COLMAP reader is data/colmap.py.  Not ported
-yet (NotImplementedError): downscaling and resizing an image to the json's
-size, the trainval/all splits (ROADMAP A6), the colmap-style single
-transforms.json and the dtu format (ROADMAP A7).
+the splits train, val, test, trainval (train + val) and all (every
+transforms_*.json); ``downscale`` divides the json's size and focal
+lengths, and a frame of another size is resized to it with cv2's
+INTER_AREA filter (data/resize.py), as JAX's reader does where cv2
+imports.  ``dataset_from_frames`` builds the identical Dataset from
+in-memory frames (data/synthetic.py).  The COLMAP reader is
+data/colmap.py.  Not ported yet (NotImplementedError, ROADMAP A7): the
+colmap-style single transforms.json and the dtu format.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 from dataclasses import dataclass
@@ -25,6 +29,7 @@ import numpy as np
 from ..config import Config
 from .png import read_image
 from .rays import make_mvps, make_projection, nerf_matrix_to_ngp
+from .resize import resize_area
 
 
 @dataclass
@@ -41,6 +46,10 @@ class Dataset:
     cam_near_far: Optional[np.ndarray] = None   # [B, 2] or None
     pts_aabb: Optional[np.ndarray] = None       # [6] colmap: sparse-point box
     pts3d: Optional[np.ndarray] = None          # [P, 3] colmap: sparse points
+    # colmap depth supervision: a view's (pixel (row, col) [R, 2] int32,
+    # depth [R], weight [R]), or the views' fitted maps [B, H, W]
+    sparse_depth: Optional[list] = None
+    dense_depth: Optional[np.ndarray] = None
 
     @property
     def num_frames(self) -> int:
@@ -55,12 +64,13 @@ class Dataset:
         return self.images is not None
 
 
-def _intrinsics(transform: dict, H: int, W: int):
-    """(fl_x, fl_y, cx, cy) from a transforms json, resolved as JAX's reader
-    does (nerf2mesh_tpu/data/provider.py:171-184, downscale 1)."""
+def _intrinsics(transform: dict, H: int, W: int, downscale: int = 1):
+    """(fl_x, fl_y, cx, cy) from a transforms json at the downscaled size
+    (H, W), resolved as JAX's reader does
+    (nerf2mesh_tpu/data/provider.py:171-184)."""
     if "fl_x" in transform or "fl_y" in transform:
-        fl_x = transform.get("fl_x", transform.get("fl_y"))
-        fl_y = transform.get("fl_y", transform.get("fl_x"))
+        fl_x = transform.get("fl_x", transform.get("fl_y")) / downscale
+        fl_y = transform.get("fl_y", transform.get("fl_x")) / downscale
     elif "camera_angle_x" in transform or "camera_angle_y" in transform:
         fl_x = (W / (2 * np.tan(transform["camera_angle_x"] / 2))
                 if "camera_angle_x" in transform else None)
@@ -70,18 +80,20 @@ def _intrinsics(transform: dict, H: int, W: int):
         fl_y = fl_y if fl_y is not None else fl_x
     else:
         raise RuntimeError("no focal length in transforms json")
-    return fl_x, fl_y, transform.get("cx", W / 2.0), transform.get("cy", H / 2.0)
+    cx = transform["cx"] / downscale if "cx" in transform else W / 2.0
+    cy = transform["cy"] / downscale if "cy" in transform else H / 2.0
+    return fl_x, fl_y, cx, cy
 
 
 def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
-            transform: dict, split: str) -> Dataset:
+            transform: dict, split: str, downscale: int = 1) -> Dataset:
     """Shared tail of both constructors (intrinsics + MVPs)."""
     scale = 1.0 if cfg.scale == -1 else cfg.scale
     poses_arr = np.stack([nerf_matrix_to_ngp(p, scale, cfg.offset)
                           for p in poses]).astype(np.float32)
     images_arr = np.stack(images).astype(np.uint8)
     H, W = images_arr.shape[1], images_arr.shape[2]
-    fl_x, fl_y, cx, cy = _intrinsics(transform, H, W)
+    fl_x, fl_y, cx, cy = _intrinsics(transform, H, W, downscale)
     intrinsics = np.array([fl_x, fl_y, cx, cy], np.float32)
     projection = make_projection(H, W, fl_y, cfg.min_near)
     return Dataset(
@@ -90,24 +102,43 @@ def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
         training=split in ("train", "all", "trainval"))
 
 
+def _read_transforms(root: str, split: str) -> dict:
+    """The split's transforms json; trainval is train + val, all every
+    transforms_*.json in name order (JAX provider.py:87-106)."""
+    def read(name):
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path} not found")
+        with open(path) as f:
+            return json.load(f)
+    if split == "all":
+        paths = sorted(glob.glob(os.path.join(root, "transforms_*.json")))
+        transform = read(os.path.basename(paths[0]))
+        for p in paths[1:]:
+            transform["frames"].extend(read(os.path.basename(p))["frames"])
+    elif split == "trainval":
+        transform = read("transforms_train.json")
+        transform["frames"].extend(read("transforms_val.json")["frames"])
+    else:
+        transform = read(f"transforms_{split}.json")
+    return transform
+
+
 def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
     """Load one split of a nerf-synthetic / blender directory."""
     root = cfg.path
-    if cfg.downscale != 1:
-        raise NotImplementedError("downscale is not ported yet (ROADMAP A6)")
+    downscale = cfg.downscale
     if os.path.exists(os.path.join(root, "transforms.json")):
         raise NotImplementedError(
             f"{root}: the colmap-style single transforms.json is not ported "
             "yet (ROADMAP A7)")
-    path = os.path.join(root, f"transforms_{split}.json")
-    if not os.path.exists(path):
+    if not os.path.exists(os.path.join(root, "transforms_train.json")):
         raise NotImplementedError(
-            f"{path} not found: only the blender split files are ported (the "
-            "trainval/all splits: ROADMAP A6; colmap/dtu: ROADMAP A7)")
-    with open(path) as f:
-        transform = json.load(f)
-    H = int(transform["h"]) if "h" in transform else None
-    W = int(transform["w"]) if "w" in transform else None
+            f"{root}: no transforms_train.json; only the blender format is "
+            "ported (colmap/dtu: ROADMAP A7)")
+    transform = _read_transforms(root, split)
+    H = int(transform["h"]) // downscale if "h" in transform else None
+    W = int(transform["w"]) // downscale if "w" in transform else None
     poses, images = [], []
     for fr in transform["frames"]:
         f_path = os.path.join(root, fr["file_path"])
@@ -119,7 +150,7 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
         if img.ndim == 2:
             img = img[..., None].repeat(3, axis=-1)
         if H is None:
-            H, W = img.shape[0], img.shape[1]
+            H, W = img.shape[0] // downscale, img.shape[1] // downscale
         m_path = f_path.replace("images", "mask")     # a mask dir as alpha
         if m_path != f_path and os.path.exists(m_path):
             mask = read_image(m_path)
@@ -127,12 +158,10 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
                 mask = mask[..., None]
             img = np.concatenate([img[..., :3], mask[..., :1]], axis=-1)
         if img.shape[0] != H or img.shape[1] != W:
-            raise NotImplementedError(
-                f"{f_path}: {img.shape[1]}x{img.shape[0]}, the json says "
-                f"{W}x{H}; resizing is not ported yet (ROADMAP A6)")
+            img = resize_area(img, W, H)
         poses.append(np.array(fr["transform_matrix"], np.float32))
         images.append(img)
-    return _finish(cfg, poses, images, transform, split)
+    return _finish(cfg, poses, images, transform, split, downscale)
 
 
 def dataset_from_frames(cfg: Config, frames: dict, split: str = "train") -> Dataset:

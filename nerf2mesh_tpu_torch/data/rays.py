@@ -18,6 +18,10 @@ def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True).clamp(min=eps))
 
 
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
 def pixel_dirs_cam(i, j, intrinsics):
     """Camera-space (unnormalized) ray directions for pixel centers.
     i: [N] column (x), j: [N] row (y), float, already +0.5."""

@@ -7,7 +7,9 @@ returns them in memory, so a run needs neither disk nor Pillow;
 (transforms_{split}.json + PNGs, written by Pillow where it is importable,
 else by the port's codec, data/png.py).  ``generate_colmap_dataset`` writes
 the JAX package's COLMAP-format scene (sparse/0/*.bin + images/*.png, the
-spheres inside a textured environment sphere), with the same draws.
+spheres inside a textured environment sphere), with the same draws; its
+options write the frames as JPEG instead and add depths/*.npy maps for
+depth supervision.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from .jpeg import save_jpeg
 from .png import write_image
 from .rays import orbit_pose
 
@@ -37,8 +40,10 @@ class SphereScene:
 
     env_radius: float = 0.0   # >0: enclose the scene in a textured sphere
 
-    def trace(self, rays_o: np.ndarray, rays_d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns rgb [N,3] in [0,1] and alpha [N]."""
+    def trace(self, rays_o: np.ndarray, rays_d: np.ndarray,
+              return_t: bool = False) -> Tuple[np.ndarray, ...]:
+        """Returns rgb [N,3] in [0,1] and alpha [N]; with return_t also the
+        hit distance along the normalized direction [N] (inf on a miss)."""
         N = rays_o.shape[0]
         d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
         best_t = np.full(N, np.inf, np.float32)
@@ -76,6 +81,10 @@ class SphereScene:
                     np.sin(4 * n[:, 1]),
                     np.cos(3 * n[:, 2])], -1)
                 alpha[miss] = 1.0
+                if return_t:
+                    best_t[miss] = t
+        if return_t:
+            return rgb, alpha, best_t
         return rgb, alpha
 
     def sdf(self, pts: np.ndarray) -> np.ndarray:
@@ -185,6 +194,12 @@ def generate_colmap_dataset(
     radius: float = 2.8,
     n_points: int = 2000,
     seed: int = 0,
+    image_format: str = "png",
+    jpeg_quality: int = 95,
+    jpeg_subsampling: str = "4:2:0",
+    depth_size: Tuple[int, int] | None = None,
+    depth_affine: Tuple[float, float] = (1.0, 0.0),
+    depth_outliers: float = 0.0,
 ) -> str:
     """Write a synthetic COLMAP-format dataset (sparse/0/{cameras,images,
     points3D}.bin + images/frame_*.png) rendered from the analytic scene,
@@ -192,7 +207,17 @@ def generate_colmap_dataset(
     seed: one PINHOLE camera with a 45-degree field of view, n_images
     cameras on a sphere of `radius` looking at the origin, and n_points
     sparse points on the spheres and the environment sphere (1-based ids,
-    each with its track of the images it projects into).  Returns root."""
+    each with its track of the images it projects into).  Returns root.
+
+    image_format "jpeg" writes the frames as images/frame_*.jpg (their
+    names in images.bin) at jpeg_quality and jpeg_subsampling (data/jpeg.py
+    save_jpeg).  depth_size (h, w) writes depths/frame_*.npy: each view's
+    analytic z-depth at that size (the same camera, pixel centres), mapped
+    by depth_affine (a, c) to a * z + c, with a share depth_outliers of its
+    pixels replaced by uniform draws over the map's range (from a generator
+    seeded seed + 1); each view then lists only the sparse points it sees
+    (no point behind a surface).  With the defaults the output is the JAX
+    generator's."""
     from .colmap_utils import (Camera, Image, Point3D, rotmat2qvec,
                                write_cameras_binary, write_images_binary,
                                write_points3d_binary)
@@ -202,6 +227,11 @@ def generate_colmap_dataset(
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format {image_format!r}: png or jpeg")
+    if depth_size is not None:
+        os.makedirs(os.path.join(root, "depths"), exist_ok=True)
+        drng = np.random.default_rng(seed + 1)
 
     fl = W / (2 * np.tan(np.deg2rad(45) / 2))
     cams = {1: Camera(1, "PINHOLE", W, H,
@@ -250,8 +280,29 @@ def generate_colmap_dataset(
         rgb, alpha = scene.trace(rays_o.astype(np.float32),
                                  dirs_w.astype(np.float32))
         img = (np.clip(rgb.reshape(H, W, 3), 0, 1) * 255).astype(np.uint8)
-        name = f"frame_{k:04d}.png"
-        write_image(os.path.join(root, "images", name), img)
+        if image_format == "jpeg":
+            name = f"frame_{k:04d}.jpg"
+            save_jpeg(os.path.join(root, "images", name), img, jpeg_quality,
+                      jpeg_subsampling)
+        else:
+            name = f"frame_{k:04d}.png"
+            write_image(os.path.join(root, "images", name), img)
+        if depth_size is not None:
+            hd, wd = depth_size
+            fd = fl * wd / W
+            jd, id_ = np.meshgrid(np.arange(hd) + 0.5, np.arange(wd) + 0.5,
+                                  indexing="ij")
+            dc = np.stack([(id_ - wd / 2) / fd, (jd - hd / 2) / fd,
+                           np.ones_like(id_)], -1).reshape(-1, 3)
+            _, _, t_hit = scene.trace(
+                np.broadcast_to(center, dc.shape).astype(np.float32),
+                (dc @ R_c2w.T).astype(np.float32), return_t=True)
+            z = t_hit / np.linalg.norm(dc, axis=-1)       # along the axis
+            dmap = (depth_affine[0] * z + depth_affine[1]).reshape(hd, wd)
+            bad = drng.random(dmap.shape) < depth_outliers
+            dmap[bad] = drng.uniform(dmap.min(), dmap.max(), int(bad.sum()))
+            np.save(os.path.join(root, "depths", f"frame_{k:04d}.npy"),
+                    dmap.astype(np.float32))
 
         # the sparse points this view sees: its xys and the points' tracks
         pc = (pts3d @ Rw2c.T) + t
@@ -259,6 +310,16 @@ def generate_colmap_dataset(
         uv = np.stack([pc[:, 0] / pc[:, 2] * fl + W / 2,
                        pc[:, 1] / pc[:, 2] * fl + H / 2], -1)
         vis &= (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+        if depth_size is not None:
+            # a capture with depth maps lists only the points the view
+            # sees (none behind a surface), as a reconstruction would
+            ids = np.nonzero(vis)[0]
+            to = pts3d[ids] - center
+            dist = np.linalg.norm(to, axis=-1)
+            _, _, t_hit = scene.trace(
+                np.broadcast_to(center, to.shape).astype(np.float32),
+                to.astype(np.float32), return_t=True)
+            vis[ids[t_hit < dist * (1 - 1e-3)]] = False
         vis_ids = np.nonzero(vis)[0]
         xys = uv[vis_ids]
         p3d_ids = vis_ids + 1   # colmap ids are 1-based

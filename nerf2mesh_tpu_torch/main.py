@@ -2,11 +2,13 @@
 
 Usage:  python -m nerf2mesh_tpu_torch.main <data dir> [flags of config.py]
 
-The data dir is a blender scene (transforms_{split}.json), or a COLMAP
-capture under --data_format colmap (sparse/0/*.bin + images/): then the ray
-box shrinks to the sparse points' box before training, and the unbounded
-recipes run at --bound > 1 (cascades), with --contract, --enable_cam_center
-and --enable_cam_near_far.
+The data dir is a blender scene (transforms_{split}.json; --downscale and
+the trainval/all splits resize the frames), or a COLMAP capture under
+--data_format colmap (sparse/0/*.bin + images/, PNG or JPEG frames; with
+--enable_sparse_depth or --enable_dense_depth, depths/*.npy, depth
+supervision): then the ray box shrinks to the sparse points' box before
+training, and the unbounded recipes run at --bound > 1 (cascades), with
+--contract, --enable_cam_center and --enable_cam_near_far.
 
 Runs on the first CUDA card.  Stage 0: --ckpt latest|scratch|<path> (under
 --sdf, scratch first fits the SDF to a double sphere), then either --test
@@ -24,9 +26,9 @@ non-zero when there is no card; from Python, ``main(argv, device="cpu")``
 runs on the CPU.
 
 Not ported yet (NotImplementedError naming the ROADMAP item, raised before
-any work): the dtu provider and more than one device (A7), the trainer's
-A6 options (depth supervision among them); --vis_pose (A7) raises once the
-datasets are loaded.
+any work): the dtu provider and more than one device (A7); --vis_pose (A7)
+raises once the datasets are loaded, and orbax checkpoints (A6) when one
+is written or read.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def main(argv: Optional[List[str]] = None, device=None):
 
     from .config import parse_args
     from .utils.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
-    from .utils.trainer import Trainer, check_supported
+    from .utils.trainer import Trainer
 
     cfg = parse_args(argv)
     if device is None:
@@ -64,7 +66,6 @@ def main(argv: Optional[List[str]] = None, device=None):
         raise NotImplementedError(
             f"mesh_shape {cfg.mesh_shape}: multi-device training is not "
             "ported yet (ROADMAP A7); the port runs on one device")
-    check_supported(cfg)
 
     np.random.seed(cfg.seed)
     trainer = Trainer(cfg, device=device)

@@ -6,8 +6,8 @@ byte-equal to the JAX package's): quadric decimation, remeshing and
 component cleaning in C++, plus numpy implementations of the simple
 operations (masked-face removal, box-predicate vertex removal, midpoint
 subdivision).  Unlike the JAX copy, the library is built at first use into
-the package's ignored ``build/`` directory, named by a hash of the source
-and the flags, never next to the source; a failed build raises.
+the package's ignored ``build/`` directory by utils/native.py, named by a
+hash of the source and the flags; a failed build raises.
 ``native/Makefile`` builds the same library by hand.
 tests/test_torch_meshing.py holds the two copies equal.
 """
@@ -15,46 +15,27 @@ tests/test_torch_meshing.py holds the two copies equal.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "native", "meshops.cpp")
-_BUILD_DIR = os.path.join(_PKG_DIR, "build")
-CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+from ..utils import native
+
+_BUILD_DIR = native.BUILD_DIR
 _lib = None
 
 
 def library_path(build_dir: Optional[str] = None) -> str:
     """Where the library for the current source and flags lives (in
     build_dir, default the package's build/)."""
-    with open(_SOURCE, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode())
-    return os.path.join(build_dir or _BUILD_DIR,
-                        f"libmeshops_{h.hexdigest()[:16]}.so")
+    return native.library_path("meshops", build_dir or _BUILD_DIR)
 
 
 def build(build_dir: Optional[str] = None) -> str:
     """Compile native/meshops.cpp with $CXX (default g++) unless the library
     for this source and these flags exists; returns its path.  Raises
     RuntimeError when the compiler fails."""
-    build_dir = build_dir or _BUILD_DIR
-    path = library_path(build_dir)
-    if os.path.exists(path):
-        return path
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp, _SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"building the meshops library failed: "
-                           f"{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, path)
-    return path
+    return native.build_library("meshops", build_dir or _BUILD_DIR)
 
 
 def _load():

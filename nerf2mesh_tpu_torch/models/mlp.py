@@ -4,9 +4,13 @@ nerf2mesh_tpu/models/mlp.py).
 Each layer's weight is ``w: [in, out]`` (JAX layout, not torch.nn.Linear's
 [out, in]), so a parameter named ``sigma_net.0.w`` here is
 ``params["sigma_net"][0]["w"]`` there.  ``compute_dtype`` mirrors
-``apply_mlp``: bfloat16 casts activations and weights before each product
-(the JAX package accumulates in fp32 via preferred_element_type; PyTorch
-rounds each bf16 product's output to bf16 before the cast back).
+``apply_mlp``: under bfloat16 the activations and each weight are rounded
+to bf16, every product accumulates and returns in fp32
+(preferred_element_type there), the hidden activations are rounded to bf16
+after the ReLU, and the last layer comes back in fp32, unrounded.  The
+rounded operands are exact in fp32 (and in TF32), so an fp32 product of
+them is the mixed-precision product; the casts' backward rounds the
+cotangents to bf16 where JAX's transpose rules do.
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ class MLP(nn.ModuleList):
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        h = x.to(compute_dtype)
+        def rounded(t):
+            return t.to(compute_dtype).float()
+
+        h = rounded(x)
         n = len(self)
         for l, layer in enumerate(self):
-            h = h @ layer.w.to(compute_dtype)
+            h = h @ rounded(layer.w)
             if l != n - 1:
-                h = torch.relu(h)
-        return h.float()
+                h = rounded(torch.relu(h))
+        return h

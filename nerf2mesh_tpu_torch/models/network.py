@@ -21,8 +21,12 @@ The field covers [-bound, bound]^3 of its spec (the grid bound: the
 scene's bound, or 2 under contraction), with the finest level at 2048 *
 bound cells.  SDF mode adds the central-difference normal
 (``finite_diff_normal``) and the double-sphere pretraining loss
-(``sdf_pretrain_loss``).  Not ported yet (NotImplementedError): per-image
-codes, separate tables (ROADMAP A6).
+(``sdf_pretrain_loss``).  Per-image codes (``ind_dim`` > 0): an
+``individual_codes`` [ind_num, ind_dim] table whose rows join the colour
+MLP's input; training passes each ray's view's code (``c``), and every
+other colour query (eval, the export's bake, the stage-1 eval) takes code
+0, the reference's fixed code for views it has not seen.  Not ported yet
+(NotImplementedError): separate tables (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -78,9 +82,6 @@ class NetworkSpec:
 
 
 def check_supported(spec: NetworkSpec) -> None:
-    if spec.ind_dim > 0:
-        raise NotImplementedError(
-            "per-image codes (ind_dim > 0) are not ported yet (ROADMAP A6)")
     if spec.separate_tables:
         raise NotImplementedError(
             "separate density/color tables are not ported yet (ROADMAP A6)")
@@ -95,10 +96,15 @@ class NeRFField(nn.Module):
         L, sd = spec.num_levels, spec.specular_dim
         self.table = nn.Parameter(init_hashgrid(generator, spec.density_grid_spec))
         self.sigma_net = MLP(3 + L, 1, 32, 2, generator)
-        self.color_net = MLP(3 + 2 * L, 3 + sd, 64, 3, generator)
+        self.color_net = MLP(3 + 2 * L + spec.ind_dim, 3 + sd, 64, 3,
+                             generator)
         self.specular_net = MLP(sd + 3, 3, 32, 2, generator)
         if spec.sdf:
             self.variance = nn.Parameter(torch.tensor(0.3))
+        if spec.ind_dim > 0:
+            self.individual_codes = nn.Parameter(torch.randn(
+                (spec.ind_num, spec.ind_dim), generator=generator,
+                device=generator.device) * 0.1)
 
 
 def _mask_levels(h, max_level, gspec: HashGridSpec):
@@ -147,10 +153,15 @@ def _density_from_feat(params: NeRFField, x, hd, spec: NetworkSpec):
     return trunc_exp(h[..., 0])
 
 
-def _geo_feat_from_feat(params: NeRFField, x, hc, spec: NetworkSpec):
-    h = params.color_net(torch.cat([x.float(), hc], dim=-1),
-                         spec.compute_dtype)
-    return torch.sigmoid(h)
+def _geo_feat_from_feat(params: NeRFField, x, hc, spec: NetworkSpec, c=None):
+    """c: per-image codes [N, ind_dim] or [1, ind_dim]; None takes code 0
+    (under ind_dim > 0)."""
+    h = torch.cat([x.float(), hc], dim=-1)
+    if spec.ind_dim > 0:
+        if c is None:
+            c = params.individual_codes[:1]
+        h = torch.cat([h, c.expand(x.shape[0], -1)], dim=-1)
+    return torch.sigmoid(params.color_net(h, spec.compute_dtype))
 
 
 def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
@@ -172,21 +183,24 @@ def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
 
 def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
                   spec: NetworkSpec, full_flag: bool,
-                  max_level: Optional[int] = None):
+                  max_level: Optional[int] = None, c=None):
     """Hot-path forward: ONE hash-table pass -> (sigma [N], color [N, 3],
     specular [N, 3], encode residual counts [L] or None).  full_flag selects
-    full (diffuse + specular) shading over diffuse-only."""
+    full (diffuse + specular) shading over diffuse-only; c: the points'
+    per-image codes (see _geo_feat_from_feat)."""
     b = spec.bound
     splat = splat_supported(spec.density_grid_spec)
     if splat:
         perm, inv = morton_perm((x + b) / (2 * b))
         x = permute(x, perm, inv)
         d = permute(d, perm, inv)
+        if c is not None and c.shape[0] == x.shape[0]:
+            c = permute(c, perm, inv)
 
     hd, hc, cnt = encode_fields(params, (x + b) / (2 * b), spec, max_level,
                                 pre_sorted=splat)
     sigma = _density_from_feat(params, x, hd, spec)
-    gf = _geo_feat_from_feat(params, x, hc, spec)
+    gf = _geo_feat_from_feat(params, x, hc, spec, c)
     diffuse = gf[..., :3]
     specular = _specular(params, d, gf, spec)
     if full_flag:
@@ -203,12 +217,12 @@ def field_forward(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
 
 
 def geo_feat(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
-             max_level: Optional[int] = None) -> torch.Tensor:
+             max_level: Optional[int] = None, c=None) -> torch.Tensor:
     """sigmoid(color_net(...)) = [diffuse 3 | specular feature] [N, 3+spec]
     (JAX network.geo_feat; the encode sorts and unsorts internally)."""
     b = spec.bound
     _, hc, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level)
-    return _geo_feat_from_feat(params, x, hc, spec)
+    return _geo_feat_from_feat(params, x, hc, spec, c)
 
 
 def _specular(params: NeRFField, d, gf, spec: NetworkSpec):
@@ -218,10 +232,10 @@ def _specular(params: NeRFField, d, gf, spec: NetworkSpec):
 
 def rgb(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
         spec: NetworkSpec, shading: str = "full",
-        max_level: Optional[int] = None):
+        max_level: Optional[int] = None, c=None):
     """(color [N, 3], specular [N, 3] or None) for shading "full",
     "diffuse" or "specular"; d normalized (JAX network.rgb)."""
-    gf = geo_feat(params, x, spec, max_level)
+    gf = geo_feat(params, x, spec, max_level, c)
     diffuse = gf[..., :3]
     if shading == "diffuse":
         return diffuse, None
@@ -233,10 +247,10 @@ def rgb(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
 
 def rgb_train(params: NeRFField, x: torch.Tensor, d: torch.Tensor,
               spec: NetworkSpec, full_flag: bool,
-              max_level: Optional[int] = None):
+              max_level: Optional[int] = None, c=None):
     """(color, specular) with the diffuse/full switch of training: diffuse
     only (specular zero) until full_flag (JAX network.rgb_train)."""
-    gf = geo_feat(params, x, spec, max_level)
+    gf = geo_feat(params, x, spec, max_level, c)
     diffuse = gf[..., :3]
     specular = _specular(params, d, gf, spec)
     if full_flag:

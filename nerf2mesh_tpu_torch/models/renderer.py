@@ -1,7 +1,8 @@
 """Stage-0 volumetric renderer (port of nerf2mesh_tpu/models/renderer.py).
 
-Occupancy-grid state, the EMA-max density-grid update (one of 8 x-slabs per
-call, round-robin), ``mark_untrained_grid`` (numpy), the training render
+Occupancy-grid state, the density-grid update (one of 8 x-slabs per call,
+round-robin: the EMA-max, or under ``trainable_density_grid`` a descent
+step on the slab's loss), ``mark_untrained_grid`` (numpy), the training render
 ``render_train`` with valid-sample pool compaction, and the early-exit eval
 march (``render_eval_segment``, ``render_frame_queue``).  In SDF mode the
 field's raw SDF becomes a NeuS alpha (``neus_alpha_from_sdf``) from the
@@ -10,7 +11,7 @@ finite-difference normal.
 At bound > 1 the grid has 1 + ceil(log2(grid bound)) cascades, cascade c
 covering [-min(2^c, grid bound), +...]^3; under contraction the field and
 the grid see contracted positions in [-2, 2]^3 (grid bound 2, two
-cascades).  The trainable density grid is not ported yet (ROADMAP A6).
+cascades).
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ def init_render_state(spec: RenderSpec, device=None) -> RenderState:
 
 
 GRID_UPDATE_SLABS = 8
+GRID_LR = 1e-2          # the trainable grid's step (JAX's grid_lr default)
 
 
 def slab_points(spec: RenderSpec, slab: int, device=None) -> torch.Tensor:
@@ -103,10 +105,18 @@ def slab_noise(spec: RenderSpec, generator: torch.Generator,
 def _update_density_slab(params: NeRFField, state: RenderState,
                          noise: List[torch.Tensor], spec: RenderSpec,
                          net_spec: NetworkSpec, max_level: Optional[int],
-                         slab: int, decay: float = 0.95) -> RenderState:
+                         slab: int, decay: float = 0.95,
+                         trainable: bool = False,
+                         lambda_density: float = 0.0) -> RenderState:
     """Query density at jittered cell centers of one x-slab, EMA-max update,
     re-threshold occupancy (reference renderer.py:1074-1149).  noise:
-    per-cascade [HX*H*H, 3] jitter (slab_noise)."""
+    per-cascade [HX*H*H, 3] jitter (slab_noise).
+
+    trainable (--trainable_density_grid, reference renderer.py:1123-1149):
+    in place of the EMA-max, one gradient step of size GRID_LR on the slab
+    loss  sum_valid (g - q)^2 / n_valid  +  sum_{c >= 1} 2^(c-1)
+    lambda_density sum_valid(c) g_c / n_valid(c)  (q the fresh queries),
+    whose gradient JAX takes by autodiff; here it is written out."""
     H, CAS = spec.grid_size, spec.cascades
     sh = H // GRID_UPDATE_SLABS
     x_lo = slab * sh
@@ -126,8 +136,18 @@ def _update_density_slab(params: NeRFField, state: RenderState,
     grid = state.density_grid.clone()
     old_slab = grid[:, x_lo:x_lo + sh]
     valid = (old_slab >= 0) & (tmp_slab >= 0)
-    grid[:, x_lo:x_lo + sh] = torch.where(
-        valid, torch.maximum(old_slab * decay, tmp_slab), old_slab)
+    if trainable:
+        nv = valid.sum().clamp(min=1).float()
+        g = torch.where(valid, 2.0 * (old_slab - tmp_slab), 0.0) / nv
+        for cas in range(1, CAS):
+            nvc = valid[cas].sum().clamp(min=1).float()
+            g[cas] = g[cas] + torch.where(
+                valid[cas], (2.0 ** (cas - 1)) * lambda_density / nvc, 0.0)
+        new_slab = torch.where(valid, old_slab - GRID_LR * g, old_slab)
+    else:
+        new_slab = torch.where(
+            valid, torch.maximum(old_slab * decay, tmp_slab), old_slab)
+    grid[:, x_lo:x_lo + sh] = new_slab
 
     mean_density = grid.clamp(min=0.0).mean()
     thresh = torch.clamp(mean_density, max=spec.density_thresh)
@@ -142,19 +162,24 @@ def _update_density_slab(params: NeRFField, state: RenderState,
 def update_density_grid(params: NeRFField, state: RenderState,
                         generator: torch.Generator, spec: RenderSpec,
                         net_spec: NetworkSpec, max_level: Optional[int] = None,
-                        decay: float = 0.95, slab: int = -1) -> RenderState:
+                        decay: float = 0.95, slab: int = -1,
+                        trainable: bool = False,
+                        lambda_density: float = 0.0) -> RenderState:
     """slab in [0, 8) refreshes that x-slab; slab=-1 refreshes all eight
-    (one logical grid update)."""
+    (one logical grid update).  trainable, lambda_density: see
+    _update_density_slab."""
     dev = state.density_grid.device
+    kw = dict(decay=decay, trainable=trainable,
+              lambda_density=lambda_density)
     if slab < 0:
         it0 = state.iter_density
         for s in range(GRID_UPDATE_SLABS):
             state = _update_density_slab(
                 params, state, slab_noise(spec, generator, dev), spec,
-                net_spec, max_level, s, decay)
+                net_spec, max_level, s, **kw)
         return replace(state, iter_density=it0 + 1)
     return _update_density_slab(params, state, slab_noise(spec, generator, dev),
-                                spec, net_spec, max_level, slab, decay)
+                                spec, net_spec, max_level, slab, **kw)
 
 
 def mark_untrained_grid(state: RenderState, poses: np.ndarray, intrinsics,
@@ -269,11 +294,13 @@ def render_train(
     cos_anneal_ratio: float = 1.0,
     normal_epsilon: float = 1e-4,
     cam_near_far: Optional[torch.Tensor] = None,
+    ind_code: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """One training-mode volumetric render (reference renderer.py:676-748).
 
     cam_near_far [N, 2]: each ray's view near/far (enable_cam_near_far),
-    which clamps the aabb's slab.
+    which clamps the aabb's slab.  ind_code [N, ind_dim]: each ray's view's
+    per-image code (ind_dim > 0).
 
     pool_size: valid samples are compacted into a pool of that size before
     the field evaluation, so the field costs O(pool) instead of
@@ -302,8 +329,10 @@ def render_train(
 
     if pool_size is None:
         dirs_flat = dirs[:, None, :].expand(N, K, 3).reshape(N * K, 3)
+        c_flat = (None if ind_code is None else
+                  ind_code[:, None, :].expand(N, K, -1).reshape(N * K, -1))
         sigmas, rgbs, speculars, enc_cnt = field_forward(
-            params, pts, dirs_flat, net_spec, full_flag, max_level)
+            params, pts, dirs_flat, net_spec, full_flag, max_level, c_flat)
         if spec.sdf:
             sigmas, normal = _sdf_alpha(
                 params, pts, sigmas, dirs_flat, m.dts.reshape(-1), net_spec,
@@ -322,8 +351,9 @@ def render_train(
         x_pool = torch.where(in_pool[:, None], pts[ids_c], sentinel)
         d_pool = dirs[ids_c // K]
 
+        c_pool = None if ind_code is None else ind_code[ids_c // K]
         sigmas_p, rgbs_p, spec_p, enc_cnt = field_forward(
-            params, x_pool, d_pool, net_spec, full_flag, max_level)
+            params, x_pool, d_pool, net_spec, full_flag, max_level, c_pool)
         if spec.sdf:
             sigmas_p, normal = _sdf_alpha(
                 params, x_pool, sigmas_p, d_pool, m.dts.reshape(-1)[ids_c],

@@ -249,6 +249,7 @@ def render_stage1_crop(
     f_valid=None,
     shell_k: int = 1,
     shell_h: float = 0.02,
+    ind_code: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """One differentiable crop render.  With ssaa > 1 the crop is
     rasterized at ssaa x the resolution (dirs and bg_color given at that
@@ -258,7 +259,8 @@ def render_stage1_crop(
     the field's transmittance weights detached.  enable_offset_nerf_grad
     keeps the surface points in the graph, so the offsets also take the
     gradient of the field query (on the splat path only through the MLPs'
-    raw x input: the encode detaches its positions, as JAX's does)."""
+    raw x input: the encode detaches its positions, as JAX's does).
+    ind_code [1, ind_dim]: the view's per-image code (None: code 0)."""
     Cp = raster_spec.crop
     s = max(int(ssaa), 1)
     if s > 1:
@@ -299,7 +301,7 @@ def render_stage1_crop(
         for off in offs:
             pts = flat_x + float(off) * flat_d
             sig, col, _, _ = field_forward(params, pts, flat_d, net_spec,
-                                           shading == "full")
+                                           shading == "full", c=ind_code)
             a = 1.0 - torch.exp(-sig.clamp(min=0.0) * dt)
             w = (T * a).detach()
             acc = acc + w[:, None] * col
@@ -310,7 +312,8 @@ def render_stage1_crop(
         mean_c = acc / wsum.clamp(min=1e-6)
         colors = torch.where(wsum > 0.05, mean_c, acc_u)
     else:
-        colors, _ = field_rgb(params, flat_x, flat_d, net_spec, shading)
+        colors, _ = field_rgb(params, flat_x, flat_d, net_spec, shading,
+                              c=ind_code)
     rgbs = colors.reshape(Cs, Cs, 3)
     rgbs = torch.where(rast["covered"][..., None], rgbs, 0.0)
 

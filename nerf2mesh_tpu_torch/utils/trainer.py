@@ -45,11 +45,19 @@ dataset's per-view intrinsics give each ray its own, and under
 ``enable_cam_near_far`` each ray's near/far is clamped to its view's.
 Under ``contract`` the field sees contracted positions (grid bound 2).
 
+Trainer options: a colmap dataset's sparse depths (10% of the steps swap
+one view's sparse pixels in) or dense depth maps (gathered at the drawn
+pixels) add the depth term with its 1000-step ramp; ``patch_size`` > 1
+draws ps x ps pixel blocks of one view; ``color_space=linear`` turns the
+ground truth linear (nothing converts back, as in JAX);
+``trainable_density_grid`` replaces the grid's EMA-max by a descent step on
+its slab loss; ``ind_dim`` > 0 gives each view a code that trains at a
+tenth of the lr.
+
 The trainer runs on the card unless the caller asks for another device.
 
-Not ported yet (NotImplementedError, ROADMAP A6): orbax checkpoints,
-depth supervision, patches, per-image codes, linear color space and the
-trainable density grid; multi-device training (A7).
+Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6);
+multi-device training (A7).
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ import torch
 from ..config import Config
 from ..data.png import write_image
 from ..data.provider import Dataset
-from ..data.rays import get_rays
+from ..data.rays import get_rays, srgb_to_linear
 from ..models.network import NeRFField, NetworkSpec, sdf_pretrain_loss
 from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
                                init_render_state, mark_untrained_grid,
@@ -177,28 +185,12 @@ class StepDynamics(NamedTuple):
     lambda_entropy: float
 
 
-def check_supported(cfg: Config) -> None:
-    unsupported = {
-        "patch_size > 1": (cfg.patch_size > 1, "A6"),
-        "ind_dim > 0": (cfg.ind_dim > 0, "A6"),
-        "color_space=linear": (cfg.color_space == "linear", "A6"),
-        "trainable_density_grid": (cfg.trainable_density_grid, "A6"),
-        "enable_sparse_depth": (cfg.enable_sparse_depth, "A6"),
-        "enable_dense_depth": (cfg.enable_dense_depth, "A6"),
-    }
-    for name, (on, item) in unsupported.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP {item})")
-
-
 class Trainer:
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
                  workspace: Optional[str] = None):
         """device: default the current CUDA card (RuntimeError without
         one); pass "cpu" to run on the CPU.  workspace: default
         cfg.workspace; checkpoints, eval images and videos go there."""
-        check_supported(cfg)
         self.cfg = cfg
         if device is None:
             if not torch.cuda.is_available():
@@ -252,6 +244,7 @@ class Trainer:
         self._aabb_t = torch.from_numpy(self._aabb).to(self.device)
         self._train_arrays_for = None
         self._train_cnf = None
+        self._train_depth = None
         self.metrics = [PSNRMeter()]
         self.stats: Dict[str, object] = {"results": [], "best": None}
         # one entry per logged training step: step, loss, psnr, the rays
@@ -303,29 +296,56 @@ class Trainer:
         )
 
     def draw(self, num_rays: int, B: int, H: int, W: int) -> Dict[str, torch.Tensor]:
-        """One step's random draws from the trainer's generator."""
+        """One step's random draws from the trainer's generator: img_idx,
+        pix_idx [num_rays], bg [num_rays, 3], u [num_rays, num_fine] and,
+        under enable_sparse_depth, use_sd: the 10% draw of a sparse-depth
+        step (a 0-d bool tensor).
+        Under patch_size ps > 1 the pixels are ps x ps blocks of one view
+        at random top-left corners (JAX trainer.py:420-430)."""
         g, dev = self.generator, self.device
         img_idx = torch.randint(0, B, (num_rays,), generator=g, device=dev)
-        if not self.cfg.random_image_batch:
+        ps = self.cfg.patch_size
+        if not self.cfg.random_image_batch or ps > 1:
             img_idx = img_idx[:1].expand(num_rays)
-        return {
+        if ps > 1:
+            if num_rays % (ps * ps):
+                raise ValueError(f"patch_size {ps}: {num_rays} rays are not "
+                                 f"whole {ps}x{ps} patches")
+            n = num_rays // (ps * ps)
+            y0 = torch.randint(0, H - ps, (n,), generator=g, device=dev)
+            x0 = torch.randint(0, W - ps, (n,), generator=g, device=dev)
+            oy, ox = torch.meshgrid(torch.arange(ps, device=dev),
+                                    torch.arange(ps, device=dev),
+                                    indexing="ij")
+            off = (oy * W + ox).reshape(1, -1)
+            pix_idx = ((y0 * W + x0)[:, None] + off).reshape(-1)
+        else:
+            pix_idx = torch.randint(0, H * W, (num_rays,), generator=g,
+                                    device=dev)
+        draws = {
             "img_idx": img_idx,
-            "pix_idx": torch.randint(0, H * W, (num_rays,), generator=g,
-                                     device=dev),
+            "pix_idx": pix_idx,
             "bg": torch.rand((num_rays, 3), generator=g, device=dev),
             "u": torch.rand((num_rays, self.render_spec.num_fine),
                             generator=g, device=dev),
         }
+        if self.cfg.enable_sparse_depth:
+            draws["use_sd"] = torch.rand((), generator=g, device=dev) > 0.9
+        return draws
 
     def _loss_and_metrics(self, params: NeRFField, render, images_u8, poses,
                           intrinsics, dyn: StepDynamics, num_rays: int,
-                          draws: Dict[str, torch.Tensor], cam_near_far=None):
+                          draws: Dict[str, torch.Tensor], cam_near_far=None,
+                          depth=None):
         """Loss of one ray batch and its metrics (tensors, not synced).
 
         images_u8 [B, H, W, C] uint8; poses [B, 4, 4]; intrinsics (fx, fy,
         cx, cy) floats or a [B, 4] tensor (a view's own); draws: img_idx,
-        pix_idx [num_rays] int, bg [num_rays, 3], u [num_rays, num_fine]
-        (see draw); cam_near_far [B, 2] or None: each view's near/far."""
+        pix_idx [num_rays] int, bg [num_rays, 3], u [num_rays, num_fine],
+        use_sd (see draw); cam_near_far [B, 2] or None: each view's
+        near/far; depth: None, {"dense": [B, H, W]} or {"sparse": (flat
+        pixel ids, depths, weights, valid flags), each [B, R]} (see
+        _prep_train_arrays)."""
         cfg, rspec, nspec = self.cfg, self.render_spec, self.net_spec
         if cfg.stochastic_fine and not cfg.sdf:
             # not in SDF mode: the 1-corner estimate makes the 6 taps of the
@@ -334,10 +354,31 @@ class Trainer:
         B, H, W, C = images_u8.shape
         img_idx, pix_idx = draws["img_idx"], draws["pix_idx"]
 
+        gt_depth = gt_depth_w = None
+        if depth is not None and "sparse" in depth:
+            # a step in ten trains on the sparse points' pixels of one view
+            sc, sd, sw, sv = depth["sparse"]
+            use_sd = draws["use_sd"]
+            one = img_idx[0]
+            reps = -(-num_rays // sc.shape[1])
+
+            def tiled(a):
+                return a[one].repeat(reps)[:num_rays]
+            img_idx = torch.where(use_sd, one.expand(num_rays), img_idx)
+            pix_idx = torch.where(use_sd, tiled(sc).long(), pix_idx)
+            gt_depth = torch.where(use_sd, tiled(sd), 0.0)
+            gt_depth_w = torch.where(use_sd, tiled(sw * sv), 0.0)
+
         if torch.is_tensor(intrinsics):
             intrinsics = intrinsics[img_idx].unbind(-1)          # per ray
         rays = get_rays(poses[img_idx], intrinsics, H, W, pix_idx)
         gt_raw = images_u8[img_idx, rays["j"], rays["i"]].float() / 255.0
+        if cfg.color_space == "linear":
+            gt_raw = torch.cat([srgb_to_linear(gt_raw[:, :3]), gt_raw[:, 3:]],
+                               dim=-1)
+        if depth is not None and "dense" in depth:
+            gt_depth = depth["dense"][img_idx, rays["j"], rays["i"]]
+            gt_depth_w = torch.ones_like(gt_depth)
         bg = (torch.ones((num_rays, 3), device=images_u8.device)
               if cfg.background == "white" else draws["bg"])
         if C == 4:
@@ -356,7 +397,9 @@ class Trainer:
             pool_size=pool, cos_anneal_ratio=dyn.cos_anneal_ratio,
             normal_epsilon=dyn.normal_epsilon,
             cam_near_far=(None if cam_near_far is None
-                          else cam_near_far[img_idx]))
+                          else cam_near_far[img_idx]),
+            ind_code=(params.individual_codes[img_idx] if cfg.ind_dim > 0
+                      else None))
 
         pred_rgb = out["image"]
         loss_per_ray = cfg.lambda_rgb * CRITERIA[cfg.criterion](
@@ -364,6 +407,13 @@ class Trainer:
         if gt_mask is not None and cfg.lambda_mask > 0:
             loss_per_ray = loss_per_ray + cfg.lambda_mask * (
                 (out["weights_sum"] - gt_mask[:, 0]) ** 2)
+        depth_term = None
+        if gt_depth is not None and cfg.lambda_depth > 0:
+            # the depth term with its 1000-step ramp (utils.py:685-705)
+            lam = cfg.lambda_depth * dyn.lambda_depth_ramp
+            dmask = (gt_depth > 0).float() * gt_depth_w
+            depth_term = lam * dmask * (out["depth"] - gt_depth) ** 2
+            loss_per_ray = loss_per_ray + depth_term
         # rays whose samples overflowed the point pool carry no loss
         kept = out["ray_kept"].float()
         loss = (loss_per_ray * kept).sum() / kept.sum().clamp(min=1)
@@ -389,10 +439,14 @@ class Trainer:
         if cfg.sdf and cfg.lambda_eikonal > 0:
             # double where: the out-of-pool slots' FD normals are exactly
             # zero, and sqrt's gradient there is inf; masking only the value
-            # would still backpropagate 0 * inf = NaN into every parameter
+            # would still backpropagate 0 * inf = NaN into every parameter.
+            # Under fp16 a pool point's normal can be exactly zero too (its
+            # 6 taps round to one bf16 value at small epsilon): it keeps
+            # JAX's value, (0 - 1)^2, with a zero gradient where JAX's is NaN
             pv = out["pp_valid"]
             nrm2 = (out["normal"] ** 2).sum(dim=-1)
-            nrm = torch.sqrt(torch.where(pv, nrm2, 1.0))
+            ok = pv & (nrm2 > 0)
+            nrm = torch.where(ok, torch.sqrt(torch.where(ok, nrm2, 1.0)), 0.0)
             eik = torch.where(pv, (nrm - 1.0) ** 2, 0.0)
             eik = eik.sum() / pv.sum().clamp(min=1)
             loss = loss + cfg.lambda_eikonal * eik
@@ -419,20 +473,25 @@ class Trainer:
         }
         if cfg.sdf and cfg.lambda_eikonal > 0:
             metrics["eikonal"] = eik.detach()
+        if depth_term is not None:
+            # the depth term's share of the loss
+            metrics["depth_loss"] = ((depth_term * kept).sum()
+                                     / kept.sum().clamp(min=1)).detach()
         return loss, metrics
 
     def train_step(self, images_u8, poses, intrinsics, num_rays: int,
                    dyn: StepDynamics,
                    draws: Optional[Dict[str, torch.Tensor]] = None,
-                   cam_near_far: Optional[torch.Tensor] = None):
-        """One optimizer step; returns the step's metrics (device tensors)."""
+                   cam_near_far: Optional[torch.Tensor] = None, depth=None):
+        """One optimizer step; returns the step's metrics (device tensors).
+        depth: see _loss_and_metrics."""
         if draws is None:
             B, H, W, _ = images_u8.shape
             draws = self.draw(num_rays, B, H, W)
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._loss_and_metrics(
             self.params, self.render, images_u8, poses, intrinsics, dyn,
-            num_rays, draws, cam_near_far)
+            num_rays, draws, cam_near_far, depth)
         loss.backward()
         # a parameter outside this step's graph (the specular head during the
         # diffuse warmup) gets a zero gradient, as JAX's value_and_grad gives
@@ -503,7 +562,9 @@ class Trainer:
         for slab in slabs:
             self.render = update_density_grid(
                 self.params, self.render, self.grid_generator,
-                self.render_spec, self.net_spec, dyn.max_level, slab=slab)
+                self.render_spec, self.net_spec, dyn.max_level, slab=slab,
+                trainable=self.cfg.trainable_density_grid,
+                lambda_density=self.cfg.lambda_density)
 
     def _update_encode_routing(self, metrics) -> None:
         """Residual-rate probe: per level, route to the window kernels when
@@ -545,7 +606,10 @@ class Trainer:
     def _prep_train_arrays(self, dataset: Dataset):
         """(images, poses, intrinsics) on the device: the intrinsics as
         floats, or a [B, 4] tensor when the views have their own.  Keeps
-        the views' near/far in self._train_cnf under enable_cam_near_far."""
+        the views' near/far in self._train_cnf under enable_cam_near_far,
+        and a colmap dataset's depth in self._train_depth: the dense maps,
+        or the sparse records padded to [B, R] flat pixel ids, depths,
+        weights and valid flags (JAX trainer.py:812-832)."""
         if self._train_arrays_for is dataset:
             return self._train_arrays
         dev = self.device
@@ -561,6 +625,21 @@ class Trainer:
                 dev)
             if self.cfg.enable_cam_near_far
             and dataset.cam_near_far is not None else None)
+        self._train_depth = None
+        if dataset.dense_depth is not None:
+            self._train_depth = {"dense": torch.from_numpy(
+                np.ascontiguousarray(dataset.dense_depth)).to(dev)}
+        elif dataset.sparse_depth is not None:
+            R = max(len(s[0]) for s in dataset.sparse_depth)
+            B = len(dataset.sparse_depth)
+            sc = np.zeros((B, R), np.int64)
+            sd, sw, sv = (np.zeros((B, R), np.float32) for _ in range(3))
+            for i, (xy, d, w) in enumerate(dataset.sparse_depth):
+                m = len(xy)
+                sc[i, :m] = xy[:, 0].astype(np.int64) * dataset.W + xy[:, 1]
+                sd[i, :m], sw[i, :m], sv[i, :m] = d, w, 1.0
+            self._train_depth = {"sparse": tuple(
+                torch.from_numpy(a).to(dev) for a in (sc, sd, sw, sv))}
         self._train_arrays_for = dataset
         return self._train_arrays
 
@@ -582,7 +661,8 @@ class Trainer:
               else cfg.num_rays)
         metrics = self.train_step(images, poses, intrinsics, nr,
                                   self.dynamics(step),
-                                  cam_near_far=self._train_cnf)
+                                  cam_near_far=self._train_cnf,
+                                  depth=self._train_depth)
         if self.step % iv == 0:
             self._probe(metrics, nr)
         return metrics, nr
@@ -807,7 +887,9 @@ class Trainer:
             enable_offset_nerf_grad=cfg.enable_offset_nerf_grad,
             pos_gradient_boost=cfg.pos_gradient_boost, ssaa=ss,
             alpha_mode=cfg.s1_alpha, f_valid=f_real, shell_k=cfg.s1_shell,
-            shell_h=cfg.s1_shell_h)
+            shell_h=cfg.s1_shell_h,
+            ind_code=(self.params.individual_codes[img][None]
+                      if cfg.ind_dim > 0 else None))
 
         loss_pix = cfg.lambda_rgb * ((out["image"] - gt_rgb) ** 2).mean(-1)
         if gt_mask is not None and cfg.lambda_mask > 0:

@@ -415,12 +415,7 @@ def test_unported_cli_paths_raise(tmp_path):
             "1", "--num_levels", "4", "--log2_hashmap_size", "12",
             "--grid_size", "16", "--test_no_mesh"]
     for extra, item in ((["--data_format", "dtu"], "A7"),
-                        (["--mesh_shape", "2"], "A7"),
-                        (["--enable_sparse_depth"], "A6"),
-                        (["--data_format", "colmap", "--enable_dense_depth"],
-                         "A6"),
-                        (["--patch_size", "4"], "A6"),
-                        (["--color_space", "linear"], "A6")):
+                        (["--mesh_shape", "2"], "A7")):
         # each names its item before any work, with or without the mesh
         for argv in (base + extra, base[:-1] + extra):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

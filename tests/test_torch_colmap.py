@@ -181,32 +181,43 @@ def test_colmap_reader_options_match_jax(scenes, tmp_path):
 
 
 def test_unported_colmap_options_raise(scenes, tmp_path, monkeypatch):
+    """Depth supervision, resizing and JPEG captures without Pillow are
+    ported (A6 (a)-(c); against JAX in tests/test_torch_captures.py); a
+    progressive JPEG without Pillow still raises, naming A6 (a')."""
     from PIL import Image
     _, troot = scenes
-    for flag in ("--enable_sparse_depth", "--enable_dense_depth"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tload(tparse([troot, flag]), "train")
-    # a frame whose size differs from the camera's: JAX resizes, the port
-    # raises
+    assert len(tload(tparse([troot, "--enable_sparse_depth"]),
+                     "train").sparse_depth) == 8
+    with pytest.raises(RuntimeError, match="dense depth missing"):
+        tload(tparse([troot, "--enable_dense_depth"]), "train")
+    # a frame whose size differs from the camera's: resized, as JAX does
     root = str(tmp_path / "resize")
     shutil.copytree(troot, root)
     p = os.path.join(root, "images", "frame_0001.png")
     Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(p)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tload(tparse([root]), "train")
-    # a JPEG capture without Pillow
-    root = str(tmp_path / "jpeg")
-    shutil.copytree(troot, root)
-    sp = os.path.join(root, "sparse", "0", "images.bin")
-    ims = tcu.read_images_binary(sp)
-    for k, im in ims.items():
-        src = os.path.join(root, "images", im.name)
-        jpg = im.name.replace(".png", ".jpg")
-        Image.open(src).save(os.path.join(root, "images", jpg))
-        os.remove(src)
-        ims[k] = dataclasses.replace(im, name=jpg)
-    tcu.write_images_binary(ims, sp)
     assert tload(tparse([root]), "train").images.shape == (8, 32, 32, 3)
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tload(tparse([root]), "train")
+    # a JPEG capture, then the same as progressive JPEGs
+    for progressive in (False, True):
+        root = str(tmp_path / f"jpeg{int(progressive)}")
+        shutil.copytree(troot, root)
+        sp = os.path.join(root, "sparse", "0", "images.bin")
+        ims = tcu.read_images_binary(sp)
+        for k, im in ims.items():
+            src = os.path.join(root, "images", im.name)
+            jpg = im.name.replace(".png", ".jpg")
+            Image.open(src).save(os.path.join(root, "images", jpg),
+                                 progressive=progressive)
+            os.remove(src)
+            ims[k] = dataclasses.replace(im, name=jpg)
+        tcu.write_images_binary(ims, sp)
+        with_pil = tload(tparse([root]), "train").images
+        assert with_pil.shape == (8, 32, 32, 3)
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "PIL", None)
+            if progressive:
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP A6 \\(a'\\)"):
+                    tload(tparse([root]), "train")
+            else:
+                np.testing.assert_array_equal(
+                    tload(tparse([root]), "train").images, with_pil)

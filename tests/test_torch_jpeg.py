@@ -99,5 +99,5 @@ def test_without_pillow_the_port_codec_writes(tmp_path, monkeypatch):
     np.testing.assert_array_equal(small, jpeg.downscale(img, 68, 60))
     path = str(tmp_path / "t.jpg")
     jpeg.save_jpeg(path, small, quality=95)
-    with open(path, "rb") as f:
-        assert f.read() == jpeg.encode_jpeg(small, 95)
+    with open(path, "rb") as f:       # Pillow's default sampling, 4:2:0
+        assert f.read() == jpeg.encode_jpeg(small, 95, "4:2:0")

@@ -118,7 +118,7 @@ def test_density_parity_stochastic_off_and_on(layout):
 
 def test_unsupported_modes_raise():
     _, tspec = net_specs()
-    for kw in (dict(ind_dim=4), dict(separate_tables=True)):
+    for kw in (dict(separate_tables=True),):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             tnet.NeRFField(dataclasses.replace(tspec, **kw),
                            torch.Generator().manual_seed(0))

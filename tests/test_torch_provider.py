@@ -80,13 +80,14 @@ def test_blender_reader_matches_jax(tmp_path, case):
 
 
 def test_blender_reader_raises_on_what_is_not_ported(tmp_path):
+    # resizing to the json's size and downscale are ported (A6; against
+    # JAX in tests/test_torch_captures.py)
     root = write_scene(str(tmp_path / "a"), dict(fl_x=20.0, h=H + 1, w=W))
-    with pytest.raises(NotImplementedError, match="A6"):       # resize
-        load_nerf_dataset(_configs(root)[0], "train")
+    assert load_nerf_dataset(_configs(root)[0], "train").H == H + 1
     root = write_scene(str(tmp_path / "b"), dict(fl_x=20.0))
-    with pytest.raises(NotImplementedError, match="A6"):
-        load_nerf_dataset(_configs(root, downscale=2)[0], "train")
-    with pytest.raises(NotImplementedError, match="A6"):
+    assert load_nerf_dataset(_configs(root, downscale=2)[0],
+                             "train").H == H // 2
+    with pytest.raises(FileNotFoundError):       # no val split written
         load_nerf_dataset(_configs(root)[0], "trainval")
     with open(os.path.join(root, "transforms.json"), "w") as f:
         json.dump({"frames": []}, f)
