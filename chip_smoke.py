@@ -25,16 +25,21 @@ Phases, in order; any failure exits non-zero:
      sweep_bwd (the ref table gradient) against their plain versions on
      2^18 points at the ref slice's table (uniform, out-of-bounds, on-edge
      and 1-ulp-from-edge points), K4b also on 2^18 points in 16 tight
-     clusters, both at 40 and 70 levels and on a tiled grid; times from
+     clusters, both at 40 and 70 levels and on a tiled grid; then K2-K6
+     and K4b at the separate tables' channel counts, C = 1 and C = 2, on
+     2^18 points at the full specs (K2/K3 at levels 0-8, K5/K6 at 7-15,
+     K4/K4b at the ref slice's table), each against its plain version (the
+     table gradients within atomic_tol_margin); times from
      CUDA events (the mean of 20 back-to-back runs), each beside its bound
      (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, whichever is
      larger; K7's is K2's at its level);
   4. slice: stage-0 training at bench.py's configuration on the in-memory
      256x256 x 24-view sphere scene; every loss finite, the loss falls, and
      K1-K3's launch counters are above 0 for the training run alone; after
-     phase 5, 8 more steps and one eval frame under torch.profiler (device
+     phase 5, PROFILE_STEPS more steps and one eval frame under
+     torch.profiler (device
      busy time, idle share, kernels, top ops);
-  5. eval: Trainer.evaluate on 4 val views at 256x256 before and after the
+  5. eval: Trainer.evaluate on N_VAL val views at 256x256 before and after the
      phase-4 training; the PSNR after is finite and above the PSNR before,
      and K1 and K2 launch during each eval alone; ms per frame and march
      rounds;
@@ -42,20 +47,20 @@ Phases, in order; any failure exits non-zero:
      winsort_fine=True, stochastic_fine=False trains 64 steps (losses finite
      and falling, K5 and K6 launched by the training alone), then evaluates
      the val views (K5 launched by the eval alone); ms/step, rays/s,
-     ms/frame and PSNR; 8 more steps profiled;
+     ms/frame and PSNR; PROFILE_STEPS more steps profiled;
   7. cli (Pillow blocked, as on a machine without it): the ref small-table
      slice through nerf2mesh_tpu_torch.main on a 256x256 blender scene
-     written to a temporary directory (24 train, 4 val, 2 test views): 512
-     steps at bench.py's flags with --grid_layout ref --log2_hashmap_size
+     written to a temporary directory (24 train, N_VAL val, 2 test views):
+     CLI_STEPS steps at bench.py's flags with --grid_layout ref --log2_hashmap_size
      14 --mesh_visibility_culling --mcubes_reso 256, an eval and a
-     checkpoint at step 512, the final val and test evals (PSNR, SSIM, LPIPS
+     checkpoint at step CLI_STEPS, the final val and test evals (PSNR, SSIM, LPIPS
      proxy), the test video and mesh_stage0/mesh_0.ply; every logged loss
      finite and falling, K1, K4 and K4b launched by the training, the
      block512 kernels never; the mesh not empty and at least half its
      vertices within 0.05 of the scene's analytic surface; then main --test
      reloads the checkpoint, and a fresh Trainer loaded from it reproduces
-     the step-512 val PSNR within 1e-4 dB (8 more steps and one eval frame
-     profiled); then main --stage 1 --refine --iters CLI_S1_STEPS (a
+     the step-CLI_STEPS val PSNR within 1e-4 dB (PROFILE_STEPS more steps
+     and one eval frame profiled); then main --stage 1 --refine --iters CLI_S1_STEPS (a
      refine at half of them, textures 1024^2): finite losses, overflow 0, K4 and K4b launched by
      the stage-1 training alone, mesh_stage1/ with the OBJ, MTL, JPEGs that
      decode and mlp.json's keys; main --stage 1 --test, and a fresh stage-1
@@ -66,28 +71,30 @@ Phases, in order; any failure exits non-zero:
      decimate_target 3e5 and visibility culling
      against the 24 train views; a stage-1 Trainer at bench.py's width
      with -O's stage-1 recipe (s1_shell 4, s1_stochastic, refine at -O's
-     ratios, ssaa 2, full 256^2 crops) trains 128 steps: losses finite and
-     falling, overflow 0, K2 and K3 launched by the stage-1 steps alone,
-     the val PSNR after 128 steps not more than 0.1 dB below the one after
-     64 (the gap to the field's stage-0 val PSNR printed, not gated); 8 more
-     steps profiled; K2 and K3 held against their plain versions on the
-     arguments one more step gives them (4 shell layers); the rasterizer's
+     ratios, ssaa 2, full 256^2 crops) trains S1_STEPS steps: losses
+     finite and falling, overflow 0, K2 and K3 launched by the stage-1
+     steps alone, the val PSNR after S1_STEPS steps not more than 0.1 dB
+     below the one after half of them (the gap to the field's stage-0 val
+     PSNR printed, not gated); PROFILE_STEPS more steps profiled; K2 and
+     K3 held
+     against their plain versions on the arguments one more step gives
+     them (4 shell layers); the rasterizer's
      forward + backward timed against a step; export_stage1 at texture
      S1_TEXTURE (cut from the default 4096).  Wall seconds of the density
      query, marching cubes, cull, clean + decimate, unwrap, bake, inpaint
      and the JPEGs; faces at each refine; peak memory.
   9. sdf: bench.py's stage-0 configuration with sdf=True (NeuS): the
      double-sphere pretrain (cut to SDF_PRETRAIN iterations), gated by
-     sdf(0) < 0 < sdf(0.9, 0, 0); 128 stage-0 steps (losses and eikonal
+     sdf(0) < 0 < sdf(0.9, 0, 0); SDF_STEPS stage-0 steps (losses and eikonal
      terms finite, the loss falls, K1-K3 launched by these steps alone;
-     ms/step, peak memory); the eval on the 4 val views (PSNR finite, ms
-     per frame); 8 steps profiled; K2 and K3 held against their plain
+     ms/step, peak memory); the eval on the N_VAL val views (PSNR finite,
+     ms per frame); PROFILE_STEPS steps profiled; K2 and K3 held against their plain
      versions on the arguments one more step gives them (the pool's
      points, and the FD normal's 6 taps of each as one call); save_mesh at
      256^3 (not empty, at least half its vertices within 0.05 of the
      analytic surface); a stage-1 Trainer under enable_offset_nerf_grad
-     trains 32 steps (losses finite, overflow 0, K2/K3 launched by its
-     steps, the offsets' last gradient finite and non-zero); on 32 more
+     trains SDF_S1_STEPS steps (losses finite, overflow 0, K2/K3 launched
+     by its steps, the offsets' last gradient finite and non-zero); on 32 more
      crops the field query's share of the offsets' gradient, K2/K3 held
      against plain at a crop's arguments, and on the crop of the largest
      share the gradient with K2/K3 replaced by their plain versions (within
@@ -117,8 +124,8 @@ Phases, in order; any failure exits non-zero:
      tolerances against their plain versions on one more step's arguments,
      and timed there beside phase 3's times; mesh_0.ply within the unit
      box and an outer cascade's mesh past it, within the bound; overflow 0;
-     one OBJ a cascade.  Printed: ms/step and the idle share (8 profiled
-     steps), the untrained marks' wall, eval ms and march rounds a frame,
+     one OBJ a cascade.  Printed: ms/step and the idle share (PROFILE_STEPS
+     profiled steps), the untrained marks' wall, eval ms and march rounds a frame,
      the val PSNR of the diffuse render (the eval shades "full" before
      diffuse_step), pack_bits ms at the run's cascades, the export stages'
      walls, peak memory.
@@ -137,7 +144,7 @@ Phases, in order; any failure exits non-zero:
      --lambda_normal 1e-1, contracted, 2 cascades): the pretrain cut to
      SDF_PRETRAIN, CAP_STEPS of the recipe's 30000 steps, the evals, the
      meshes at CAP_MCUBES^3 decimated to CAP_DECIMATE, then --stage 1
-     --iters CAP_S1_STEPS (one refine, at step 16) and the export at
+     --iters CAP_S1_STEPS (one refine, at half of them) and the export at
      CAP_TEXTURE^2; (b) the LLFF recipe with
      --enable_sparse_depth, CAP_SPARSE_STEPS steps; (c) a blender scene at
      OPT_SIZE^2 with -O's fp16 and --downscale 2 --train_split trainval
@@ -146,15 +153,32 @@ Phases, in order; any failure exits non-zero:
      --ind_dim 4, OPT_STEPS steps and the evals.  Each run: logged losses
      finite and falling, evals finite, K1-K3 launched by its training and
      held (K1 exact, K2/K3 within phase 3's tolerances) at one more step's
-     arguments, 8 steps profiled (the loss "falls" when the mean of the
+     arguments, PROFILE_STEPS steps profiled (the loss "falls" when the mean of the
      last quarter of its steps is below the first quarter's: a patch step
      sees one view); the depth term zero at step 0 (its ramp)
      and non-zero on every later step that carries depth ((b): those whose
      sparse-depth draw is on; zero on the others); (a) mesh_0.ply not
      empty and within the unit box, stage 1 with overflow 0, K2/K3
      launched and held, one OBJ a cascade.
+ 12. hard: the hard proxy scene (data/synthetic.py HardScene: checker
+     textures, 0.015-radius rods, glossy materials) at 256x256, 24 train
+     and HARD_VAL val views, bench.py's stage-0 configuration at full width, in
+     four runs: (a) the merged block512 table, HARD_STEPS steps; (b) the
+     same with separate tables (sigma_table C = 1, color_table C = 2, by
+     patching the trainer module's NetworkSpec: no CLI flag sets them),
+     HARD_STEPS steps, K2 and K3 launched at C = 1 and C = 2 and held
+     against their plain versions at one more step's arguments; (c)
+     separate tables at --grid_layout ref --log2_hashmap_size 14,
+     HARD_REF_STEPS steps, K4 and K4b launched at C = 1 and 2; (d)
+     separate tables with winsort_fine, HARD_WS_STEPS steps, K5 and K6
+     launched at C = 1 and 2.  Each run: every loss finite, the mean of the
+     last 8 losses below the first 8's, the val evals finite and the PSNR
+     after training above the PSNR before, no C = 3 launch under separate
+     tables.  Printed: the val PSNR, ms/step and (PROFILE_STEPS profiled
+     steps) idle
+     share of (a) and (b) side by side.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
-phases 8's, 9's, 10's and 11's shapes.
+phases 8's, 9's, 10's, 11's and 12's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
@@ -165,11 +189,17 @@ three stage-0 trainings' by run, "llff", "360" and "contract", and
 "unbounded_stage1_launches" its two stage-1 trainings', "llff" and
 "contract"; "captures_launches": phase 11's three stage-0 trainings' by
 run, "outdoor", "sparse" and "options", and "captures_stage1_launches"
-its stage-1 training's, "outdoor"), the last line the device record.  Imports only the port, torch, numpy and the standard library.
+its stage-1 training's, "outdoor"; "hard_launches": phase 12's four
+trainings' by run, "merged", "separate", "ref" and "winsort"; the C = 1
+and C = 2 instantiations, "<name>_c1" and "<name>_c2", count their
+launches in phase 12's run that reaches them: (b) for K2/K3, (c) for
+K4/K4b, (d) for K5/K6), the last line the device record.  Imports only
+the port, torch, numpy and the standard library.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -188,44 +218,49 @@ SEED = 0
 SLICE_STEPS = 128          # grid refresh at 0, slab updates at 16, 32, ...
 TIMED_STEPS = 64           # steady-state window: the last TIMED_STEPS steps
 WINSORT_STEPS = 64         # phase 6 (exact encode: K5/K6 in every step)
-N_VAL = 4                  # eval views (phases 5 and 6)
+N_VAL = 2                  # val views of phases 4-9 and 11c (cut from 4)
 WINSORT_LEVELS = tuple(range(7, 16))   # the gather levels at the full spec
 KERNEL_POINTS = 2 ** 18    # phase 3: the point pool of a training step
-CLI_STEPS = 512            # phase 7 (a field that marches to a mesh)
+CLI_STEPS = 256            # phase 7 (a field that marches to a mesh; cut
+#                            from 512 for the time limit)
 CLI_MCUBES = 256           # phase 7's marching grid
-CLI_S1_STEPS = 32          # phase 7's stage 1 (a refine at step 16; 64
-#                            until PR 11)
+CLI_S1_STEPS = 16          # phase 7's stage 1 (a refine at half of them;
+#                            cut from 64, then 32, for the time limit)
 CLI_TEXTURE = 1024         # phase 7's texture side
-S1_STEPS = 128             # phase 8
+S1_STEPS = 32              # phase 8 (cut from 128, then 64, for the time
+#                            limit)
 S1_MCUBES = 256            # phase 8's marching grid (the default 512)
 S1_TEXTURE = 1024          # phase 8's texture side (the default 4096;
 #                            2048 until PR 11)
-MESH_FIELD_STEPS = 128     # phase 8: the phase-4 field trains on first
-#                            (256 until PR 11)
-PROFILE_STEPS = 8          # profiled steps after phases 4, 6 and 7
+MESH_FIELD_STEPS = 64      # phase 8: the phase-4 field trains on first
+#                            (cut from 256, then 128)
+PROFILE_STEPS = 4          # profiled steps of each profiled window (cut
+#                            from 8)
 SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
 SDF_STEPS = 128            # phase 9's stage-0 steps
 SDF_MCUBES = 256           # phase 9's marching grid
-SDF_S1_STEPS = 32          # phase 9's stage-1 steps
+SDF_S1_STEPS = 16          # phase 9's stage-1 steps (cut from 32)
 SDF_SHARE_CROPS = 32       # phase 9's crops for the field's gradient share
-UNB_VIEWS = 24             # phase 10's COLMAP capture (every 8th is val;
-#                            32 until PR 11)
+UNB_VIEWS = 16             # phase 10's COLMAP capture (every 8th is val;
+#                            cut from 32, then 24, for the time limit)
 UNB_SIZE = 256             # its frames' side
 UNB_STEPS = 128            # phase 10a (LLFF recipe, bound 4) stage-0 steps
 #                            (256 until PR 11)
 UNB_MCUBES = 128           # phase 10a's inner marching grid (default 512;
 #                            256 until PR 11)
-UNB_S1_STEPS = 32          # phase 10a's stage 1 (64 until PR 11)
+UNB_S1_STEPS = 16          # phase 10a's stage 1 (cut from 64, then 32,
+#                            for the time limit)
 UNB_TEXTURE = 512          # phase 10a's texture side (default 4096; 1024
 #                            until PR 11)
 UNB360_STEPS = 64          # phase 10b (the 360 recipe's geometry, bound 16;
 #                            128 until PR 11)
 UNB_SIDE_MCUBES = 128      # phase 10b's and 10c's inner marching grid
-UNB_DECIMATE = 6e4         # phase 10's decimate_target (default 3e5): the
-#                            outer cascades get half each, and stage 1's
-#                            face budget (87,381 at 256^2) is shared
+UNB_DECIMATE = 3e4         # phase 10's decimate_target (default 3e5; cut
+#                            from 6e4): the outer cascades get half
+#                            each, and stage 1's face budget (87,381 at
+#                            256^2) is shared
 CON_STEPS = 64             # phase 10c (10b + --contract)
-CON_S1_STEPS = 16          # phase 10c's stage 1
+CON_S1_STEPS = 8           # phase 10c's stage 1 (cut from 16)
 CON_TEXTURE = 512          # phase 10c's texture side
 CAP_VIEWS = 32             # phase 11's JPEG capture (every 8th is val)
 CAP_SIZE = 1024            # its frames' side: 4:2:0 JPEGs, decoded at 1 MP
@@ -236,17 +271,28 @@ CAP_SCALE = 0.5            # --scale (runall_sdf_outdoor.sh: 0.2): cameras at
 #                            1.4, the environment at 2.8, so the pretrain's
 #                            outer shell (radius 2) lies in the points' box
 #                            and the outer cascade is not empty (ROADMAP C)
-CAP_STEPS = 128            # phase 11a: stage-0 steps of the 30000 of the
-#                            recipe (its schedule, cut after 128 steps)
+CAP_STEPS = 64             # phase 11a: stage-0 steps of the 30000 of the
+#                            recipe (its schedule, cut after 64 steps; 128
+#                            before)
 CAP_MCUBES = 128           # phase 11a's marching grid
 CAP_DECIMATE = 3e4         # its decimate_target: the SDF's outer level is
 #                            decimated to it too, and the two share stage
 #                            1's face budget (87,381 at 256^2)
-CAP_S1_STEPS = 32          # phase 11a's stage 1
+CAP_S1_STEPS = 16          # phase 11a's stage 1 (cut from 32)
 CAP_TEXTURE = 512          # phase 11a's texture side
 CAP_SPARSE_STEPS = 64      # phase 11b (the LLFF recipe + sparse depth)
 OPT_SIZE = 512             # phase 11c's blender scene side (--downscale 2)
 OPT_STEPS = 64             # phase 11c (the A6 (d) options)
+HARD_STEPS = 64            # phase 12 (a) and (b): the hard scene, merged and
+#                            separate tables (cut from 256, then 128, for
+#                            the time limit: whole runs took 1272 s, then
+#                            over 1200 s on a slower host)
+HARD_REF_STEPS = 64        # phase 12 (c): separate tables, ref 2^14 table
+HARD_WS_STEPS = 64         # phase 12 (d): separate tables, winsort_fine
+#                            (its val PSNR rose 0.036 dB in 32 steps)
+HARD_VAL = 2               # phase 12's val views (cut from 4 for the time
+#                            limit: its 8 evals of 4 views took about 55 s
+#                            of a run that passed 1200 s)
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -278,8 +324,12 @@ def level_rows(spec, levels) -> int:
     return sum(int(spec.offsets[l + 1] - spec.offsets[l]) for l in levels)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print msg after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
@@ -302,9 +352,13 @@ def profile_region(fn, label: str, per: int = 1, top: int = 6):
     """Run fn once under torch.profiler and log the wall time, the device
     busy time (the sum of the kernels' durations on the one stream), the
     device's idle share, the kernel count and the ops with the most device
-    time (host ops, by the device time of their own kernels), each divided
-    by `per` (steps or frames); says so when the profiler records no
-    device time or is refused."""
+    time (host ops, by the device time of their own kernels: key_averages'
+    self device time), each divided by `per` (steps or frames); says so
+    when the profiler records no device time or is refused.  Reads the
+    profiler's raw events: building its FunctionEvent tree costs about 50
+    us of host time an event, tens of seconds for one profiled eval frame.
+    Returns (wall ms, device busy ms) per step or frame, or None without
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -317,21 +371,29 @@ def profile_region(fn, label: str, per: int = 1, top: int = 6):
             wall = (time.perf_counter() - t0) * 1e3
     except RuntimeError as e:
         log(f"[profile] {label}: profiler refused ({e})")
-        return
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        return None
+    ops, kern = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            kern.append((e.linked_correlation_id(), e.name(),
+                         e.duration_ns()))
+        elif e.linked_correlation_id() == 0:
+            # a host op (the CUDA runtime's calls link to theirs)
+            ops[e.correlation_id()] = e.name()
+    busy = sum(k[2] for k in kern) / 1e6
     if not kern or busy <= 0:
         log(f"[profile] {label}: the profiler saw no device time")
-        return
-    ops = sorted(((getattr(a, "self_device_time_total", 0.0), a.key[:48])
-                  for a in prof.key_averages()
-                  if a.device_type == DeviceType.CPU), reverse=True)[:top]
+        return None
+    by_op = collections.Counter()
+    for corr, name, ns in kern:
+        by_op[ops.get(corr, name)[:48]] += ns / 1e6
     log(f"[profile] {label}: wall {wall / per:.2f} ms, device busy "
         f"{busy / per:.2f} ms, idle share {1 - busy / wall:.3f}, "
         f"{len(kern) / per:.0f} kernels, per {'step' if per > 1 else 'run'}"
         f" (profiled); top device time: " + "; ".join(
-            f"{k} {t / 1e3 / per:.3f} ms ({t / 1e3 / busy:.1%})"
-            for t, k in ops))
+            f"{k} {t / per:.3f} ms ({t / busy:.1%})"
+            for k, t in by_op.most_common(top)))
+    return wall / per, busy / per
 
 
 def phase_device():
@@ -584,6 +646,7 @@ def phase_kernels(dev):
                                    + N * 12, trilinear_flops(N)))
     results += winsort_kernels(dev, spec, table, rng)
     results += sweep_kernel(dev, rng)
+    results += channel_kernels(dev, rng)
     for r in results:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         r["library_ms"] = None      # no one PyTorch call computes these
@@ -962,6 +1025,147 @@ def sweep_kernel(dev, rng):
                  plain_ms=cuda_time_ms(lambda: sweep_bwd_plain(g, *bargs)),
                  bound=bound(N * 12 + N * L * 12 + spec.table_size * 12,
                              trilinear_flops(N * L)))]
+
+
+CHANNEL_SOURCES = {
+    "inwin_fwd": ("nerf2mesh_tpu_torch/csrc/splat_inwin.cu",
+                  "nerf2mesh_tpu/ops/splat_encode.py:234"),
+    "inwin_bwd": ("nerf2mesh_tpu_torch/csrc/splat_inwin.cu",
+                  "nerf2mesh_tpu/ops/splat_encode.py:263"),
+    "winsort_fwd": ("nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
+                    "nerf2mesh_tpu/ops/splat_encode.py:365"),
+    "winsort_bwd": ("nerf2mesh_tpu_torch/csrc/splat_winsort.cu",
+                    "nerf2mesh_tpu/ops/splat_encode.py:397"),
+    "sweep_fwd": ("nerf2mesh_tpu_torch/csrc/sweep_encode.cu",
+                  "nerf2mesh_tpu/ops/pallas_encode.py:68"),
+    "sweep_bwd": ("nerf2mesh_tpu_torch/csrc/sweep_encode.cu",
+                  "nerf2mesh_tpu/ops/pallas_encode.py:212 (XLA)"),
+}
+
+
+def channel_kernels(dev, rng):
+    """K2-K6 and K4b at the separate tables' channel counts, C = 1 (the
+    density table) and C = 2 (the colour table), on 2^18 points at the
+    full specs: K2/K3 at block512 levels 0-8 on morton-sorted shell,
+    uniform and block-edge points; K5/K6 at winsort levels 7-15 on uniform,
+    block-edge and out-of-bounds points; K4/K4b at the ref slice's table on
+    uniform and lattice-edge points.  Each against its plain version (the
+    table gradients by atomic_tol_margin), timed beside its bound (C
+    channels: 4C bytes a row)."""
+    from nerf2mesh_tpu_torch.ops import pallas_encode as pe
+    from nerf2mesh_tpu_torch.ops import splat_encode as se
+    from nerf2mesh_tpu_torch.ops.hashgrid import HashGridSpec
+    N = KERNEL_POINTS
+    full = HashGridSpec(num_levels=16, level_dim=3, log2_hashmap_size=19,
+                        desired_resolution=2048, layout="block512")
+    levels = tuple(range(9))
+    bnd = boundary_points(full, levels, rng)
+    d = rng.normal(size=(N // 2, 3))
+    shell = 0.5 + 0.3 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    pts = np.concatenate([shell, rng.uniform(0, 1, (N // 2 - len(bnd), 3)),
+                          bnd]).astype(np.float32)
+    xk = torch.from_numpy(np.clip(pts, 0, 1)).to(dev)
+    xk = xk[se.morton_perm(xk)[0]].contiguous()
+    metas = [se.tile_meta(xk.reshape(-1, se.TILE, 3), full, l) for l in levels]
+    kmeta = (torch.stack([m[0] for m in metas]).contiguous(),
+             torch.stack([m[1] for m in metas]).contiguous())
+
+    wl = WINSORT_LEVELS
+    bnd = boundary_points(full, wl, rng)
+    pts = np.concatenate([rng.uniform(0, 1, (N - len(bnd) - 64, 3)), bnd,
+                          rng.uniform(1.2, 1.5, (64, 3))])
+    xw = torch.from_numpy(pts[rng.permutation(N)].astype(np.float32)).to(dev)
+    oob = ((xw < 0) | (xw > 1)).any(-1)
+    xw = xw.clamp(0, 1).contiguous()
+    metas = [se.winsort_meta(xw, oob, full, l) for l in wl]
+    wmeta = (torch.stack([m[0] for m in metas]).to(torch.int32).contiguous(),
+             torch.stack([m[1] for m in metas]).contiguous(),
+             torch.stack([m[2] for m in metas]).contiguous())
+
+    ref = ref_spec()
+    pts = rng.uniform(0, 1, (N, 3))
+    for l in range(ref.num_levels):
+        s = np.float32(ref.level_scale32(l))
+        k = rng.integers(0, N, 64)
+        pts[k, rng.integers(0, 3, 64)] = np.nextafter(
+            np.float32((rng.integers(1, int(s), 64) - np.float32(ref.shift))
+                       / s), np.float32(2))
+    xs = torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+    out = []
+    for C in (1, 2):
+        spec = dataclasses.replace(full, level_dim=C)
+        rspec = dataclasses.replace(ref, level_dim=C)
+        table = torch.from_numpy(rng.uniform(-1, 1, (spec.table_size, C))
+                                 .astype(np.float32)).to(dev)
+        rtable = torch.from_numpy(rng.uniform(-1, 1, (rspec.table_size, C))
+                                  .astype(np.float32)).to(dev)
+        cases = {}
+        # K2/K3
+        Lk = len(levels)
+        fargs = (table, xk, *kmeta, spec, levels)
+        bargs = (xk, *kmeta, spec, levels, spec.table_size)
+        g = torch.from_numpy(rng.normal(size=(N, Lk, C)).astype(np.float32)
+                             ).to(dev)
+        meta = sum(t.numel() for t in kmeta) * 4 + xk.numel() * 4
+        cases["inwin_fwd"] = (
+            lambda: se.inwin_fwd(*fargs), lambda: se.inwin_fwd_plain(*fargs),
+            None, bound(level_rows(spec, levels) * 4 * C + meta
+                        + N * Lk * 4 * C, trilinear_flops(N * Lk, C)))
+        cases["inwin_bwd"] = (
+            lambda: se.inwin_bwd(g, *bargs),
+            lambda: se.inwin_bwd_plain(g, *bargs),
+            (se.inwin_bwd, se.inwin_bwd_plain, g, bargs),
+            bound(N * Lk * 4 * C + meta + spec.table_size * 4 * C,
+                  trilinear_flops(N * Lk, C)))
+        # K5/K6
+        Lw = len(wl)
+        wfargs = (table, xw, *wmeta, spec, wl)
+        wbargs = (xw, *wmeta, spec, wl, spec.table_size)
+        gw = torch.from_numpy(rng.normal(size=(N, Lw, C)).astype(np.float32)
+                              ).to(dev)
+        meta = sum(t.numel() for t in wmeta) * 4 + xw.numel() * 4
+        cases["winsort_fwd"] = (
+            lambda: se.winsort_fwd(*wfargs),
+            lambda: se.winsort_fwd_plain(*wfargs), None,
+            bound(level_rows(spec, wl) * 4 * C + meta + N * Lw * 4 * C,
+                  trilinear_flops(N * Lw, C)))
+        cases["winsort_bwd"] = (
+            lambda: se.winsort_bwd(gw, *wbargs),
+            lambda: se.winsort_bwd_plain(gw, *wbargs),
+            (se.winsort_bwd, se.winsort_bwd_plain, gw, wbargs),
+            bound(N * Lw * 4 * C + meta + spec.table_size * 4 * C,
+                  trilinear_flops(N * Lw, C)))
+        # K4/K4b
+        L = rspec.num_levels
+        gs = torch.from_numpy(rng.normal(size=(N, L * C)).astype(np.float32)
+                              ).to(dev)
+        sargs = (rtable, xs, rspec)
+        cases["sweep_fwd"] = (
+            lambda: pe.sweep_fwd(*sargs), lambda: pe.sweep_fwd_plain(*sargs),
+            None, bound(N * 12 + rspec.table_size * 4 * C + N * L * 4 * C,
+                        trilinear_flops(N * L, C)))
+        cases["sweep_bwd"] = (
+            lambda: sweep_bwd(gs, *sargs), lambda: sweep_bwd_plain(gs, *sargs),
+            (sweep_bwd, sweep_bwd_plain, gs, sargs),
+            bound(N * 12 + N * L * 4 * C + rspec.table_size * 4 * C,
+                  trilinear_flops(N * L, C)))
+        for name, (fn, plain, grad_args, bnd_ms) in cases.items():
+            err = float((fn() - plain()).abs().max())
+            if grad_args is None:
+                ok = err <= TOL[name][0]
+            else:
+                ok = atomic_tol_margin(*grad_args) >= 0
+            log(f"[kernels] {name} at C={C}: max|err| {err:.3e}")
+            if not ok:
+                raise AssertionError(f"{name} at C={C} disagrees with its "
+                                     f"plain version: {err}")
+            src, rep_ = CHANNEL_SOURCES[name]
+            out.append(dict(name=f"{name}_c{C}", route="cuda", source=src,
+                            replaces=rep_, max_abs_err=err,
+                            ms=cuda_time_ms(fn), plain_ms=cuda_time_ms(plain),
+                            bound=bnd_ms))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2134,7 +2338,7 @@ def phase_unbounded(dev, ref_ms):
         merge(e)
         del tr
 
-        # (c) (b) contracted, with stage 1 (no refines: 16 steps)
+        # (c) (b) contracted, with stage 1 (no refines)
         tr, argv, launches["contract"], e, _ = unbounded_stage0(
             dev, scene_dir, os.path.join(tmp, "contract"), "contract",
             dict(flags360, contract=True, iters=CON_STEPS,
@@ -2267,7 +2471,7 @@ def depth_steps(records, label, sparse):
 def capture_run(dev, argv, run, ref_ms, max_steps=None, sparse=False):
     """One stage-0 CLI run of phase 11 (training capped at max_steps, the
     SDF pretrain cut to SDF_PRETRAIN); gates its losses, evals, launches
-    and depth terms, profiles 8 steps and holds K1-K3 at one more step's
+    and depth terms, profiles PROFILE_STEPS steps and holds K1-K3 at one more step's
     arguments.  Returns (trainer, launches, K1-K3 max|err|)."""
     from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.config import parse_args
@@ -2453,12 +2657,158 @@ def phase_captures(dev, ref_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the field options on the hard proxy scene
+# --------------------------------------------------------------------------
+
+def hard_scene(cfg):
+    """The hard proxy scene (data/synthetic.py HardScene) at 256x256, 24
+    train and HARD_VAL val views, in memory."""
+    from nerf2mesh_tpu_torch.data.provider import dataset_from_frames
+    from nerf2mesh_tpu_torch.data.synthetic import (HardScene,
+                                                    render_synthetic_frames)
+    frames = render_synthetic_frames(HardScene(), H=256, W=256, n_train=24,
+                                     n_val=HARD_VAL, n_test=0)
+    return (dataset_from_frames(cfg, frames, "train"),
+            dataset_from_frames(cfg, frames, "val"))
+
+
+@contextlib.contextmanager
+def separate_tables():
+    """Within: the port's Trainer builds its field with separate density
+    (C = 1) and colour (C = 2) tables; no CLI flag sets them, in either
+    package."""
+    import functools
+    from nerf2mesh_tpu_torch.utils import trainer as ttr
+    with patched(ttr, "NetworkSpec",
+                 lambda real: functools.partial(real, separate_tables=True)):
+        yield
+
+
+def hard_run(dev, ds, val, run, steps, cfg_kw, must_launch, sep, marks):
+    """One phase-12 training run on the hard scene: a fresh Trainer at
+    bench.py's configuration with cfg_kw, its occupancy grid the untrained
+    marks `marks` (a RenderState from mark_untrained on ds at the same
+    render spec: the marks are a function of the views and that spec
+    alone), the val eval before and after `steps` training steps (the PSNR
+    must rise, the losses be finite and fall), the kernels of must_launch
+    launched by the training alone, and with separate tables no C = 3
+    launch.  Returns (trainer, record)."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.models.renderer import RenderState
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    cfg = bench_config(**cfg_kw)
+    with (separate_tables() if sep else contextlib.nullcontext()):
+        trainer = Trainer(cfg, device=dev)
+    if trainer.net_spec.separate_tables != sep:
+        raise AssertionError(f"{run}: separate_tables is not {sep}")
+    if trainer.render_spec != marks[0]:
+        raise AssertionError(f"{run}: render spec {trainer.render_spec} is "
+                             f"not the marks' {marks[0]}")
+    r = marks[1]
+    trainer.render = RenderState(r.density_grid.clone(), r.occ_grid.clone(),
+                                 r.mean_density.clone(), r.iter_density)
+    shapes = {k: tuple(p.shape) for k, p in trainer.params.named_parameters()
+              if k.endswith("table")}
+    psnr0, _, _ = run_eval(trainer, val, f"hard_{run}_before", ())
+    torch.cuda.reset_peak_memory_stats()
+    losses, buckets, _, m, ms_step, rays_s, launches = train_window(
+        trainer, ds, steps, min(TIMED_STEPS, steps // 2))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    psnr1, ms_frame, _ = run_eval(trainer, val, f"hard_{run}_after", ())
+    log(f"[hard] ({run}) tables {shapes}; {steps} steps: losses first "
+        f"{np.round(losses[:4], 5).tolist()} last "
+        f"{np.round(losses[-4:], 5).tolist()}; {ms_step:.2f} ms/step, "
+        f"{rays_s:.1f} rays/s, peak {peak:.2f} GiB; val PSNR {psnr0:.4f} -> "
+        f"{psnr1:.4f} ({ms_frame:.1f} ms/frame); launches "
+        + str({k: v for k, v in launches.items() if v}))
+    if not psnr1 > psnr0:
+        raise AssertionError(f"hard ({run}): val PSNR did not rise: "
+                             f"{psnr0} -> {psnr1}")
+    for k in must_launch:
+        if launches[k] <= 0:
+            raise AssertionError(f"hard ({run}): {k} was not launched")
+    if sep and any(launches[f"{k}_c3"] for k in kernels.CHANNEL_KERNELS):
+        raise AssertionError(f"hard ({run}): a C = 3 kernel launched with "
+                             f"separate tables: {launches}")
+    return trainer, dict(psnr=psnr1, psnr_before=psnr0, ms_step=ms_step,
+                         launches=launches, buckets=buckets)
+
+
+def hold_channels(calls, label):
+    """hold_inwin on the calls of each channel count apart; returns
+    {"<name>_c<C>": max|err|}."""
+    errs = {}
+    for C in (1, 2):
+        sub = [(n, a) for n, a in calls if a[0].shape[-1] == C]
+        for name, err in hold_inwin(sub, f"{label}, C={C}").items():
+            errs[f"{name}_c{C}"] = err
+    return errs
+
+
+def phase_hard(dev):
+    """Phase 12: the hard proxy scene at bench width: (a) the merged
+    block512 table, (b) separate tables (K2/K3 at C = 1 and 2, held at one
+    more step's arguments), (c) separate tables at the ref 2^14 table
+    (K4/K4b at C = 1 and 2), (d) separate tables with winsort_fine (K5/K6
+    at C = 1 and 2).  Returns ({run: launch counts}, {kernel: max|err|})."""
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    ds, val = hard_scene(cfg)
+    t1 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    tr.mark_untrained(ds)
+    marks = (tr.render_spec, tr.render)
+    del tr
+    log(f"[hard] scene {ds.images.shape} + {val.images.shape} val rendered "
+        f"in {t1 - t0:.1f} s, its untrained marks in "
+        f"{time.perf_counter() - t1:.1f} s; alpha coverage "
+        f"{float(ds.images[..., 3].astype(np.float32).mean() / 255):.3f}")
+    rec, errs = {}, {}
+    c12 = lambda *names: [f"{n}_c{c}" for n in names for c in (1, 2)]
+    tr, rec["merged"] = hard_run(dev, ds, val, "a_merged", HARD_STEPS, {},
+                                 ("occ_lookup", "inwin_fwd_c3",
+                                  "inwin_bwd_c3"), False, marks)
+    prof_a = profile_region(lambda: tr.train_steps(ds, PROFILE_STEPS),
+                            "hard (a) merged steps", per=PROFILE_STEPS)
+    del tr
+    tr, rec["separate"] = hard_run(dev, ds, val, "b_separate", HARD_STEPS,
+                                   {}, c12("inwin_fwd", "inwin_bwd"), True,
+                                   marks)
+    prof_b = profile_region(lambda: tr.train_steps(ds, PROFILE_STEPS),
+                            "hard (b) separate steps", per=PROFILE_STEPS)
+    calls = []
+    with inwin_calls(calls):
+        tr.train_steps(ds, 1)
+    errs.update(hold_channels(calls, "hard (b)"))
+    del tr
+    for name, prof in (("merged", prof_a), ("separate", prof_b)):
+        rec[name]["idle_share"] = (None if prof is None
+                                   else 1 - prof[1] / prof[0])
+    log("[hard] (a) merged vs (b) separate tables: val PSNR "
+        f"{rec['merged']['psnr']:.4f} vs {rec['separate']['psnr']:.4f} dB; "
+        f"{rec['merged']['ms_step']:.2f} vs {rec['separate']['ms_step']:.2f}"
+        f" ms/step; idle share {rec['merged']['idle_share']} vs "
+        f"{rec['separate']['idle_share']}")
+    _, rec["ref"] = hard_run(dev, ds, val, "c_separate_ref",
+                             HARD_REF_STEPS, dict(grid_layout="ref",
+                                                  log2_hashmap_size=14),
+                             c12("sweep_fwd", "sweep_bwd"), True, marks)
+    _, rec["winsort"] = hard_run(dev, ds, val, "d_separate_winsort",
+                                 HARD_WS_STEPS, dict(winsort_fine=True,
+                                                     stochastic_fine=False),
+                                 c12("winsort_fwd", "winsort_bwd"), True,
+                                 marks)
+    return {k: v["launches"] for k, v in rec.items()}, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         return 2
     card, name = phase_device()
-    log(card)
+    print(card, flush=True)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -2487,12 +2837,21 @@ def main() -> int:
         cap_launches, cap_s1_launches, cap_errs = phase_captures(
             dev, {r["name"]: r["ms"] for r in results})
     lap("phase 11")
+    hard_launches, hard_errs = phase_hard(dev)
+    lap("phase 12")
     for r in results:
         # the largest error over phase 3 and the paths' own shapes
         r["max_abs_err"] = max([r["max_abs_err"]] + [
-            e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs, cap_errs)
+            e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs, cap_errs,
+                                   hard_errs)
             if r["name"] in e])
-        path = (ws_launches if r["name"].startswith("winsort") else
+        # the C = 1 and 2 instantiations' path is phase 12's run that
+        # reaches them
+        path = ((hard_launches["winsort"] if r["name"].startswith("winsort")
+                 else hard_launches["ref"] if r["name"].startswith("sweep")
+                 else hard_launches["separate"])
+                if r["name"][-3:] in ("_c1", "_c2") else
+                ws_launches if r["name"].startswith("winsort") else
                 cli_launches if r["name"].startswith("sweep") else launches)
         r["launches"] = path[r["name"]]
         r["stage1_launches"] = (cli_launches["stage1_" + r["name"]]
@@ -2508,10 +2867,13 @@ def main() -> int:
                                   for k, v in cap_launches.items()}
         r["captures_stage1_launches"] = {k: v.get(r["name"], 0)
                                          for k, v in cap_s1_launches.items()}
+        r["hard_launches"] = {k: v.get(r["name"], 0)
+                              for k, v in hard_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
-            "captures_launches", "captures_stage1_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "captures_launches", "captures_stage1_launches", "hard_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

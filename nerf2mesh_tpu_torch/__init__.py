@@ -12,8 +12,11 @@ nerf2mesh_tpu_torch.main``, then ``--stage 1``) and
 ``utils.trainer.Trainer``: stage-0 training, the eval render and metrics,
 checkpoints (the JAX package's load too, both stages), the test video, the
 stage-0 mesh export, stage 1 through a PyTorch rasterizer and the textured
-export, on the block512 and the small ref tables.  Not yet ported (ROADMAP
-queue A): SDF mode, cascades/contraction and multi-device.
+export, on the block512 and the small ref tables, merged or separate (the
+encode kernels at 1, 2 and 3 channels); SDF mode; COLMAP captures,
+cascades and contraction; JPEG input and depth supervision; the SH and
+frequency encoders.  Not yet ported (ROADMAP queue A): orbax checkpoints,
+progressive JPEG, dtu, ``--vis_pose`` and multi-device.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,8 @@
 // Contract (that of windowed_reference): a tile of 128 points has a base
 // block `base` per level (tile_meta); a corner whose local lattice coordinate
 // c - 8*base lies in [0,16)^3 belongs to window slot sx + 2*sy + 4*sz and is
-// read from the canonical [total, 3] table at
+// read from the canonical [total, C] table (C = 1, 2 or 3 channels: the
+// separate density and colour tables, or the merged one) at
 //     offsets[l] + rows[slot]*512 + (cx&7) + 8*(cy&7) + 64*(cz&7);
 // every other corner adds 0 here and is left to the residual that
 // splat_encode_raw computes in PyTorch.  Reading the canonical table directly
@@ -22,6 +23,9 @@
 // are out of window (the residual) with a separately rounded multiply and
 // add, and one floor that differed would count a corner twice or drop it.
 //
+// Both kernels are templates on C with one instantiation for each of C = 1,
+// 2 and 3; the numbers below are C = 3's (a row is 4C bytes).
+//
 // K2, bound on the H100: the corner reads and the issue of its
 // instructions.  Per (point, level) it reads 12 B of position, makes up to
 // 8 corner reads of 12 B from a level of up to 2^19 * 12 B = 6 MB, does
@@ -31,10 +35,10 @@
 // at a time, so that a warp's corner loads fall on the few blocks of one
 // level around the tile (a warp of ~3.5 points x 9 levels scatters them
 // over nine tables).  The tile's x, bases and rows are read once into
-// shared memory; the results go to shared memory as [128, Lk, 3] (an odd
+// shared memory; the results go to shared memory as [128, Lk, C] (an odd
 // stride a point, so the lanes' writes hit 32 banks) and leave as
-// coalesced 16-byte stores: the tile's slice of out is contiguous, 1536 *
-// Lk bytes.  With every corner read from two windows it would still take
+// coalesced 16-byte stores: the tile's slice of out is contiguous, 512 * C
+// * Lk bytes, a multiple of 16 at every C.  With every corner read from two windows it would still take
 // ~70% of its time (PERF.md, PR 7): what is left is instruction issue.  On
 // a few thousand points the grid is too small to fill the card.
 //
@@ -44,12 +48,13 @@
 // the same 8 rows; level 0 has 27 windows).  The design reduces on chip, as
 // the TPU kernel did in VMEM: one thread block takes one tile at one kernel
 // level, two threads a point (corners 0-3 and 4-7).  Warp 0 gives each
-// distinct window id among the tile's 8 slots one shared [512, 3] f32
-// accumulator (6 KiB); slots of one id (hashed collisions) share it.  A
+// distinct window id among the tile's 8 slots one shared [512, C] f32
+// accumulator (2C KiB); slots of one id (hashed collisions) share it.  A
 // float atomicAdd on shared memory is a compare-and-swap loop, so the lanes
 // of a warp that add into one row would serialise: warp_add3 sums them with
 // shuffles first (warp_peers.cuh), and the row's lowest lane adds the sum
-// and marks the row's 16-byte chunks in a bitmask.  After a barrier the block adds each
+// and marks the row's 16-byte chunks in a bitmask (a chunk spans 4/C rows,
+// a row one or two chunks).  After a barrier the block adds each
 // touched chunk into device memory as one 16-byte vector atomic
 // (atomicAdd(float4*), red.global.add.v4.f32 on sm_90): ~2.6M adds at 2^18
 // points in place of ~46M.  What bounds it now is not measured (PERF.md):
@@ -57,7 +62,7 @@
 // shared CAS loops.  A window starts at row offsets[l] + win*512 with
 // offsets[l] a multiple of 512 (level sizes are), so its first float is
 // 16-byte aligned when the gradient is; the launcher checks both.  Dynamic
-// shared memory: 48 KiB + 384 B, so four blocks fit an SM.  (Blocks of 2
+// shared memory: 16C KiB + 128C B, so four blocks fit an SM at C = 3.  (Blocks of 2
 // and 4 consecutive tiles, which share their coarse windows, issued 12% and
 // 20% fewer vector adds but ran 3-10% slower: PERF.md.)
 #include <cuda_runtime.h>
@@ -73,9 +78,14 @@ using n2m::LevelParams;
 using n2m::pack_levels;
 using n2m::peer_sum;
 
-constexpr int kWinFloats = 512 * 3;          // one window of the table
-constexpr int kWinChunks = kWinFloats / 4;   // its 16-byte chunks: 384
-constexpr int kWinWords = kWinChunks / 32;   // its touched-mask words: 12
+// one window of a [total, C] table: its floats, its 16-byte chunks (128 C)
+// and its touched-mask words (4 C)
+template <int C>
+struct Win {
+  static constexpr int kFloats = 512 * C;
+  static constexpr int kChunks = kFloats / 4;
+  static constexpr int kWords = kChunks / 32;
+};
 constexpr int kFwdThreads = 256;             // K2: a block a tile
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdGroups = kTile / 32;       // a tile's 32-point warp groups
@@ -126,8 +136,9 @@ __device__ __forceinline__ bool inwin_corner(const int lg[3], const float fr[3],
 }
 
 // Block t = blockIdx.x takes tile t at every kernel level.  Dynamic shared
-// memory: the tile's results, [kTile][stride] floats, stride = 3 * n_levels
+// memory: the tile's results, [kTile][stride] floats, stride = C * n_levels
 // made odd.
+template <int C>
 __global__ void __launch_bounds__(kFwdThreads)
 inwin_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                  const int32_t* __restrict__ bases,
@@ -139,8 +150,9 @@ inwin_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
   __shared__ int32_t s_base[n2m::kMaxLevels * 3];
   __shared__ int32_t s_rows[n2m::kMaxLevels * 8];
   const int64_t t = blockIdx.x;
-  const int l3 = 3 * n_levels;
-  const int stride = l3 | 1;
+  const int l3 = 3 * n_levels;                  // bases of the tile's levels
+  const int lc = C * n_levels;                  // a point's floats of out
+  const int stride = lc | 1;
   if (threadIdx.x < kTile * 3 / 4)
     s_x4[threadIdx.x] = reinterpret_cast<const float4*>(x)[t * (kTile * 3 / 4) +
                                                            threadIdx.x];
@@ -162,51 +174,50 @@ inwin_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
     lattice_at(xp, bp, lp.scale[k], shift, lg, fr);
     const int64_t off = lp.offset[k];
     const int32_t* r = s_rows + 8 * k;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    float a[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) a[ch] = 0.f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       int slot, cell;
       float w;
       if (!inwin_corner(lg, fr, c, slot, cell, w)) continue;
-      const float* v = table + (off + static_cast<int64_t>(r[slot]) * 512 + cell) * 3;
-      a0 = __fadd_rn(a0, __fmul_rn(w, __ldg(v)));
-      a1 = __fadd_rn(a1, __fmul_rn(w, __ldg(v + 1)));
-      a2 = __fadd_rn(a2, __fmul_rn(w, __ldg(v + 2)));
+      const float* v = table + (off + static_cast<int64_t>(r[slot]) * 512 + cell) * C;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) a[ch] = __fadd_rn(a[ch], __fmul_rn(w, __ldg(v + ch)));
     }
-    float* o = s_out + p * stride + 3 * k;
-    o[0] = a0;
-    o[1] = a1;
-    o[2] = a2;
+    float* o = s_out + p * stride + C * k;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) o[ch] = a[ch];
   }
   __syncthreads();
 
-  // the tile's [kTile, n_levels, 3] slice of out as 16-byte stores
-  float4* dst = reinterpret_cast<float4*>(out + t * kTile * l3);
-  for (int e4 = threadIdx.x; e4 < kTile * l3 / 4; e4 += kFwdThreads) {
-    int p = 4 * e4 / l3, r = 4 * e4 - p * l3;
+  // the tile's [kTile, n_levels, C] slice of out as 16-byte stores
+  float4* dst = reinterpret_cast<float4*>(out + t * kTile * lc);
+  for (int e4 = threadIdx.x; e4 < kTile * lc / 4; e4 += kFwdThreads) {
+    int p = 4 * e4 / lc, r = 4 * e4 - p * lc;
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       v[j] = s_out[p * stride + r];
-      if (++r == l3) r = 0, ++p;
+      if (++r == lc) r = 0, ++p;
     }
     dst[e4] = make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// Adds (v0, v1, v2) into the shared acc[3*row .. 3*row+2] for each lane
-// with `valid`, the lanes of one row summed first (peer_sum).  Every lane of
-// the warp must call it (the caller's loop is warp-uniform).  Returns true
-// on the lane that made its row's adds.
-__device__ __forceinline__ bool warp_add3(float* acc, int row, bool valid,
-                                          float v0, float v1, float v2) {
+// Adds v into the shared acc[C*row .. C*row+C-1] for each lane with
+// `valid`, the lanes of one row summed first (peer_sum).  Every lane of the
+// warp must call it (the caller's loop is warp-uniform).  Returns true on
+// the lane that made its row's adds.
+template <int C>
+__device__ __forceinline__ bool warp_add(float* acc, int row, bool valid,
+                                         float (&v)[C]) {
   const int lane = threadIdx.x & 31;
   const unsigned peers = __match_any_sync(0xffffffffu, valid ? row : -1 - lane);
-  float v[3] = {v0, v1, v2};
   if (!(peer_sum(peers, v) && valid)) return false;
-  atomicAdd(acc + 3 * row, v[0]);
-  atomicAdd(acc + 3 * row + 1, v[1]);
-  atomicAdd(acc + 3 * row + 2, v[2]);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) atomicAdd(acc + C * row + ch, v[ch]);
   return true;
 }
 
@@ -219,15 +230,17 @@ __device__ __forceinline__ void mark_chunk(uint32_t* touched, int c) {
 // Thread (h, i) = threadIdx.x as h * 128 + i takes the corners 4h..4h+3 of
 // point i of the tile: two threads a point, so that twice the warps hide
 // the loads' latency at the same shared memory.
+template <int C>
 __global__ void __launch_bounds__(2 * kTile)
 inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
                  const int32_t* __restrict__ bases,
                  const int32_t* __restrict__ rows,
                  const __grid_constant__ LevelParams lp, float shift,
                  int64_t n_tiles, int n_levels, float* __restrict__ dtable) {
-  extern __shared__ float4 acc4[];                      // [n_win][384] float4
+  constexpr int kChunks = Win<C>::kChunks, kWords = Win<C>::kWords;
+  extern __shared__ float4 acc4[];                 // [n_win][128 C] float4
   float* acc = reinterpret_cast<float*>(acc4);
-  uint32_t* touched = reinterpret_cast<uint32_t*>(acc4 + 8 * kWinChunks);
+  uint32_t* touched = reinterpret_cast<uint32_t*>(acc4 + 8 * kChunks);
   __shared__ int32_t win_id[8];         // window id of each shared window
   __shared__ int32_t win_of[8];         // slot -> shared window
   __shared__ int n_win;
@@ -253,16 +266,21 @@ inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
   }
   __syncthreads();
   const int nw = n_win;
-  for (int c = threadIdx.x; c < nw * kWinChunks; c += blockDim.x)
+  for (int c = threadIdx.x; c < nw * kChunks; c += blockDim.x)
     acc4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = threadIdx.x; c < nw * kWinWords; c += blockDim.x) touched[c] = 0u;
+  for (int c = threadIdx.x; c < nw * kWords; c += blockDim.x) touched[c] = 0u;
   __syncthreads();
 
   const int h = threadIdx.x / kTile;
   const int64_t p = t * kTile + threadIdx.x % kTile;
-  const float* gp = grad + (p * n_levels + k) * 3;
-  const float g0 = gp[0], g1 = gp[1], g2 = gp[2];
-  const bool live = g0 != 0.f || g1 != 0.f || g2 != 0.f;   // e.g. oob points
+  const float* gp = grad + (p * n_levels + k) * C;
+  float g[C];
+  bool live = false;                                       // e.g. oob points
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    g[ch] = gp[ch];
+    live |= g[ch] != 0.f;
+  }
   int lg[3] = {-64, -64, -64};
   float fr[3] = {0.f, 0.f, 0.f};
   if (live) inwin_lattice(x, bases, lp, shift, p, k, n_tiles, lg, fr);
@@ -272,10 +290,12 @@ inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
     float w = 0.f;
     const bool in = live && inwin_corner(lg, fr, c, slot, cell, w);
     const int u = in ? win_of[slot] : 0;
-    if (warp_add3(acc, u * 512 + cell, in, __fmul_rn(g0, w), __fmul_rn(g1, w),
-                  __fmul_rn(g2, w))) {
-      const int c0 = u * kWinChunks + ((cell * 3) >> 2);
-      const int c1 = u * kWinChunks + ((cell * 3 + 2) >> 2);
+    float v[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) v[ch] = __fmul_rn(g[ch], w);
+    if (warp_add<C>(acc, u * 512 + cell, in, v)) {
+      const int c0 = u * kChunks + ((cell * C) >> 2);
+      const int c1 = u * kChunks + ((cell * C + C - 1) >> 2);
       mark_chunk(touched, c0);
       if (c1 != c0) mark_chunk(touched, c1);
     }
@@ -283,29 +303,69 @@ inwin_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
   __syncthreads();
 
   // one 16-byte vector add into device memory per touched chunk
-  const int64_t off3 = static_cast<int64_t>(lp.offset[k]) * 3;
-  for (int c = threadIdx.x; c < nw * kWinChunks; c += blockDim.x) {
+  const int64_t offc = static_cast<int64_t>(lp.offset[k]) * C;
+  for (int c = threadIdx.x; c < nw * kChunks; c += blockDim.x) {
     if (!((touched[c >> 5] >> (c & 31)) & 1u)) continue;
-    const int u = c / kWinChunks;
-    float* dst = dtable + off3 + static_cast<int64_t>(win_id[u]) * kWinFloats +
-                 4 * (c - u * kWinChunks);
+    const int u = c / kChunks;
+    float* dst = dtable + offc + static_cast<int64_t>(win_id[u]) * Win<C>::kFloats +
+                 4 * (c - u * kChunks);
     atomicAdd(reinterpret_cast<float4*>(dst), acc4[c]);
   }
 }
 
 }  // namespace
 
-// table: [total, 3] f32; x: [n_points, 3] f32 clipped to [0,1], morton-sorted,
-// 16-byte aligned, n_points = 128 * n_tiles; bases: [n_levels, n_tiles, 3]
-// i32; rows: [n_levels, n_tiles, 8] i32 level-local window ids; scales,
-// offsets: HOST arrays [n_levels] (f32 lattice scale, i32 first table row of
-// the level), 1 <= n_levels <= 32; out: [n_points, n_levels, 3] f32, 16-byte
-// aligned.
+namespace {
+
+template <int C>
+cudaError_t launch_inwin_fwd(const void* table, const void* x, const void* bases,
+                             const void* rows, const LevelParams& lp, float shift,
+                             int64_t n_tiles, int n_levels, void* out,
+                             cudaStream_t stream) {
+  const int smem = kTile * ((C * n_levels) | 1) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        inwin_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  inwin_fwd_kernel<C><<<static_cast<unsigned>(n_tiles), kFwdThreads, smem, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows),
+      lp, shift, n_tiles, n_levels, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_inwin_bwd(const void* grad, const void* x, const void* bases,
+                             const void* rows, const LevelParams& lp, float shift,
+                             int64_t n_tiles, int n_levels, void* dtable,
+                             cudaStream_t stream) {
+  const int smem = 8 * Win<C>::kFloats * 4 + 8 * Win<C>::kWords * 4;
+  const cudaError_t e = cudaFuncSetAttribute(
+      inwin_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  inwin_bwd_kernel<C><<<static_cast<unsigned>(n_tiles * n_levels), 2 * kTile, smem,
+                        stream>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(x),
+      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows), lp,
+      shift, n_tiles, n_levels, static_cast<float*>(dtable));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// table: [total, channels] f32, channels 1, 2 or 3; x: [n_points, 3] f32
+// clipped to [0,1], morton-sorted, 16-byte aligned, n_points = 128 *
+// n_tiles; bases: [n_levels, n_tiles, 3] i32; rows: [n_levels, n_tiles, 8]
+// i32 level-local window ids; scales, offsets: HOST arrays [n_levels] (f32
+// lattice scale, i32 first table row of the level), 1 <= n_levels <= 32;
+// out: [n_points, n_levels, channels] f32, 16-byte aligned.
 extern "C" int n2m_inwin_fwd(const void* table, const void* x,
                              const void* bases, const void* rows,
                              const float* scales, const int32_t* offsets,
                              float shift, int64_t n_points, int64_t n_tiles,
-                             int n_levels, void* out, void* stream) {
+                             int n_levels, int channels, void* out,
+                             void* stream) {
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -313,29 +373,28 @@ extern "C" int n2m_inwin_fwd(const void* table, const void* x,
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (channels < 1 || channels > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int smem = kTile * ((3 * n_levels) | 1) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        inwin_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  inwin_fwd_kernel<<<static_cast<unsigned>(n_tiles), kFwdThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows),
-      lp, shift, n_tiles, n_levels, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      channels == 1 ? launch_inwin_fwd<1>(table, x, bases, rows, lp, shift, n_tiles,
+                                          n_levels, out, st)
+      : channels == 2 ? launch_inwin_fwd<2>(table, x, bases, rows, lp, shift, n_tiles,
+                                            n_levels, out, st)
+                      : launch_inwin_fwd<3>(table, x, bases, rows, lp, shift, n_tiles,
+                                            n_levels, out, st);
+  return static_cast<int>(e);
 }
 
-// grad: [n_points, n_levels, 3] f32; dtable: [total, 3] f32, 16-byte aligned,
-// zeroed by the caller and accumulated into; every offsets[k] a multiple of
-// 4 rows.  Other arguments as n2m_inwin_fwd.
+// grad: [n_points, n_levels, channels] f32; dtable: [total, channels] f32,
+// 16-byte aligned, zeroed by the caller and accumulated into; every
+// offsets[k] a multiple of 4 rows.  Other arguments as n2m_inwin_fwd.
 extern "C" int n2m_inwin_bwd(const void* grad, const void* x,
                              const void* bases, const void* rows,
                              const float* scales, const int32_t* offsets,
                              float shift, int64_t n_points, int64_t n_tiles,
-                             int n_levels, void* dtable, void* stream) {
+                             int n_levels, int channels, void* dtable,
+                             void* stream) {
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -344,15 +403,15 @@ extern "C" int n2m_inwin_bwd(const void* grad, const void* x,
   for (int k = 0; k < n_levels; ++k)
     if (offsets[k] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_points != n_tiles * kTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (channels < 1 || channels > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int smem = 8 * kWinFloats * 4 + 8 * kWinWords * 4;
-  const cudaError_t e = cudaFuncSetAttribute(
-      inwin_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  inwin_bwd_kernel<<<static_cast<unsigned>(n_tiles * n_levels), 2 * kTile, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grad), static_cast<const float*>(x),
-      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(rows), lp,
-      shift, n_tiles, n_levels, static_cast<float*>(dtable));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      channels == 1 ? launch_inwin_bwd<1>(grad, x, bases, rows, lp, shift, n_tiles,
+                                          n_levels, dtable, st)
+      : channels == 2 ? launch_inwin_bwd<2>(grad, x, bases, rows, lp, shift, n_tiles,
+                                            n_levels, dtable, st)
+                      : launch_inwin_bwd<3>(grad, x, bases, rows, lp, shift, n_tiles,
+                                            n_levels, dtable, st);
+  return static_cast<int>(e);
 }

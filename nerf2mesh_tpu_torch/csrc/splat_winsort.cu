@@ -15,7 +15,8 @@
 // point's window clamped to >= 0 (`slots`).  A point whose window equals one
 // of its tile's slots sums its in-block corners: those whose local lattice
 // coordinate (g & 7) + bit stays <= 7 on every axis, read from the canonical
-// [total, 3] table at offsets[l] + win*512 + lx + 8*ly + 64*lz.  Every other
+// [total, C] table (C = 1, 2 or 3) at offsets[l] + win*512 + lx + 8*ly +
+// 64*lz.  Every other
 // corner, and every corner of a point outside the slots (oob points have
 // window -1 and never match), adds 0 here and is left to the residual that
 // splat_encode_raw computes in PyTorch.  The result is written at the
@@ -23,6 +24,9 @@
 // position is __fadd_rn(__fmul_rn(x, s), shift), as in K2: PyTorch decides
 // which corners cross the block edge with a separately rounded multiply and
 // add, and one floor that differed would count a corner twice or drop it.
+//
+// Both kernels are templates on C with one instantiation for each of C = 1,
+// 2 and 3; the numbers below are C = 3's (a row is 4C bytes).
 //
 // K5, bound on the H100: its scattered output.  Per (point, level) it reads
 // the point's sort metadata (coalesced), 12 B of position at a scattered
@@ -36,8 +40,10 @@
 // most 2 * kWsFwdTiles distinct windows, the clamped tail slot 0 among them.
 // Warp 0 dedupes the slots; the block stages those windows in shared memory
 // as 16-byte rows (4-byte cp.async, so a corner is one conflict-light
-// 16-byte shared load), then each thread sums its points' in-block corners
-// from there and writes each result as one 8-byte and one 4-byte store.  The
+// 16-byte shared load; at C = 1 and 2 rows of 4 and 8 bytes, packed), then
+// each thread sums its points' in-block corners from there and writes each
+// result as one 8-byte and one 4-byte store (C = 1: one 4-byte store; C =
+// 2: one 8-byte store).  The
 // windows and the metadata are read once, with an L2 evict_first policy, so
 // they do not push out's partial sectors from L2.  out is written with
 // inline-asm stores: the same stores written in C++ ran ~16% slower on the
@@ -56,7 +62,7 @@
 // tile has none slotted.  So every in-block corner of level k that lands in
 // window w comes from w's run.  Block (w, k) finds the run by binary search
 // (the -1 tail as +inf), walks it with the same membership test, reads x and
-// grad through perm, adds into a 6 KiB shared [512, 3] window with shared
+// grad through perm, adds into a 2C KiB shared [512, C] window with shared
 // atomics, and writes the window with coalesced 16-byte stores (zeros when
 // none of the run is slotted).  A window id with no run is not written: it
 // keeps the zeros of the caller's buffer.  A long run is a loop in its block.
@@ -83,7 +89,6 @@ using n2m::LevelParams;
 using n2m::pack_levels;
 using n2m::peer_sum;
 
-constexpr int kWinFloats = 512 * 3;          // one window of the table
 constexpr int kWsBwdThreads = 256;
 
 // Is sorted point i of winsort level k, of window win, in one of its tile's
@@ -130,7 +135,14 @@ __device__ __forceinline__ bool inblock_corner(const int lg[3], const float fr[3
 constexpr int kWsFwdTiles = 4;                    // tiles a K5 block
 constexpr int kWsFwdThreads = 256;
 constexpr int kWsFwdWindows = 2 * kWsFwdTiles;    // at most 2 distinct a tile
-constexpr int kWsFwdSmem = kWsFwdWindows * 512 * 16;   // 16-byte rows: 64 KiB
+
+// A staged row of a [total, C] window: C floats, padded to 4 at C = 3, so
+// that a corner is one 4-, 8- or 16-byte shared load.
+template <int C>
+struct StagedRow {
+  static constexpr int kFloats = C == 3 ? 4 : C;
+  static constexpr int kSmem = kWsFwdWindows * 512 * kFloats * 4;  // 16, 32, 64 KiB
+};
 
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t pol;
@@ -145,23 +157,47 @@ __device__ __forceinline__ int32_t load_hinted(const int32_t* p, uint64_t pol) {
   return v;
 }
 
-// out[o..o+2] = (a0, a1, a2) as one 8-byte and one 4-byte store (o is a
-// float index; the 8-byte half goes where it is aligned).
-__device__ __forceinline__ void store3(float* out, int64_t o, float a0,
-                                       float a1, float a2) {
-  if ((o & 1) == 0) {
+// out[o..o+C-1] = a: at C = 3 one 8-byte and one 4-byte store (o is a float
+// index; the 8-byte half goes where it is aligned), at C = 2 one 8-byte
+// store (o is even), at C = 1 one 4-byte store.
+template <int C>
+__device__ __forceinline__ void store_row(float* out, int64_t o, const float (&a)[C]) {
+  if constexpr (C == 1) {
+    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o), "f"(a[0]) : "memory");
+  } else if constexpr (C == 2) {
     asm volatile("st.global.v2.f32 [%0], {%1, %2};"
-                 ::"l"(out + o), "f"(a0), "f"(a1) : "memory");
-    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o + 2), "f"(a2) : "memory");
+                 ::"l"(out + o), "f"(a[0]), "f"(a[1]) : "memory");
+  } else if ((o & 1) == 0) {
+    asm volatile("st.global.v2.f32 [%0], {%1, %2};"
+                 ::"l"(out + o), "f"(a[0]), "f"(a[1]) : "memory");
+    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o + 2), "f"(a[2]) : "memory");
   } else {
-    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o), "f"(a0) : "memory");
+    asm volatile("st.global.f32 [%0], %1;" ::"l"(out + o), "f"(a[0]) : "memory");
     asm volatile("st.global.v2.f32 [%0], {%1, %2};"
-                 ::"l"(out + o + 1), "f"(a1), "f"(a2) : "memory");
+                 ::"l"(out + o + 1), "f"(a[1]), "f"(a[2]) : "memory");
+  }
+}
+
+// Row `row` of a staged window (rows of StagedRow<C>::kFloats floats) into v.
+template <int C>
+__device__ __forceinline__ void load_row(const float* wsm, int row, float (&v)[C]) {
+  if constexpr (C == 1) {
+    v[0] = wsm[row];
+  } else if constexpr (C == 2) {
+    const float2 t = reinterpret_cast<const float2*>(wsm)[row];
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    const float4 t = reinterpret_cast<const float4*>(wsm)[row];
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
   }
 }
 
 // Block (c, k) = (blockIdx.x, blockIdx.y): tiles [c * kWsFwdTiles, ...) of
 // winsort level k.
+template <int C>
 __global__ void __launch_bounds__(kWsFwdThreads)
 winsort_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                    const int32_t* __restrict__ perm,
@@ -170,6 +206,8 @@ winsort_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                    const __grid_constant__ LevelParams lp, float shift,
                    int64_t n_points, int64_t n_tiles, int n_levels,
                    float* __restrict__ out) {
+  constexpr int kRow = StagedRow<C>::kFloats;
+  constexpr int kWinFloats = 512 * C;              // one window of the table
   extern __shared__ float4 win4[];                 // [n_win][512] rows
   __shared__ int32_t s_win[kWsFwdWindows];         // the distinct slot windows
   __shared__ int32_t s_idx[kWsFwdWindows];         // (tile, slot) -> staged
@@ -204,11 +242,11 @@ winsort_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
   float* wsm = reinterpret_cast<float*>(win4);
   const int64_t off = lp.offset[k];
   for (int e = threadIdx.x; e < s_n * kWinFloats; e += kWsFwdThreads) {
-    const int u = e / kWinFloats, r = (e % kWinFloats) / 3, ch = e % 3;
+    const int u = e / kWinFloats, r = (e % kWinFloats) / C, ch = e % C;
     const float* src =
-        table + (off + static_cast<int64_t>(s_win[u]) * 512 + r) * 3 + ch;
+        table + (off + static_cast<int64_t>(s_win[u]) * 512 + r) * C + ch;
     const unsigned d = static_cast<unsigned>(
-        __cvta_generic_to_shared(wsm + (u * 512 + r) * 4 + ch));
+        __cvta_generic_to_shared(wsm + (u * 512 + r) * kRow + ch));
     asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n"
                  ::"r"(d), "l"(src), "l"(stream_pol));
   }
@@ -221,24 +259,26 @@ winsort_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
     const int64_t p = load_hinted(perm + kn + i, stream_pol);
     const int u0 = s_idx[2 * (j / kTile)], u1 = s_idx[2 * (j / kTile) + 1];
     const int u = win == s_win[u0] ? u0 : (win == s_win[u1] ? u1 : -1);
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    float a[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) a[ch] = 0.f;
     if (u >= 0) {
       int lg[3];
       float fr[3];
       block_lattice(x, lp, shift, p, k, lg, fr);
-      const float4* rows = win4 + u * 512;
+      const float* rows = wsm + u * 512 * kRow;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         int cell;
         float w;
         if (!inblock_corner(lg, fr, c, cell, w)) continue;
-        const float4 t = rows[cell];
-        a0 = __fadd_rn(a0, __fmul_rn(w, t.x));
-        a1 = __fadd_rn(a1, __fmul_rn(w, t.y));
-        a2 = __fadd_rn(a2, __fmul_rn(w, t.z));
+        float t[C];
+        load_row<C>(rows, cell, t);
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) a[ch] = __fadd_rn(a[ch], __fmul_rn(w, t[ch]));
       }
     }
-    store3(out, (p * n_levels + k) * 3, a0, a1, a2);
+    store_row<C>(out, (p * n_levels + k) * C, a);
   }
 }
 
@@ -275,6 +315,7 @@ __device__ __forceinline__ void block_run(const int32_t* __restrict__ wk,
 }
 
 // Block (w, k) = (blockIdx.x, blockIdx.y) owns window w of winsort level k.
+template <int C>
 __global__ void __launch_bounds__(kWsBwdThreads)
 winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
                    const int32_t* __restrict__ perm,
@@ -283,6 +324,7 @@ winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
                    const __grid_constant__ LevelParams lp, float shift,
                    int64_t n_points, int64_t n_tiles, int n_levels,
                    float* __restrict__ dtable) {
+  constexpr int kWinFloats = 512 * C;              // one window of the table
   __shared__ float4 acc4[kWinFloats / 4];
   float* acc = reinterpret_cast<float*>(acc4);
   const int k = blockIdx.y;
@@ -300,17 +342,21 @@ winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
   const bool crowded = hi - lo >= 8 * static_cast<int64_t>(blockDim.x);
   for (int64_t i0 = lo; i0 < hi; i0 += blockDim.x) {     // block-uniform
     const int64_t i = i0 + threadIdx.x;
-    float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+    float g[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) g[ch] = 0.f;
     int lg[3] = {0, 0, 0};
     float fr[3] = {0.f, 0.f, 0.f};
     bool live = i < hi && in_slots(slots, n_tiles, k, i, w);
     if (live) {
       const int64_t p = perm[kn + i];
-      const float* gp = grad + (p * n_levels + k) * 3;
-      g0 = gp[0];
-      g1 = gp[1];
-      g2 = gp[2];
-      live = g0 != 0.f || g1 != 0.f || g2 != 0.f;      // e.g. oob points
+      const float* gp = grad + (p * n_levels + k) * C;
+      live = false;                                    // e.g. oob points
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        g[ch] = gp[ch];
+        live |= g[ch] != 0.f;
+      }
       if (live) block_lattice(x, lp, shift, p, k, lg, fr);
     }
     // Lanes whose points share a lattice cell add into the same 8 rows.  A
@@ -325,12 +371,12 @@ winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
         int cell = 0;
         float wt = 0.f;
         const bool in = live && inblock_corner(lg, fr, c, cell, wt);
-        float v[3] = {in ? __fmul_rn(g0, wt) : 0.f, in ? __fmul_rn(g1, wt) : 0.f,
-                      in ? __fmul_rn(g2, wt) : 0.f};
+        float v[C];
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) v[ch] = in ? __fmul_rn(g[ch], wt) : 0.f;
         if (!(peer_sum(peers, v) && in)) continue;
-        atomicAdd(acc + cell * 3, v[0]);
-        atomicAdd(acc + cell * 3 + 1, v[1]);
-        atomicAdd(acc + cell * 3 + 2, v[2]);
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) atomicAdd(acc + cell * C + ch, v[ch]);
       }
     } else if (live) {
 #pragma unroll
@@ -338,63 +384,104 @@ winsort_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ x,
         int cell;
         float wt;
         if (!inblock_corner(lg, fr, c, cell, wt)) continue;
-        atomicAdd(acc + cell * 3, __fmul_rn(g0, wt));
-        atomicAdd(acc + cell * 3 + 1, __fmul_rn(g1, wt));
-        atomicAdd(acc + cell * 3 + 2, __fmul_rn(g2, wt));
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) atomicAdd(acc + cell * C + ch, __fmul_rn(g[ch], wt));
       }
     }
   }
   __syncthreads();
   float4* dst = reinterpret_cast<float4*>(
-      dtable + (lp.offset[k] + static_cast<int64_t>(w) * 512) * 3);
+      dtable + (lp.offset[k] + static_cast<int64_t>(w) * 512) * C);
   for (int c = threadIdx.x; c < kWinFloats / 4; c += blockDim.x) dst[c] = acc4[c];
 }
 
 }  // namespace
 
-// table: [total, 3] f32; x: [n_points, 3] f32 clipped to [0,1], any order,
-// n_points = 128 * n_tiles; perm: [n_levels, n_points] i32, per level the
-// window-sorted order (a permutation of 0..n_points-1); wins: [n_levels,
-// n_points] i32 window id of each sorted point (-1 out of bounds); slots:
-// [n_levels, n_tiles, 2] i32 (>= 0); scales, offsets: HOST arrays [n_levels]
-// (f32 lattice scale, i32 first table row of the level), 1 <= n_levels <= 32;
-// out: [n_points, n_levels, 3] f32 in x's order.
+namespace {
+
+template <int C>
+cudaError_t launch_winsort_fwd(const void* table, const void* x, const void* perm,
+                               const void* wins, const void* slots,
+                               const LevelParams& lp, float shift, int64_t n_points,
+                               int64_t n_tiles, int n_levels, void* out,
+                               cudaStream_t stream) {
+  constexpr int smem = StagedRow<C>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(
+      winsort_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t chunks = (n_tiles + kWsFwdTiles - 1) / kWsFwdTiles;
+  winsort_fwd_kernel<C><<<dim3(static_cast<unsigned>(chunks), n_levels),
+                          kWsFwdThreads, smem, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),
+      static_cast<const int32_t*>(slots), lp, shift, n_points, n_tiles,
+      n_levels, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_winsort_bwd(const void* grad, const void* x, const void* perm,
+                               const void* wins, const void* slots,
+                               const LevelParams& lp, float shift, int64_t n_points,
+                               int64_t n_tiles, int n_levels, int64_t n_windows,
+                               void* dtable, cudaStream_t stream) {
+  winsort_bwd_kernel<C><<<dim3(static_cast<unsigned>(n_windows), n_levels),
+                          kWsBwdThreads, 0, stream>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(x),
+      static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),
+      static_cast<const int32_t*>(slots), lp, shift, n_points, n_tiles,
+      n_levels, static_cast<float*>(dtable));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// table: [total, channels] f32, channels 1, 2 or 3; x: [n_points, 3] f32
+// clipped to [0,1], any order, n_points = 128 * n_tiles; perm: [n_levels,
+// n_points] i32, per level the window-sorted order (a permutation of
+// 0..n_points-1); wins: [n_levels, n_points] i32 window id of each sorted
+// point (-1 out of bounds); slots: [n_levels, n_tiles, 2] i32 (>= 0);
+// scales, offsets: HOST arrays [n_levels] (f32 lattice scale, i32 first
+// table row of the level), 1 <= n_levels <= 32; out: [n_points, n_levels,
+// channels] f32 in x's order, 8-byte aligned.
 extern "C" int n2m_winsort_fwd(const void* table, const void* x,
                                const void* perm, const void* wins,
                                const void* slots, const float* scales,
                                const int32_t* offsets, float shift,
                                int64_t n_points, int64_t n_tiles, int n_levels,
-                               void* out, void* stream) {
+                               int channels, void* out, void* stream) {
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (channels < 1 || channels > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (n_points > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        winsort_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kWsFwdSmem);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t e =
+        channels == 1 ? launch_winsort_fwd<1>(table, x, perm, wins, slots, lp, shift,
+                                              n_points, n_tiles, n_levels, out, st)
+        : channels == 2 ? launch_winsort_fwd<2>(table, x, perm, wins, slots, lp, shift,
+                                                n_points, n_tiles, n_levels, out, st)
+                        : launch_winsort_fwd<3>(table, x, perm, wins, slots, lp, shift,
+                                                n_points, n_tiles, n_levels, out, st);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int64_t chunks = (n_tiles + kWsFwdTiles - 1) / kWsFwdTiles;
-    winsort_fwd_kernel<<<dim3(static_cast<unsigned>(chunks), n_levels),
-                         kWsFwdThreads, kWsFwdSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(table), static_cast<const float*>(x),
-        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),
-        static_cast<const int32_t*>(slots), lp, shift, n_points, n_tiles,
-        n_levels, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// grad: [n_points, n_levels, 3] f32 in x's order; dtable: [total, 3] f32,
-// 16-byte aligned, zeroed by the caller (the kernel writes whole windows of
-// the levels, each once); n_windows: the most windows of any of the levels;
-// every offsets[k] a multiple of 4 rows.  Other arguments as n2m_winsort_fwd.
+// grad: [n_points, n_levels, channels] f32 in x's order; dtable: [total,
+// channels] f32, 16-byte aligned, zeroed by the caller (the kernel writes
+// whole windows of the levels, each once); n_windows: the most windows of
+// any of the levels; every offsets[k] a multiple of 4 rows.  Other arguments
+// as n2m_winsort_fwd.
 extern "C" int n2m_winsort_bwd(const void* grad, const void* x,
                                const void* perm, const void* wins,
                                const void* slots, const float* scales,
                                const int32_t* offsets, float shift,
                                int64_t n_points, int64_t n_tiles, int n_levels,
-                               int64_t n_windows, void* dtable, void* stream) {
+                               int channels, int64_t n_windows, void* dtable,
+                               void* stream) {
   LevelParams lp{};
   if (!pack_levels(scales, offsets, n_levels, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -404,13 +491,19 @@ extern "C" int n2m_winsort_bwd(const void* grad, const void* x,
     if (offsets[k] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_windows < 0 || n_windows > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (channels < 1 || channels > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (n_points > 0 && n_windows > 0) {
-    winsort_bwd_kernel<<<dim3(static_cast<unsigned>(n_windows), n_levels),
-                         kWsBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grad), static_cast<const float*>(x),
-        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(wins),
-        static_cast<const int32_t*>(slots), lp, shift, n_points, n_tiles,
-        n_levels, static_cast<float*>(dtable));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t e =
+        channels == 1
+            ? launch_winsort_bwd<1>(grad, x, perm, wins, slots, lp, shift, n_points,
+                                    n_tiles, n_levels, n_windows, dtable, st)
+        : channels == 2
+            ? launch_winsort_bwd<2>(grad, x, perm, wins, slots, lp, shift, n_points,
+                                    n_tiles, n_levels, n_windows, dtable, st)
+            : launch_winsort_bwd<3>(grad, x, perm, wins, slots, lp, shift, n_points,
+                                    n_tiles, n_levels, n_windows, dtable, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,7 @@ Reads and writes 8-bit, non-interlaced grayscale, RGB and RGBA images: the
 blender frames, the synthetic scene's RGBA frames and the eval's rgb, depth
 and error maps.  Reading undoes the five row filters of the PNG standard;
 writing uses filter 0 on every row.  Any other PNG (palette, 16-bit, gray
-with alpha, interlaced) raises NotImplementedError.
+with alpha, interlaced) raises NotImplementedError (ROADMAP A6 (a')).
 
 ``read_image`` / ``write_image`` use Pillow where it is importable and this
 codec otherwise, so both give the array ``np.asarray(Image.open(path))``
@@ -75,7 +75,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise NotImplementedError(
             f"PNG with bit depth {depth}, color type {ctype}, interlace "
             f"{interlace}: only 8-bit non-interlaced gray, RGB and RGBA are "
-            "read without Pillow")
+            "read without Pillow (ROADMAP A6 (a'))")
     C = _CHANNELS[ctype]
     stride = W * C
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -112,7 +112,8 @@ def encode_png(img: np.ndarray) -> bytes:
         img = img[..., None]
     if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
         raise NotImplementedError(
-            f"PNG writer takes [H, W] or [H, W, 3|4] images, not {img.shape}")
+            f"PNG writer takes [H, W] or [H, W, 3|4] images, not {img.shape} "
+            "(ROADMAP A6 (a'))")
     H, W, C = img.shape
     rows = np.concatenate([np.zeros((H, 1), np.uint8),
                            np.ascontiguousarray(img).reshape(H, W * C)], 1)

@@ -1,7 +1,8 @@
 """Procedural synthetic scene (port of nerf2mesh_tpu/data/synthetic.py).
 
 ``render_synthetic_frames`` draws the same cameras and ray-traces the same
-uint8 RGBA frames as the JAX package's ``generate_synthetic_dataset``, but
+uint8 RGBA frames as the JAX package's ``generate_synthetic_dataset`` (of
+``SphereScene``, the default, or ``HardScene``, the hard proxy scene), but
 returns them in memory, so a run needs neither disk nor Pillow;
 ``generate_synthetic_dataset`` writes them as a nerf-synthetic directory
 (transforms_{split}.json + PNGs, written by Pillow where it is importable,
@@ -96,6 +97,170 @@ class SphereScene:
         return d
 
 
+@dataclass
+class HardScene:
+    """Lego-proxy benchmark scene: textured boxes, thin rods, and glossy
+    (view-dependent) materials, raytraced analytically.
+
+    A copy of the JAX package's HardScene, held equal to it by
+    tests/test_torch_hardscene.py.  A procedural stand-in for the
+    nerf-synthetic lego scene, which ships with neither package:
+    high-frequency checker textures stress the fine hash levels,
+    0.015-radius rods stress thin-structure sampling, and Blinn-Phong
+    speculars exercise the view-dependent head.  Quality numbers on it are
+    labeled 'hard-proxy', never compared 1:1 with published lego.
+    """
+    light_dir: np.ndarray = field(default_factory=lambda: np.array(
+        [0.4, 0.9, 0.35], np.float32))
+    seed: int = 7
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # boxes: (center, half-extent, yaw, base color, gloss)
+        self.boxes = [
+            (np.array([0.0, -0.42, 0.0]), np.array([0.58, 0.06, 0.58]),
+             0.0, np.array([0.55, 0.52, 0.5]), 0.15),          # base plate
+            (np.array([-0.22, -0.18, 0.1]), np.array([0.2, 0.18, 0.26]),
+             0.4, np.array([0.8, 0.25, 0.15]), 0.5),
+            (np.array([0.26, -0.24, -0.14]), np.array([0.16, 0.12, 0.2]),
+             -0.3, np.array([0.95, 0.75, 0.1]), 0.7),
+            (np.array([0.18, 0.02, 0.22]), np.array([0.12, 0.14, 0.1]),
+             0.9, np.array([0.2, 0.45, 0.85]), 0.9),
+        ]
+        # thin rods: (base, axis unit, length, radius, color)
+        self.rods = []
+        for i in range(6):
+            a = rng.normal(size=3)
+            a[1] = abs(a[1]) + 1.2
+            a /= np.linalg.norm(a)
+            base = np.array([rng.uniform(-0.4, 0.4), -0.36,
+                             rng.uniform(-0.4, 0.4)])
+            self.rods.append((base.astype(np.float32), a.astype(np.float32),
+                              rng.uniform(0.35, 0.7), 0.015,
+                              np.array([0.15, 0.8, 0.4], np.float32)))
+        # one glossy sphere
+        self.sph = (np.array([-0.05, 0.18, -0.2], np.float32), 0.14,
+                    np.array([0.9, 0.9, 0.95], np.float32))
+
+    @staticmethod
+    def _rot(yaw):
+        c, s = np.cos(yaw), np.sin(yaw)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+
+    def _albedo(self, p, base, kind):
+        """High-frequency procedural texture (stresses fine hash levels)."""
+        if kind == 0:   # checker at 24 cells/unit
+            par = np.floor(p * 24.0).astype(np.int64).sum(-1) % 2
+            return base * (0.45 + 0.55 * par)[:, None]
+        if kind == 1:   # stripes + noise-ish modulation
+            m = 0.5 + 0.5 * np.sin(40.0 * p[:, 0] + 17.0 * p[:, 2])
+            return base * (0.5 + 0.5 * m)[:, None]
+        return np.broadcast_to(base, p.shape).copy()
+
+    def trace(self, rays_o: np.ndarray, rays_d: np.ndarray):
+        N = rays_o.shape[0]
+        d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+        best_t = np.full(N, np.inf, np.float32)
+        nrm = np.zeros((N, 3), np.float32)
+        alb = np.zeros((N, 3), np.float32)
+        gloss = np.zeros(N, np.float32)
+        tex = np.zeros(N, np.int64)
+
+        def consider(t, hit, n, base, g, kind):
+            upd = hit & (t > 1e-3) & (t < best_t)
+            if not upd.any():
+                return
+            best_t[upd] = t[upd]
+            nrm[upd] = n[upd]
+            alb[upd] = np.broadcast_to(base, (N, 3))[upd]
+            gloss[upd] = g
+            tex[upd] = kind
+
+        for k, (c, h, yaw, col, g) in enumerate(self.boxes):
+            R = self._rot(yaw)
+            ol = (rays_o - c) @ R
+            dl = d @ R
+            dl = np.where(np.abs(dl) < 1e-9, 1e-9, dl)
+            t0 = (-h - ol) / dl
+            t1 = (h - ol) / dl
+            tmin = np.minimum(t0, t1).max(-1)
+            tmax = np.maximum(t0, t1).min(-1)
+            hit = (tmax > tmin) & (tmax > 0)
+            te = np.where(tmin > 0, tmin, tmax)
+            pl = ol + te[:, None] * dl
+            ax = np.argmax(np.abs(pl) / h, -1)
+            n_l = np.zeros((N, 3), np.float32)
+            n_l[np.arange(N), ax] = np.sign(pl[np.arange(N), ax])
+            consider(te, hit, n_l @ R.T, col, g, k % 2)
+
+        for base, axis, ln, r, col in self.rods:
+            oc = rays_o - base
+            dpa = d - (d @ axis)[:, None] * axis
+            opa = oc - (oc @ axis)[:, None] * axis
+            a = np.sum(dpa * dpa, -1)
+            b = np.sum(dpa * opa, -1)
+            cq = np.sum(opa * opa, -1) - r * r
+            disc = b * b - a * cq
+            hit = (disc > 0) & (a > 1e-12)
+            t = (-b - np.sqrt(np.maximum(disc, 0))) / np.maximum(a, 1e-12)
+            s = (rays_o + t[:, None] * d - base) @ axis
+            hit &= (s > 0) & (s < ln)
+            p = rays_o + t[:, None] * d
+            n = p - base - s[:, None] * axis
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+            consider(t, hit, n, col, 0.3, 2)
+
+        c, r, col = self.sph
+        oc = rays_o - c
+        b = np.sum(oc * d, -1)
+        cc = np.sum(oc * oc, -1) - r * r
+        disc = b * b - cc
+        hit = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        p = rays_o + t[:, None] * d
+        n = (p - c) / r
+        consider(t, hit, n, col, 1.0, 2)
+
+        alpha = np.isfinite(best_t).astype(np.float32)
+        rgb = np.zeros((N, 3), np.float32)
+        m = alpha > 0
+        if m.any():
+            p = rays_o[m] + best_t[m, None] * d[m]
+            a = np.zeros((m.sum(), 3), np.float32)
+            for kind in (0, 1, 2):
+                km = tex[m] == kind
+                if km.any():
+                    a[km] = self._albedo(p[km], 1.0, kind) * alb[m][km] \
+                        if kind < 2 else alb[m][km]
+            L = self.light_dir / np.linalg.norm(self.light_dir)
+            nn = nrm[m]
+            lam = np.clip(nn @ L, 0, 1)
+            # Blinn-Phong specular: genuinely view-dependent
+            hvec = L[None] - d[m]
+            hvec /= np.maximum(np.linalg.norm(hvec, axis=-1, keepdims=True),
+                               1e-9)
+            spec = gloss[m] * np.clip(np.sum(nn * hvec, -1), 0, 1) ** 32
+            rgb[m] = np.clip(a * (0.25 + 0.75 * lam)[:, None]
+                             + spec[:, None], 0, 1)
+        return rgb, alpha
+
+    def sdf(self, pts: np.ndarray) -> np.ndarray:
+        dmin = np.full(pts.shape[0], np.inf, np.float32)
+        for c, h, yaw, _, _ in self.boxes:
+            q = np.abs((pts - c) @ self._rot(yaw)) - h
+            outside = np.linalg.norm(np.maximum(q, 0), axis=-1)
+            inside = np.minimum(q.max(-1), 0)
+            dmin = np.minimum(dmin, outside + inside)
+        for base, axis, ln, r, _ in self.rods:
+            oc = pts - base
+            s = np.clip(oc @ axis, 0, ln)
+            dmin = np.minimum(
+                dmin, np.linalg.norm(oc - s[:, None] * axis, axis=-1) - r)
+        c, r, _ = self.sph
+        dmin = np.minimum(dmin, np.linalg.norm(pts - c, axis=-1) - r)
+        return dmin
+
+
 def _camera_rays(pose: np.ndarray, H: int, W: int, fl: float,
                  dx: float = 0.5, dy: float = 0.5):
     """Pixel rays with subpixel offset (dx, dy) from the pixel's top-left
@@ -110,7 +275,7 @@ def _camera_rays(pose: np.ndarray, H: int, W: int, fl: float,
 
 
 def render_synthetic_frames(
-    scene: SphereScene | None = None,
+    scene: SphereScene | HardScene | None = None,
     H: int = 128,
     W: int = 128,
     n_train: int = 32,
@@ -166,7 +331,8 @@ def render_synthetic_frames(
     return out
 
 
-def generate_synthetic_dataset(root: str, scene: SphereScene | None = None,
+def generate_synthetic_dataset(root: str,
+                               scene: SphereScene | HardScene | None = None,
                                **kw) -> str:
     """Write a nerf-synthetic-format dataset under `root` (see
     render_synthetic_frames for the keywords). Returns root."""

@@ -41,31 +41,31 @@ _SIGNATURES = {
     # words, idx, out, n, stream
     "n2m_occ_lookup": (_P, _P, _P, _I64, _P),
     # table, x, bases, rows, scales (host), offsets (host), shift, n_points,
-    # n_tiles, n_levels, out, stream
+    # n_tiles, n_levels, channels, out, stream
     "n2m_inwin_fwd": (_P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64, _I64,
-                      _I32, _P, _P),
+                      _I32, _I32, _P, _P),
     # grad, x, bases, rows, scales (host), offsets (host), shift, n_points,
-    # n_tiles, n_levels, dtable, stream
+    # n_tiles, n_levels, channels, dtable, stream
     "n2m_inwin_bwd": (_P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64, _I64,
-                      _I32, _P, _P),
+                      _I32, _I32, _P, _P),
     # table, x, perm, wins, slots, scales (host), offsets (host), shift,
-    # n_points, n_tiles, n_levels, out, stream
+    # n_points, n_tiles, n_levels, channels, out, stream
     "n2m_winsort_fwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
-                        _I64, _I32, _P, _P),
+                        _I64, _I32, _I32, _P, _P),
     # grad, x, perm, wins, slots, scales (host), offsets (host), shift,
-    # n_points, n_tiles, n_levels, n_windows, dtable, stream
+    # n_points, n_tiles, n_levels, channels, n_windows, dtable, stream
     "n2m_winsort_bwd": (_P, _P, _P, _P, _P, _HOST_F32, _HOST_I32, _F32, _I64,
-                        _I64, _I32, _I64, _P, _P),
+                        _I64, _I32, _I32, _I64, _P, _P),
     # variant, table, x, bases, rows, scale, offset, shift, n_points,
     # n_tiles, out, stream
     "n2m_inwin_dense": (_I32, _P, _P, _P, _P, _F32, _I32, _F32, _I64, _I64, _P,
                         _P),
-    # table, x, levels (host), shift, n_points, n_levels, chunks, out,
-    # stream
-    "n2m_sweep_fwd": (_P, _P, _P, _F32, _I64, _I32, _I64, _P, _P),
-    # grad, x, levels (host), shift, n_points, n_levels, chunks, dtable,
-    # stream
-    "n2m_sweep_bwd": (_P, _P, _P, _F32, _I64, _I32, _I64, _P, _P),
+    # table, x, levels (host), shift, n_points, n_levels, channels, chunks,
+    # out, stream
+    "n2m_sweep_fwd": (_P, _P, _P, _F32, _I64, _I32, _I32, _I64, _P, _P),
+    # grad, x, levels (host), shift, n_points, n_levels, channels, chunks,
+    # dtable, stream
+    "n2m_sweep_bwd": (_P, _P, _P, _F32, _I64, _I32, _I32, _I64, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,10 @@
 
 Architecture (as the JAX package's merged-table default):
   * one block512 hash table [total, 3]: channel 0 feeds the density MLP,
-    channels 1..2 the color MLP;
+    channels 1..2 the color MLP; or, with ``separate_tables`` (the
+    reference's own two encoders), ``sigma_table`` [total, 1] for the
+    density and ``color_table`` [total, 2] for the color, each encoded by
+    the same kernels at its own channel count;
   * density:  concat(x, h0 [L]) -> MLP(3+L -> 32 -> 1) -> trunc_exp;
   * color:    concat(x, h12 [2L]) -> MLP(-> 64 -> 64 -> 3+spec) -> sigmoid;
   * specular: MLP(3 dir + spec -> 32 -> 3) -> sigmoid; full color =
@@ -14,8 +17,8 @@ morton-sorted once around the whole field and only the narrow [N, 7]
 (sigma, color, specular) output unsorted; a small "ref" table takes the
 sweep encode (ops/pallas_encode.py, kernel K4), unsorted; any other ref
 table the plain ``hashgrid_encode``.  Parameters keep the JAX pytree layout:
-``table`` [total, 3] and ``*_net.<layer>.w`` [in, out] (utils/convert.py
-maps between the two).
+``table`` [total, 3] (or ``sigma_table`` and ``color_table``) and
+``*_net.<layer>.w`` [in, out] (utils/convert.py maps between the two).
 
 The field covers [-bound, bound]^3 of its spec (the grid bound: the
 scene's bound, or 2 under contraction), with the finest level at 2048 *
@@ -25,12 +28,12 @@ bound cells.  SDF mode adds the central-difference normal
 ``individual_codes`` [ind_num, ind_dim] table whose rows join the colour
 MLP's input; training passes each ray's view's code (``c``), and every
 other colour query (eval, the export's bake, the stage-1 eval) takes code
-0, the reference's fixed code for views it has not seen.  Not ported yet
-(NotImplementedError): separate tables (ROADMAP A6).
+0, the reference's fixed code for views it has not seen.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -53,6 +56,9 @@ class NetworkSpec:
     ind_dim: int = 0
     ind_num: int = 500
     fp16: bool = False            # bf16 compute for the MLPs
+    # two tables, sigma_table (C=1) and color_table (C=2), as the
+    # reference's two encoders, in place of the merged C=3 table; no CLI
+    # flag sets it (nor in the JAX package)
     separate_tables: bool = False
     log2_hashmap_size: int = 19
     num_levels: int = 16
@@ -77,14 +83,14 @@ class NetworkSpec:
         )
 
     @property
+    def color_grid_spec(self) -> HashGridSpec:
+        if not self.separate_tables:
+            return self.density_grid_spec
+        return dataclasses.replace(self.density_grid_spec, level_dim=2)
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.fp16 else torch.float32
-
-
-def check_supported(spec: NetworkSpec) -> None:
-    if spec.separate_tables:
-        raise NotImplementedError(
-            "separate density/color tables are not ported yet (ROADMAP A6)")
 
 
 class NeRFField(nn.Module):
@@ -92,9 +98,15 @@ class NeRFField(nn.Module):
 
     def __init__(self, spec: NetworkSpec, generator: torch.Generator):
         super().__init__()
-        check_supported(spec)
         L, sd = spec.num_levels, spec.specular_dim
-        self.table = nn.Parameter(init_hashgrid(generator, spec.density_grid_spec))
+        if spec.separate_tables:
+            self.sigma_table = nn.Parameter(
+                init_hashgrid(generator, spec.density_grid_spec))
+            self.color_table = nn.Parameter(
+                init_hashgrid(generator, spec.color_grid_spec))
+        else:
+            self.table = nn.Parameter(
+                init_hashgrid(generator, spec.density_grid_spec))
         self.sigma_net = MLP(3 + L, 1, 32, 2, generator)
         self.color_net = MLP(3 + 2 * L + spec.ind_dim, 3 + sd, 64, 3,
                              generator)
@@ -135,10 +147,23 @@ def _encode(table, x01, gspec: HashGridSpec, max_level, spec: NetworkSpec,
 
 
 def encode_fields(params: NeRFField, x01: torch.Tensor, spec: NetworkSpec,
-                  max_level: Optional[int] = None, pre_sorted: bool = False):
+                  max_level: Optional[int] = None, pre_sorted: bool = False,
+                  color: bool = True):
     """One pass over the merged table -> (density feats [N, L], color feats
-    [N, 2L], per-level residual counts [L] or None)."""
+    [N, 2L], per-level residual counts [L] or None).  Under separate tables
+    each table is encoded on its own and the counts add up (JAX
+    encode_fields); color=False skips the colour table there (its features
+    are then None)."""
     L = spec.num_levels
+    if spec.separate_tables:
+        hd, c1 = _encode(params.sigma_table, x01, spec.density_grid_spec,
+                         max_level, spec, pre_sorted)
+        if not color:
+            return hd, None, c1
+        hc, c2 = _encode(params.color_table, x01, spec.color_grid_spec,
+                         max_level, spec, pre_sorted)
+        cnt = None if c1 is None else c1 + (0 if c2 is None else c2)
+        return hd, hc, cnt
     h, cnt = _encode(params.table, x01, spec.density_grid_spec, max_level,
                      spec, pre_sorted)
     h = h.reshape(x01.shape[0], L, 3)
@@ -167,16 +192,19 @@ def _geo_feat_from_feat(params: NeRFField, x, hc, spec: NetworkSpec, c=None):
 def density(params: NeRFField, x: torch.Tensor, spec: NetworkSpec,
             max_level: Optional[int] = None) -> torch.Tensor:
     """sigma (after trunc_exp), or the raw SDF value in SDF mode.  x: [N, 3]
-    in [-bound, bound]."""
+    in [-bound, bound].  Under separate tables only sigma_table is encoded
+    (JAX's density encodes both and drops the colour features: the same
+    value, one table's kernel launches fewer)."""
     b = spec.bound
     if not splat_supported(spec.density_grid_spec):
-        hd, _, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level)
+        hd, _, _ = encode_fields(params, (x + b) / (2 * b), spec, max_level,
+                                 color=False)
         return _density_from_feat(params, x, hd, spec)
     # the splat path sorts the points once around the whole field
     perm, inv = morton_perm((x + b) / (2 * b))
     xs = permute(x, perm, inv)
     hd, _, _ = encode_fields(params, (xs + b) / (2 * b), spec, max_level,
-                             pre_sorted=True)
+                             pre_sorted=True, color=False)
     sig = _density_from_feat(params, xs, hd, spec)
     return permute(sig, inv, perm)
 

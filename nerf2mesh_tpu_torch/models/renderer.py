@@ -2,7 +2,7 @@
 
 Occupancy-grid state, the density-grid update (one of 8 x-slabs per call,
 round-robin: the EMA-max, or under ``trainable_density_grid`` a descent
-step on the slab's loss), ``mark_untrained_grid`` (numpy), the training render
+step on the slab's loss), ``mark_untrained_grid``, the training render
 ``render_train`` with valid-sample pool compaction, and the early-exit eval
 march (``render_eval_segment``, ``render_frame_queue``).  In SDF mode the
 field's raw SDF becomes a NeuS alpha (``neus_alpha_from_sdf``) from the
@@ -188,45 +188,53 @@ def mark_untrained_grid(state: RenderState, poses: np.ndarray, intrinsics,
                         ) -> RenderState:
     """Mark grid cells never seen by any training camera (or outside the
     AABB) with -1 so they stay unoccupied (reference renderer.py:985-1071).
-    Host-side numpy, once before training."""
+    Once before training, on the grid's device: the JAX package's numpy
+    pass in float32 op for op (the camera rotation summed in its einsum's
+    order), so the marks equal it bit for bit; on the card it takes a
+    fraction of a second where the host pass took 10-60 s at 1-5
+    cascades."""
     H, CAS = spec.grid_size, spec.cascades
+    dev = state.density_grid.device
     fx, fy, cx, cy = intrinsics
-    poses = np.asarray(poses, np.float32)
+    # the quotients as numpy's float32 products see them
+    ratio_x, ratio_y = float(np.float32(cx / fx)), float(np.float32(cy / fy))
+    poses = torch.as_tensor(np.asarray(poses, np.float32), device=dev)
     B = poses.shape[0]
 
-    ax = 2.0 * np.arange(H, dtype=np.float32) / (H - 1) - 1.0
-    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
-    world = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+    ax = 2.0 * torch.arange(H, dtype=torch.float32, device=dev) / (H - 1) - 1.0
+    gx, gy, gz = torch.meshgrid(ax, ax, ax, indexing="ij")
+    world = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
     if aabb is None:
         rb = spec.bound
         aabb = np.array([-rb, -rb, -rb, rb, rb, rb], np.float32)
+    aabb = torch.as_tensor(np.asarray(aabb, np.float32), device=dev)
+    near = (None if cam_near_far is None else torch.as_tensor(
+        np.asarray(cam_near_far, np.float32)[:, 0], device=dev))
 
-    grid = state.density_grid.detach().cpu().numpy().copy()
+    grid = state.density_grid.detach().clone()
     for cas in range(CAS):
         bound = min(2 ** cas, spec.grid_bound)
         half = bound / H
         pts = world * (bound - half)
-        in_aabb = np.all((pts >= aabb[:3] - half) & (pts <= aabb[3:] + half),
-                         axis=-1)
-        seen = np.zeros(pts.shape[0], bool)
-        S = 64
+        in_aabb = ((pts >= aabb[:3] - half) & (pts <= aabb[3:] + half)).all(-1)
+        seen = torch.zeros(pts.shape[0], dtype=torch.bool, device=dev)
+        S = 16
         for head in range(0, B, S):
             P = poses[head:head + S]
-            cam = pts[None, :, :] - P[:, None, :3, 3]
-            cam = np.einsum("bnc,bcr->bnr", cam, P[:, :3, :3])
-            cam[:, :, 2] *= -1  # camera forward is -z (renderer.py:1044)
-            min_near = (spec.min_near if cam_near_far is None
-                        else cam_near_far[head:head + S, 0:1])
-            mask_z = cam[:, :, 2] > min_near
-            mask_x = np.abs(cam[:, :, 0]) < (cx / fx) * cam[:, :, 2] + half * 2
-            mask_y = np.abs(cam[:, :, 1]) < (cy / fy) * cam[:, :, 2] + half * 2
-            seen |= (mask_z & mask_x & mask_y).any(axis=0)
-        untrained = (~seen) | (~in_aabb)
-        g = grid[cas].reshape(-1)
-        g[untrained] = -1.0
-        grid[cas] = g.reshape(H, H, H)
-    return replace(state, density_grid=torch.from_numpy(grid).to(
-        state.density_grid.device))
+            d = pts[None, :, :] - P[:, None, :3, 3]                 # [S, N, 3]
+            R = P[:, :3, :3]
+            # cam[..., r] = sum_c d[..., c] * R[c, r], summed c = 0, 1, 2
+            cam = [(d[..., 0] * R[:, None, 0, r] + d[..., 1] * R[:, None, 1, r])
+                   + d[..., 2] * R[:, None, 2, r] for r in range(3)]
+            z = -cam[2]                 # camera forward is -z (renderer.py:1044)
+            min_near = (spec.min_near if near is None
+                        else near[head:head + S, None])
+            vis = ((z > min_near)
+                   & (cam[0].abs() < ratio_x * z + half * 2)
+                   & (cam[1].abs() < ratio_y * z + half * 2))
+            seen |= vis.any(dim=0)
+        grid[cas].view(-1)[~(seen & in_aabb)] = -1.0
+    return replace(state, density_grid=grid)
 
 
 def sdf_inv_s(params: NeRFField) -> torch.Tensor:

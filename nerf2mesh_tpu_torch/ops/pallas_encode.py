@@ -4,8 +4,10 @@ versions.  Port of nerf2mesh_tpu/ops/pallas_encode.py.
 
 ``sweep_encode(table, x01, spec)`` is hashgrid_encode without the max_level
 mask on qualifying specs (``sweep_supported``, the JAX gate: ref layout,
-3-D, linear, at most 2^14 rows a level).  K4 and K4b read and write the
-merged table's C = 3 channels; any other level_dim raises.  Each wrapper
+3-D, linear, at most 2^14 rows a level).  K4 and K4b read and write a
+table of C = spec.level_dim channels, C = 1, 2 or 3 (the separate density
+and colour tables, or the merged one), with one instantiation of each
+kernel for each C; any other level_dim raises ValueError.  Each wrapper
 launches its kernel for a CUDA tensor and takes the plain version for a
 CPU tensor: the forward's a per-level 8-corner gather, the backward's the
 JAX package's ``_sweep_bwd`` (XLA there, its table gradient an
@@ -68,12 +70,9 @@ def _check_args(table, x01, spec):
     if not sweep_supported(spec):
         raise ValueError("sweep_encode needs a ref-layout, 3-D, linear spec "
                          f"with at most {MAX_SWEEP_SIZE} rows a level")
-    if spec.level_dim != 3:
-        raise ValueError("sweep_encode: K4 reads a merged table of 3 channels,"
-                         f" not level_dim={spec.level_dim}")
-    total = _table_rows(spec)
-    if table.dtype != torch.float32 or tuple(table.shape) != (total, 3):
-        raise ValueError(f"sweep_encode: table must be float32 [{total}, 3]")
+    total, C = _table_rows(spec), kernels.channels(spec)
+    if table.dtype != torch.float32 or tuple(table.shape) != (total, C):
+        raise ValueError(f"sweep_encode: table must be float32 [{total}, {C}]")
     if x01.dtype != torch.float32 or x01.dim() != 2 or x01.shape[1] != 3:
         raise ValueError("sweep_encode: x01 must be float32 [N, 3]")
     if table.device != x01.device:
@@ -111,10 +110,10 @@ def _level_records(spec: HashGridSpec) -> np.ndarray:
 
 
 # K4/K4b launch shape: a block (1024 threads, one level's slice of up to
-# 192 KiB in shared memory, so one block an SM) takes one level of a chunk
-# of at least CHUNK_MIN_POINTS points, and a large input gets one wave of
-# blocks.  K4 runs a chunk's levels in clusters of 2 blocks (the second
-# block of an odd last pair idle), K4b one block a level.
+# 64C KiB in shared memory, so one block an SM at C = 3) takes one level of
+# a chunk of at least CHUNK_MIN_POINTS points, and a large input gets one
+# wave of blocks.  K4 runs a chunk's levels in clusters of 2 blocks (the
+# second block of an odd last pair idle), K4b one block a level.
 CHUNK_MIN_POINTS = 1024
 
 
@@ -146,7 +145,8 @@ def sweep_fwd(table: torch.Tensor, x01: torch.Tensor,
               spec: HashGridSpec) -> torch.Tensor:
     """Features [N, L*C] of x01 [N, 3] (zero outside [0, 1]^3) from the
     canonical ref table [total, C].  A CPU tensor takes the plain version; a
-    CUDA tensor launches K4 (counted in kernels.LAUNCHES["sweep_fwd"])."""
+    CUDA tensor launches K4 (counted in kernels.LAUNCHES["sweep_fwd"] and
+    ["sweep_fwd_c<C>"])."""
     _check_args(table, x01, spec)
     if x01.device.type == "cpu":
         return sweep_fwd_plain(table, x01, spec)
@@ -158,10 +158,10 @@ def sweep_fwd(table: torch.Tensor, x01: torch.Tensor,
     lib = kernels.load()
     code = lib.n2m_sweep_fwd(
         table.data_ptr(), x01.data_ptr(), _level_records(spec).ctypes.data,
-        float(spec.shift), N, L, sweep_chunks(N, L, _num_sms(x01.device)),
+        float(spec.shift), N, L, C, sweep_chunks(N, L, _num_sms(x01.device)),
         out.data_ptr(), kernels.current_stream_handle(x01.device))
     kernels.check(lib, "n2m_sweep_fwd", code)
-    kernels.LAUNCHES["sweep_fwd"] += 1
+    kernels.count("sweep_fwd", C)
     return out
 
 
@@ -210,7 +210,8 @@ def sweep_bwd(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor,
               spec: HashGridSpec, need_dx: bool = True):
     """(dtable [total, C], dx [N, 3] or None) for the output gradient g
     [N, L*C] float32.  A CPU tensor takes the plain version; a CUDA tensor
-    launches K4b for dtable (counted in kernels.LAUNCHES["sweep_bwd"]) and
+    launches K4b for dtable (counted in kernels.LAUNCHES["sweep_bwd"] and
+    ["sweep_bwd_c<C>"]) and
     adds dx, when asked, in plain PyTorch."""
     _check_args(table, x01, spec)
     _check_grad(x01, g, spec)
@@ -225,11 +226,11 @@ def sweep_bwd(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor,
     lib = kernels.load()
     code = lib.n2m_sweep_bwd(
         g.data_ptr(), x01.data_ptr(), _level_records(spec).ctypes.data,
-        float(spec.shift), N, L,
+        float(spec.shift), N, L, C,
         sweep_chunks(N, L, _num_sms(x01.device), forward=False),
         dtable.data_ptr(), kernels.current_stream_handle(x01.device))
     kernels.check(lib, "n2m_sweep_bwd", code)
-    kernels.LAUNCHES["sweep_bwd"] += 1
+    kernels.count("sweep_bwd", C)
     if not need_dx:
         return dtable, None
     idx, per_dim, _, oob = _sweep_corners(x01, spec)

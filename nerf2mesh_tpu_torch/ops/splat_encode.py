@@ -8,12 +8,18 @@ in XLA.  The port keeps that split and the routing probe (`resid_counts`)
 exactly, and replaces the kernels:
 
   K2 ``inwin_fwd`` (csrc/splat_inwin.cu) - in-window part, read straight from
-     the canonical [total, 3] table (no splat-layout transpose): a thread
+     the canonical [total, C] table (no splat-layout transpose): a thread
      block takes a tile at all its levels, a warp 32 points at one level,
      and the tile's results leave through shared memory as 16-byte stores;
   K3 ``inwin_bwd`` - its table gradient: a thread block reduces one tile's
      slot windows at one level in shared memory and adds each touched
-     16-byte chunk into a zeroed [total, 3] buffer with one vector atomic.
+     16-byte chunk into a zeroed [total, C] buffer with one vector atomic.
+
+Every kernel here reads a table of C = spec.level_dim channels, C = 1, 2 or
+3: the merged table (C = 3), or the separate density (C = 1) and colour
+(C = 2) tables of ``NetworkSpec(separate_tables=True)``; each CUDA kernel
+has one instantiation for each C, and its launch counts under its name and
+under "<name>_c<C>" (kernels.count).  Any other C raises ValueError.
 
 ``_InWin`` wraps both as one autograd Function (no gradient to x).  The
 residual is a masked 8-corner gather (exact mode) or the position-hashed
@@ -32,7 +38,7 @@ whose window is one of its tile's slots has its in-block corners computed
 by a kernel; corners that cross the block edge, and points outside the
 slots, ride an exact masked-gather residual.  Kernels (csrc/splat_winsort.cu):
 
-  K5 ``winsort_fwd`` - the in-block part, [N, Lw, 3] in the caller's order:
+  K5 ``winsort_fwd`` - the in-block part, [N, Lw, C] in the caller's order:
      one thread block a chunk of 4 tiles of one level stages the chunk's
      distinct slot windows in shared memory;
   K6 ``winsort_bwd`` - its table gradient: one thread block owns each
@@ -64,6 +70,22 @@ _GOLDEN = 0x9E3779B9
 def splat_supported(spec: HashGridSpec) -> bool:
     return (spec.layout == "block512" and spec.input_dim == 3
             and spec.interpolation == "linear")
+
+
+def _check_table(name, table, x, spec):
+    C = kernels.channels(spec)
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != C:
+        raise ValueError(f"{name}: table must be float32 [total, {C}]")
+    if table.device != x.device:
+        raise ValueError(f"{name}: table and x on different devices")
+    return C
+
+
+def _check_grad(name, grad, x, shape):
+    if grad.dtype != torch.float32 or tuple(grad.shape) != shape:
+        raise ValueError(f"{name}: grad must be float32 {list(shape)}")
+    if grad.device != x.device:
+        raise ValueError(f"{name}: grad and x on different devices")
 
 
 # ---------------------------------------------------------------------------
@@ -114,18 +136,19 @@ def _inwin_corners(x, bases, rows, spec, levels):
 
 
 def inwin_fwd_plain(table, x, bases, rows, spec, levels):
-    """Plain version of K2: [N, Lk, 3] in-window features."""
-    N, Lk = x.shape[0], len(levels)
+    """Plain version of K2: [N, Lk, C] in-window features."""
+    N, Lk, C = x.shape[0], len(levels), table.shape[1]
     row, w, _ = _inwin_corners(x, bases, rows, spec, levels)
-    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lk, 8, 3)
+    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lk, 8, C)
     return (w[..., None] * vals).sum(dim=2)
 
 
 def inwin_bwd_plain(grad, x, bases, rows, spec, levels, total):
-    """Plain version of K3: [total, 3] table gradient of K2."""
+    """Plain version of K3: [total, C] table gradient of K2."""
+    C = grad.shape[-1]
     row, w, _ = _inwin_corners(x, bases, rows, spec, levels)
-    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, 3)
-    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, C)
+    dtab = torch.zeros((total, C), dtype=torch.float32, device=x.device)
     return dtab.index_add_(0, row.reshape(-1), contrib)
 
 
@@ -134,7 +157,9 @@ def inwin_bwd_vector_adds(grad, x, bases, rows, spec, levels) -> int:
     inputs, counted by the plain corner walk: the distinct (thread block,
     gradient chunk) pairs over the in-window corners of points with a
     nonzero gradient, a block being one tile at one level (slots of one
-    window id share a chunk in a block)."""
+    window id share a chunk in a block); a row of C floats lies in one or
+    two chunks."""
+    C = grad.shape[-1]
     row, _, inw = _inwin_corners(x, bases, rows, spec, levels)      # [N, Lk, 8]
     N, Lk = row.shape[:2]
     live = inw & (grad != 0).any(-1)[:, :, None]
@@ -142,10 +167,10 @@ def inwin_bwd_vector_adds(grad, x, bases, rows, spec, levels) -> int:
     blk = ((ar // TILE)[:, None] * Lk
            + torch.arange(Lk, device=x.device)[None, :])            # [N, Lk]
     blk = blk[:, :, None].expand_as(row)[live]
-    r3 = 3 * row[live]
-    n_chunks = (int(spec.table_size) * 3 + 3) // 4
-    keys = torch.cat([blk * n_chunks + (r3 >> 2),
-                      blk * n_chunks + ((r3 + 2) >> 2)])
+    rc = C * row[live]
+    n_chunks = (int(spec.table_size) * C + 3) // 4
+    keys = torch.cat([blk * n_chunks + (rc >> 2),
+                      blk * n_chunks + ((rc + C - 1) >> 2)])
     return int(torch.unique(keys).numel())
 
 
@@ -166,30 +191,28 @@ def _check_inwin_args(x, bases, rows, levels):
     return N, T, Lk
 
 
-def _launch_inwin(name, src, x, bases, rows, spec, levels, out):
+def _launch_inwin(name, src, x, bases, rows, spec, levels, C, out):
     N, T, Lk = x.shape[0], x.shape[0] // TILE, len(levels)
     scales, offsets = level_arrays(spec, tuple(levels))
     lib = kernels.load()
     fn = getattr(lib, f"n2m_{name}")
     code = fn(src.data_ptr(), x.data_ptr(), bases.data_ptr(), rows.data_ptr(),
-              scales, offsets, float(spec.shift), N, T, Lk, out.data_ptr(),
+              scales, offsets, float(spec.shift), N, T, Lk, C, out.data_ptr(),
               kernels.current_stream_handle(x.device))
     kernels.check(lib, f"n2m_{name}", code)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name, C)
 
 
 def inwin_fwd(table, x, bases, rows, spec: HashGridSpec,
               levels: Tuple[int, ...]) -> torch.Tensor:
-    """In-window features [N, Lk, 3] of the kernel levels `levels`.
+    """In-window features [N, Lk, C] of the kernel levels `levels`.
 
-    table [total, 3] f32 canonical block512; x [N, 3] f32 clipped to [0, 1],
-    N a multiple of TILE; bases/rows from tile_meta, stacked over `levels`.
-    A CPU tensor takes the plain version; a CUDA tensor launches K2."""
+    table [total, C] f32 canonical block512, C = spec.level_dim in 1-3; x
+    [N, 3] f32 clipped to [0, 1], N a multiple of TILE; bases/rows from
+    tile_meta, stacked over `levels`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches K2."""
     N, T, Lk = _check_inwin_args(x, bases, rows, levels)
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != 3:
-        raise ValueError("inwin_fwd: table must be float32 [total, 3]")
-    if table.device != x.device:
-        raise ValueError("inwin_fwd: table and x on different devices")
+    C = _check_table("inwin_fwd", table, x, spec)
     if x.device.type == "cpu":
         return inwin_fwd_plain(table, x, bases, rows, spec, levels)
     if x.device.type != "cuda":
@@ -198,21 +221,19 @@ def inwin_fwd(table, x, bases, rows, spec: HashGridSpec,
     if x.data_ptr() % 16:           # K2 reads a tile's x as 16-byte vectors
         x = x.clone()
     bases, rows = bases.contiguous(), rows.contiguous()
-    out = torch.empty((N, Lk, 3), dtype=torch.float32, device=x.device)
-    _launch_inwin("inwin_fwd", table, x, bases, rows, spec, levels, out)
+    out = torch.empty((N, Lk, C), dtype=torch.float32, device=x.device)
+    _launch_inwin("inwin_fwd", table, x, bases, rows, spec, levels, C, out)
     return out
 
 
 def inwin_bwd(grad, x, bases, rows, spec: HashGridSpec,
               levels: Tuple[int, ...], total: int) -> torch.Tensor:
-    """Table gradient [total, 3] of inwin_fwd for output gradient grad
-    [N, Lk, 3].  A CPU tensor takes the plain version; a CUDA tensor
-    launches K3 into a zeroed buffer."""
+    """Table gradient [total, C] of inwin_fwd for output gradient grad
+    [N, Lk, C], C = spec.level_dim.  A CPU tensor takes the plain version;
+    a CUDA tensor launches K3 into a zeroed buffer."""
     N, T, Lk = _check_inwin_args(x, bases, rows, levels)
-    if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lk, 3):
-        raise ValueError(f"inwin_bwd: grad must be float32 [{N}, {Lk}, 3]")
-    if grad.device != x.device:
-        raise ValueError("inwin_bwd: grad and x on different devices")
+    C = kernels.channels(spec)
+    _check_grad("inwin_bwd", grad, x, (N, Lk, C))
     if total != table_rows(spec):       # the kernel indexes rows by the spec
         raise ValueError(f"inwin_bwd: table of {total} rows, spec has "
                          f"{spec.table_size}")
@@ -222,8 +243,8 @@ def inwin_bwd(grad, x, bases, rows, spec: HashGridSpec,
         raise RuntimeError(f"inwin_bwd: no kernel for {x.device}")
     grad, x = grad.contiguous(), x.contiguous()
     bases, rows = bases.contiguous(), rows.contiguous()
-    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
-    _launch_inwin("inwin_bwd", grad, x, bases, rows, spec, levels, dtab)
+    dtab = torch.zeros((total, C), dtype=torch.float32, device=x.device)
+    _launch_inwin("inwin_bwd", grad, x, bases, rows, spec, levels, C, dtab)
     return dtab
 
 
@@ -312,18 +333,19 @@ def _winsort_corners(x, perm, wins, slots, spec, levels):
 
 
 def winsort_fwd_plain(table, x, perm, wins, slots, spec, levels):
-    """Plain version of K5: [N, Lw, 3] in-block features of slotted points."""
-    N, Lw = x.shape[0], len(levels)
+    """Plain version of K5: [N, Lw, C] in-block features of slotted points."""
+    N, Lw, C = x.shape[0], len(levels), table.shape[1]
     row, w = _winsort_corners(x, perm, wins, slots, spec, levels)
-    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lw, 8, 3)
+    vals = gather_rows(table, row.reshape(-1)).reshape(N, Lw, 8, C)
     return (w[..., None] * vals).sum(dim=2)
 
 
 def winsort_bwd_plain(grad, x, perm, wins, slots, spec, levels, total):
-    """Plain version of K6: [total, 3] table gradient of K5."""
+    """Plain version of K6: [total, C] table gradient of K5."""
+    C = grad.shape[-1]
     row, w = _winsort_corners(x, perm, wins, slots, spec, levels)
-    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, 3)
-    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    contrib = (grad[:, :, None, :] * w[..., None]).reshape(-1, C)
+    dtab = torch.zeros((total, C), dtype=torch.float32, device=x.device)
     return dtab.index_add_(0, row.reshape(-1), contrib)
 
 
@@ -360,7 +382,7 @@ def _check_winsort_args(x, perm, wins, slots, spec, levels, total):
     return N, T, Lw
 
 
-def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out,
+def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, C, out,
                     *extra):
     N, T, Lw = x.shape[0], x.shape[0] // TILE, len(levels)
     scales, offsets = level_arrays(spec, tuple(levels))
@@ -368,47 +390,45 @@ def _launch_winsort(name, src, x, perm, wins, slots, spec, levels, out,
     fn = getattr(lib, f"n2m_{name}")
     code = fn(src.data_ptr(), x.data_ptr(), perm.data_ptr(), wins.data_ptr(),
               slots.data_ptr(), scales, offsets, float(spec.shift), N, T, Lw,
-              *extra, out.data_ptr(), kernels.current_stream_handle(x.device))
+              C, *extra, out.data_ptr(),
+              kernels.current_stream_handle(x.device))
     kernels.check(lib, f"n2m_{name}", code)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name, C)
 
 
 def winsort_fwd(table, x, perm, wins, slots, spec: HashGridSpec,
                 levels: Tuple[int, ...]) -> torch.Tensor:
-    """In-block features [N, Lw, 3] of the winsort levels `levels`.
+    """In-block features [N, Lw, C] of the winsort levels `levels`.
 
-    table [total, 3] f32 canonical block512; x [N, 3] f32 clipped to [0, 1]
-    (any order, N a multiple of TILE); perm, wins, slots from winsort_meta,
-    stacked over `levels` (perm and wins as int32).  A CPU tensor takes the
-    plain version; a CUDA tensor launches K5."""
+    table [total, C] f32 canonical block512, C = spec.level_dim in 1-3; x
+    [N, 3] f32 clipped to [0, 1] (any order, N a multiple of TILE); perm,
+    wins, slots from winsort_meta, stacked over `levels` (perm and wins as
+    int32).  A CPU tensor takes the plain version; a CUDA tensor launches
+    K5."""
     N, T, Lw = _check_winsort_args(x, perm, wins, slots, spec, levels,
                                    table.shape[0])
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != 3:
-        raise ValueError("winsort_fwd: table must be float32 [total, 3]")
-    if table.device != x.device:
-        raise ValueError("winsort_fwd: table and x on different devices")
+    C = _check_table("winsort_fwd", table, x, spec)
     if x.device.type == "cpu":
         return winsort_fwd_plain(table, x, perm, wins, slots, spec, levels)
     if x.device.type != "cuda":
         raise RuntimeError(f"winsort_fwd: no kernel for {x.device}")
     table, x = table.contiguous(), x.contiguous()
     perm, wins, slots = perm.contiguous(), wins.contiguous(), slots.contiguous()
-    out = torch.empty((N, Lw, 3), dtype=torch.float32, device=x.device)
+    out = torch.empty((N, Lw, C), dtype=torch.float32, device=x.device)
     _launch_winsort("winsort_fwd", table, x, perm, wins, slots, spec, levels,
-                    out)
+                    C, out)
     return out
 
 
 def winsort_bwd(grad, x, perm, wins, slots, spec: HashGridSpec,
                 levels: Tuple[int, ...], total: int) -> torch.Tensor:
-    """Table gradient [total, 3] of winsort_fwd for output gradient grad
-    [N, Lw, 3].  A CPU tensor takes the plain version; a CUDA tensor
-    launches K6, one thread block a (level, window), into a zeroed buffer."""
+    """Table gradient [total, C] of winsort_fwd for output gradient grad
+    [N, Lw, C], C = spec.level_dim.  A CPU tensor takes the plain version;
+    a CUDA tensor launches K6, one thread block a (level, window), into a
+    zeroed buffer."""
     N, T, Lw = _check_winsort_args(x, perm, wins, slots, spec, levels, total)
-    if grad.dtype != torch.float32 or tuple(grad.shape) != (N, Lw, 3):
-        raise ValueError(f"winsort_bwd: grad must be float32 [{N}, {Lw}, 3]")
-    if grad.device != x.device:
-        raise ValueError("winsort_bwd: grad and x on different devices")
+    C = kernels.channels(spec)
+    _check_grad("winsort_bwd", grad, x, (N, Lw, C))
     if x.device.type == "cpu":
         return winsort_bwd_plain(grad, x, perm, wins, slots, spec, levels,
                                  total)
@@ -416,9 +436,9 @@ def winsort_bwd(grad, x, perm, wins, slots, spec: HashGridSpec,
         raise RuntimeError(f"winsort_bwd: no kernel for {x.device}")
     grad, x = grad.contiguous(), x.contiguous()
     perm, wins, slots = perm.contiguous(), wins.contiguous(), slots.contiguous()
-    dtab = torch.zeros((total, 3), dtype=torch.float32, device=x.device)
+    dtab = torch.zeros((total, C), dtype=torch.float32, device=x.device)
     _launch_winsort("winsort_bwd", grad, x, perm, wins, slots, spec, levels,
-                    dtab, max_windows(spec, tuple(levels)))
+                    C, dtab, max_windows(spec, tuple(levels)))
     return dtab
 
 
@@ -510,9 +530,7 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
     gradient flows to x01."""
     if not splat_supported(spec):
         raise ValueError("splat_encode needs a block512, 3-D, linear spec")
-    if spec.level_dim != 3:
-        raise ValueError("splat_encode: the kernels read a merged table of 3 "
-                         f"channels, not level_dim={spec.level_dim}")
+    kernels.channels(spec)
     x01 = x01.detach()
     N = x01.shape[0]
     if N % TILE:
@@ -565,7 +583,7 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
         wins = torch.stack([m[1] for m in metas_ws])
         slots = torch.stack([m[2] for m in metas_ws])
         kf = _InWinWS.apply(table, xc, perm, wins, slots, spec,
-                            winsort_levels)                         # [N, Lw, 3]
+                            winsort_levels)                         # [N, Lw, C]
         # residual: corners that cross the own block's edge, and every
         # corner of a point outside its tile's slots
         w_res = []
@@ -583,7 +601,7 @@ def splat_encode_raw(table: torch.Tensor, x01: torch.Tensor,
         kl = list(k_levels)
         bases = torch.stack([metas[l][0] for l in kl]).contiguous()
         rows = torch.stack([metas[l][1] for l in kl]).contiguous()
-        kf = _InWin.apply(table, xc, bases, rows, spec, k_levels)  # [N, Lk, 3]
+        kf = _InWin.apply(table, xc, bases, rows, spec, k_levels)  # [N, Lk, C]
         if stochastic:
             picks = [_pick_one_corner(hsh, (l * _GOLDEN) ^ 0xA5A5A5A5,
                                       w[:, l], idx[:, l]) for l in kl]

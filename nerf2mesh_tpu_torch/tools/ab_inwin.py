@@ -90,12 +90,14 @@ def bare_k2(table, x, bases, rows, spec, levels):
     N, Lk = x.shape[0], len(levels)
     out = torch.empty((N, Lk, 3), device=x.device)
     stream = kernels.current_stream_handle(x.device)
+    # a checkout whose K2 takes the channel count has one more argument
+    chan = (3,) if len(lib.n2m_inwin_fwd.argtypes) == 13 else ()
 
     def run():
         code = lib.n2m_inwin_fwd(table.data_ptr(), x.data_ptr(),
                                  bases.data_ptr(), rows.data_ptr(), scales,
                                  offsets, float(spec.shift), N, N // 128, Lk,
-                                 out.data_ptr(), stream)
+                                 *chan, out.data_ptr(), stream)
         if code:
             raise RuntimeError(f"K2: CUDA error {code}")
     return run, out

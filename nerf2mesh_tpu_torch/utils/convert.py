@@ -2,8 +2,11 @@
 
 The JAX params are a nested dict/list pytree (nerf2mesh_tpu/models/
 network.py init_network): ``{"table": [total, 3], "sigma_net": [{"w":
-[in, out]}, ...], ...}``.  The port's ``NeRFField`` names the same arrays
-``table`` and ``sigma_net.0.w``: the flattened pytree path.  Layouts are
+[in, out]}, ...], ...}``, with ``sigma_table`` [total, 1] and
+``color_table`` [total, 2] in place of ``table`` under separate tables.
+The port's ``NeRFField`` names the same arrays ``table`` (or
+``sigma_table``, ``color_table``) and ``sigma_net.0.w``: the flattened
+pytree path, Adam's moments included.  Layouts are
 identical, so conversion is a rename and a copy.  The occupancy state
 (the JAX ``RenderState``) carries over the same way
 (``render_state_from_jax``), and so do whole checkpoints of either stage:

@@ -56,7 +56,7 @@ tenth of the lr.
 
 The trainer runs on the card unless the caller asks for another device.
 
-Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6);
+Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6 (f));
 multi-device training (A7).
 """
 
@@ -459,8 +459,9 @@ class Trainer:
             inner = xyz_tv.abs().amax(dim=-1) <= 1.0
             pw = torch.where(out["pp_valid"][:n_tv],
                              torch.where(inner, 1.0, 10.0), 0.0)
-            tv = hashgrid_tv_loss(params.table, x01, nspec.density_grid_spec,
-                                  pw)
+            table = (params.sigma_table if nspec.separate_tables
+                     else params.table)
+            tv = hashgrid_tv_loss(table, x01, nspec.density_grid_spec, pw)
             loss = loss + cfg.lambda_tv * tv
 
         metrics = {
@@ -1300,7 +1301,7 @@ class Trainer:
     def _ckpt_path(self, tag: str) -> str:
         if self.cfg.ckpt_backend == "orbax":
             raise NotImplementedError(
-                "orbax checkpoints are not ported yet (ROADMAP A6); use "
+                "orbax checkpoints are not ported yet (ROADMAP A6 (f)); use "
                 "--ckpt_backend pickle")
         return os.path.join(self.workspace, "checkpoints",
                             f"ngp_stage{self.cfg.stage}_{tag}.ckpt")
@@ -1421,8 +1422,8 @@ class Trainer:
         if not os.path.exists(path):
             return False
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path}: orbax checkpoints are not ported yet (ROADMAP A6)")
+            raise NotImplementedError(f"{path}: orbax checkpoints are not "
+                                      "ported yet (ROADMAP A6 (f))")
         payload = read_jax_checkpoint(path)
         st = payload["state"]
         params, ema = st["params"], st["ema_params"]

@@ -372,7 +372,7 @@ def test_inwin_bwd_rejects_misaligned_buffer(dev):
         return lib.n2m_inwin_bwd(
             gr.data_ptr(), x.data_ptr(), bases.data_ptr(), rows.data_ptr(),
             scales, offsets, float(SPEC.shift), x.shape[0],
-            x.shape[0] // se.TILE, len(levels), out.data_ptr(),
+            x.shape[0] // se.TILE, len(levels), 3, out.data_ptr(),
             kernels.current_stream_handle(dev))
 
     with pytest.raises(RuntimeError, match="misaligned"):
@@ -693,7 +693,7 @@ def test_sweep_bwd_rejects_misaligned_buffer(dev):
     def launch(out):
         return lib.n2m_sweep_bwd(
             gr.data_ptr(), x.data_ptr(), pe._level_records(REF_SPEC).ctypes.data,
-            float(REF_SPEC.shift), 1024, 16, 1, out.data_ptr(),
+            float(REF_SPEC.shift), 1024, 16, 3, 1, out.data_ptr(),
             kernels.current_stream_handle(dev))
 
     with pytest.raises(RuntimeError, match="misaligned"):
@@ -703,3 +703,75 @@ def test_sweep_bwd_rejects_misaligned_buffer(dev):
     torch.testing.assert_close(buf[:-1].view(-1, 3),
                                _k4b(gr, table, x, REF_SPEC), atol=1e-5,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the separate tables' channel counts: each kernel's C = 1 and C = 2
+# instantiations against their plain versions
+# ---------------------------------------------------------------------------
+
+def _grad_close(kernel, plain, g, args):
+    """K3/K4b/K6's tolerance: atol 1e-5 + rtol 1e-4 of each row's summed
+    |contribution| (plain of |g|)."""
+    mag = plain(g.abs(), *args)
+    return bool(((kernel(g, *args) - plain(g, *args)).abs()
+                 <= 1e-5 + 1e-4 * mag).all())
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("pair", ["inwin", "winsort", "sweep"])
+def test_channel_kernels_match_plain(dev, pair, C):
+    import dataclasses
+    gen = torch.Generator().manual_seed(C)
+    if pair == "sweep":
+        spec = HashGridSpec(num_levels=16, level_dim=C, log2_hashmap_size=14,
+                            desired_resolution=2048, layout="ref")
+        x = _points(4096, seed=C).to(dev)
+    else:
+        spec = dataclasses.replace(SPEC, level_dim=C)
+        x = _points(2048, seed=C).to(dev)
+        x = x[se.morton_perm(x)[0]].contiguous()
+    table = (torch.rand((spec.table_size, C), generator=gen) * 2 - 1).to(dev)
+    before = dict(kernels.LAUNCHES)
+    if pair == "inwin":
+        levels = tuple(range(6))
+        metas = [se.tile_meta(x.reshape(-1, se.TILE, 3), spec, l)
+                 for l in levels]
+        meta = (torch.stack([m[0] for m in metas]).contiguous(),
+                torch.stack([m[1] for m in metas]).contiguous())
+        fwd, fwd_plain = se.inwin_fwd, se.inwin_fwd_plain
+        bwd, bwd_plain = se.inwin_bwd, se.inwin_bwd_plain
+    elif pair == "winsort":
+        levels = (3, 4, 5)
+        oob = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+        metas = [se.winsort_meta(x, oob, spec, l) for l in levels]
+        meta = (torch.stack([m[0] for m in metas]).to(torch.int32).contiguous(),
+                torch.stack([m[1] for m in metas]).contiguous(),
+                torch.stack([m[2] for m in metas]).contiguous())
+        fwd, fwd_plain = se.winsort_fwd, se.winsort_fwd_plain
+        bwd, bwd_plain = se.winsort_bwd, se.winsort_bwd_plain
+    if pair == "sweep":
+        out = pe.sweep_fwd(table, x, spec)
+        torch.testing.assert_close(out, pe.sweep_fwd_plain(table, x, spec),
+                                   atol=1e-5, rtol=0)
+        g = torch.randn(out.shape, generator=gen).to(dev)
+        ok = _grad_close(
+            lambda g_, t, x_: pe.sweep_bwd(t, x_, g_, spec, False)[0],
+            lambda g_, t, x_: pe.sweep_bwd_plain(t, x_, g_, spec, False)[0],
+            g, (table, x))
+    else:
+        args = (table, x, *meta, spec, levels)
+        out = fwd(*args)
+        assert out.shape == (x.shape[0], len(levels), C)
+        torch.testing.assert_close(out, fwd_plain(*args), atol=1e-5, rtol=0)
+        g = torch.randn(out.shape, generator=gen).to(dev)
+        ok = _grad_close(bwd, bwd_plain, g,
+                         (x, *meta, spec, levels, spec.table_size))
+    torch.cuda.synchronize()
+    assert ok
+    names = {"inwin": ("inwin_fwd", "inwin_bwd"),
+             "winsort": ("winsort_fwd", "winsort_bwd"),
+             "sweep": ("sweep_fwd", "sweep_bwd")}[pair]
+    for name in names:
+        assert kernels.LAUNCHES[f"{name}_c{C}"] > before[f"{name}_c{C}"]
+        assert kernels.LAUNCHES[f"{name}_c3"] == before[f"{name}_c3"]

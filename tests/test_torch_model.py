@@ -117,11 +117,23 @@ def test_density_parity_stochastic_off_and_on(layout):
 
 
 def test_unsupported_modes_raise():
+    """Separate tables are ported (sigma_table [total, 1], color_table
+    [total, 2]); a table of a channel count that no encode kernel has an
+    instantiation for raises on both the block512 and the ref route."""
     _, tspec = net_specs()
-    for kw in (dict(separate_tables=True),):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tnet.NeRFField(dataclasses.replace(tspec, **kw),
+    field = tnet.NeRFField(dataclasses.replace(tspec, separate_tables=True),
                            torch.Generator().manual_seed(0))
+    assert {n: tuple(p.shape) for n, p in field.named_parameters()
+            if n.endswith("table")} == {
+        "sigma_table": (tspec.density_grid_spec.table_size, 1),
+        "color_table": (tspec.density_grid_spec.table_size, 2)}
+    for layout in ("block512", "ref"):
+        spec = dataclasses.replace(
+            dataclasses.replace(tspec, grid_layout=layout).density_grid_spec,
+            level_dim=4)
+        table = torch.zeros((spec.table_size, 4))
+        with pytest.raises(ValueError, match="level_dim=4"):
+            tnet._encode(table, torch.rand(128, 3), spec, None, tspec)
 
 
 def render_specs(H=32):

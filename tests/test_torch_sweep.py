@@ -92,9 +92,9 @@ def test_sweep_supported_gate():
 
 def test_ref_encode_routes_every_sweep_spec_to_sweep_encode(monkeypatch):
     """network._encode sends every spec the gate accepts, 40 levels
-    included, to sweep_encode, never to the plain hashgrid_encode; a
-    level_dim that K4 (or, on a block512 table, K2-K6) cannot read raises
-    there instead of routing around it."""
+    included, at 1, 2 and 3 channels, to sweep_encode, never to the plain
+    hashgrid_encode; a level_dim that K4 (or, on a block512 table, K2-K6)
+    has no instantiation for raises there instead of routing around it."""
     from nerf2mesh_tpu_torch.models import network as tnet
     calls = []
 
@@ -115,13 +115,20 @@ def test_ref_encode_routes_every_sweep_spec_to_sweep_encode(monkeypatch):
     assert calls == [40] and cnt is None and h.shape == (x.shape[0], 120)
     torch.testing.assert_close(h, thg.hashgrid_encode(table, x, ts),
                                atol=1e-6, rtol=0)
-    t1 = thg.HashGridSpec(num_levels=6, level_dim=1, log2_hashmap_size=12,
+    # the separate tables' channel counts route to the same kernels; a
+    # level_dim that no instantiation covers raises on either layout
+    for C in (1, 2):
+        tc = dataclasses.replace(ts, level_dim=C)
+        calls.clear()
+        h, _ = tnet._encode(T(uniform_table(tc)), x, tc, None, nspec)
+        assert calls == [40] and h.shape == (x.shape[0], 40 * C)
+    t4 = thg.HashGridSpec(num_levels=6, level_dim=4, log2_hashmap_size=12,
                           desired_resolution=128, layout="ref")
     with pytest.raises(ValueError, match="level_dim"):
-        tnet._encode(T(uniform_table(t1)), x, t1, None, nspec)
-    b1 = dataclasses.replace(t1, layout="block512")
+        tnet._encode(T(uniform_table(t4)), x, t4, None, nspec)
+    b4 = dataclasses.replace(t4, layout="block512")
     with pytest.raises(ValueError, match="level_dim"):
-        tnet._encode(T(uniform_table(b1)), x[:128], b1, None, nspec)
+        tnet._encode(T(uniform_table(b4)), x[:128], b4, None, nspec)
 
 
 def test_kernel_indices_equal_corner_indices():
