@@ -177,8 +177,40 @@ Phases, in order; any failure exits non-zero:
      tables.  Printed: the val PSNR, ms/step and (PROFILE_STEPS profiled
      steps) idle
      share of (a) and (b) side by side.
+ 13. entry points (Pillow, cv2 and sklearn blocked in this process; the
+     spawned ranks need none of them): (a) a DTU scene
+     (data/synthetic.py generate_dtu_dataset: cameras_sphere.npz, image/,
+     mask/ of DTU_VIEWS sphere-scene views at ENTRY_SIZE^2) through the CLI
+     with --data_format dtu --vis_pose at bench width, DTU_STEPS steps:
+     logged losses finite and falling, evals finite, poses.ply parsed (one
+     frustum a training view), K1-K3 launched by its training; (b) two
+     ranks on the one card (gloo), spawned as torchrun starts them (RANK,
+     LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR and a free
+     MASTER_PORT set; main's env:// init): in each, the CLI's main at
+     bench width with num_rays split over the ranks, stage 0 resumed on
+     every rank from the phase-8 field's checkpoint for DIST_STEPS steps
+     (the grid updates, the evals, the checkpoints and the S1_MCUBES^3
+     culled mesh export by rank 0 included), then stage 1 on that mesh for
+     DIST_S1_STEPS steps with one refine and the export; the first
+     stage-0 step's all-reduced gradient held against the mean of both
+     ranks' gradients computed on rank 0 (tests/test_torch_slice.py's
+     tolerances), rank 0's K1-K3 at that step and K2/K3 at the first
+     stage-1 step against their plain versions (TOL); both ranks end with
+     bit-equal parameters, grids and meshes and the same reduced losses,
+     and one set of checkpoints, meshes and the stage-1 package is
+     written; each rank's ms/step, the all-reduce's ms a step and its
+     launches (K1-K3 in stage 0, K2/K3 in stage 1) printed; (c) the
+     viewer (viewer.py) on a free port: VIEWER_FRAMES stage-0 frames of
+     the phase-4 field over HTTP with the --viewer_train thread training
+     it, each PNG decoded at the controller's size, the downscale moving,
+     K1-K3 launched, then one more frame with K1 and K2 held against
+     their plain versions at its arguments; then VIEWER_S1_FRAMES frames
+     of phase 8's stage-1 state; the round trips printed against the 500
+     ms budget; (d)
+     entry()'s forward render on the card (K1, K2), then
+     dryrun_multichip(2) (two gloo ranks on the card).
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
-phases 8's, 9's, 10's, 11's and 12's shapes.
+phases 8's, 9's, 10's, 11's, 12's and 13's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
@@ -193,7 +225,10 @@ its stage-1 training's, "outdoor"; "hard_launches": phase 12's four
 trainings' by run, "merged", "separate", "ref" and "winsort"; the C = 1
 and C = 2 instantiations, "<name>_c1" and "<name>_c2", count their
 launches in phase 12's run that reaches them: (b) for K2/K3, (c) for
-K4/K4b, (d) for K5/K6), the last line the device record.  Imports only
+K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
+"dist_launches": rank 0's in phase 13 (b), "stage0" and "stage1";
+"viewer_launches": phase 13 (c)'s stage-0 serving, frames and training),
+the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
 
@@ -293,6 +328,15 @@ HARD_WS_STEPS = 64         # phase 12 (d): separate tables, winsort_fine
 HARD_VAL = 2               # phase 12's val views (cut from 4 for the time
 #                            limit: its 8 evals of 4 views took about 55 s
 #                            of a run that passed 1200 s)
+ENTRY_SIZE = 256           # phase 13 (a), (b): the scenes' side
+DTU_VIEWS = 24             # phase 13 (a): every 8th is val (3), 21 train
+DTU_STEPS = 64             # phase 13 (a): stage-0 steps through the CLI
+DIST_STEPS = 32            # phase 13 (b): stage-0 steps on each of 2 ranks
+DIST_S1_STEPS = 8          # phase 13 (b): stage-1 steps, a refine at half
+DIST_TEXTURE = 512         # phase 13 (b): the stage-1 export's texture side
+DIST_TIMEOUT = 600         # phase 13 (b): seconds the ranks may take
+VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
+VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -1657,8 +1701,9 @@ def raster_share(trainer, ds, steps):
 def phase_stage1(dev, field, ds, val):
     """Phase 8: the phase-4 field's mesh at S1_MCUBES^3 with
     visibility culling, then stage 1 at bench width with -O's stage-1
-    recipe; returns the stage-1 training's launch counts and K2's and K3's
-    largest |err| against plain at a stage-1 step's shapes."""
+    recipe; returns the stage-1 training's launch counts, K2's and K3's
+    largest |err| against plain at a stage-1 step's shapes, and the stage-1
+    trainer (phase 13's viewer renders it)."""
     from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.meshing.io import read_ply
     from nerf2mesh_tpu_torch.utils.trainer import Trainer
@@ -1759,7 +1804,7 @@ def phase_stage1(dev, field, ds, val):
             f"seconds {esecs};"
             f" textures {shapes}; mesh v={len(v)} f={len(f)}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        return launches, errs
+        return launches, errs, t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1819,10 +1864,10 @@ def inwin_calls(calls=None, plain=False):
             setattr(se, name, fn)
 
 
-def hold_inwin(calls, label):
+def hold_inwin(calls, label, need=("inwin_fwd", "inwin_bwd")):
     """K2 and K3 against their plain versions on the arguments a path gave
     them (`calls` from inwin_calls): K2 within TOL, K3 by atomic_tol_margin.
-    Fails if either was not called.  Returns {name: max |err|}."""
+    Fails if one of `need` was not called.  Returns {name: max |err|}."""
     from nerf2mesh_tpu_torch.ops import splat_encode as se
     errs = {}
     for name, args in calls:
@@ -1844,7 +1889,7 @@ def hold_inwin(calls, label):
             raise AssertionError(f"{label}: {name} disagrees with its plain "
                                  f"version: {err}")
         errs[name] = max(errs.get(name, 0.0), err)
-    for name in ("inwin_fwd", "inwin_bwd"):
+    for name in need:
         if name not in errs:
             raise AssertionError(f"{label}: {name} was not called")
     return errs
@@ -2073,27 +2118,33 @@ def occ_calls(calls):
         sampling.occ_lookup = real
 
 
+def hold_occ(occ, label) -> float:
+    """K1 against its plain version, exactly, on the (words, idx) a path
+    gave it (`occ` from occ_calls); fails if it was not called."""
+    from nerf2mesh_tpu_torch.ops.occ_sweep import occ_lookup, occ_lookup_plain
+    if not occ:
+        raise AssertionError(f"{label}: occ_lookup was not called")
+    n_bad = sum(int((occ_lookup(w, i) != occ_lookup_plain(w, i)).sum())
+                for w, i in occ)
+    if n_bad:
+        raise AssertionError(f"{label}: occ_lookup disagrees on {n_bad} "
+                             f"cells")
+    return 0.0
+
+
 def hold_step_kernels(trainer, ds, label, ref_ms):
     """K1 (exact), K2 and K3 against their plain versions on the arguments
     one more training step gives them, and timed on the largest of each
     beside phase 3's times (ref_ms); pack_bits timed on the run's grid.
     Returns {name: max|err|}."""
     from nerf2mesh_tpu_torch.ops import splat_encode as se
-    from nerf2mesh_tpu_torch.ops.occ_sweep import (occ_lookup,
-                                                   occ_lookup_plain, pack_bits)
+    from nerf2mesh_tpu_torch.ops.occ_sweep import occ_lookup, pack_bits
     occ, calls = [], []
     with occ_calls(occ), inwin_calls(calls):
         trainer.train_steps(ds, 1)
-    if not occ:
-        raise AssertionError(f"{label}: occ_lookup was not called")
     errs = hold_inwin(calls, label)
+    errs["occ_lookup"] = hold_occ(occ, label)
     words, idx = max(occ, key=lambda c: c[1].numel())
-    n_bad = sum(int((occ_lookup(w, i) != occ_lookup_plain(w, i)).sum())
-                for w, i in occ)
-    if n_bad:
-        raise AssertionError(f"{label}: occ_lookup disagrees on {n_bad} "
-                             f"cells")
-    errs["occ_lookup"] = 0.0
     fwd = max((a for n, a in calls if n == "inwin_fwd"),
               key=lambda a: a[1].shape[0])
     bwd = max((a for n, a in calls if n == "inwin_bwd"),
@@ -2803,6 +2854,528 @@ def phase_hard(dev):
     return {k: v["launches"] for k, v in rec.items()}, errs
 
 
+# --------------------------------------------------------------------------
+# phase 13: the remaining entry points (dtu, data-parallel ranks, the
+# viewer, the entry analogue)
+# --------------------------------------------------------------------------
+
+def read_pose_ply(path):
+    """(header lines, xyz [N, 3], rgb [N, 3]) of a --vis_pose PLY."""
+    with open(path, "rb") as f:
+        data = f.read()
+    head, body = data.split(b"end_header\n", 1)
+    lines = head.decode().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("element vertex"))
+            .split()[-1])
+    rec = np.frombuffer(body, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    if len(rec) != n or len(body) != 15 * n:
+        raise AssertionError(f"{path}: {n} vertices declared, "
+                             f"{len(body)} bytes of records")
+    return lines, rec["xyz"], rec["rgb"]
+
+
+def phase_dtu(dev):
+    """Phase 13 (a): a DTU scene (cameras_sphere.npz, image/, mask/) of the
+    sphere scene's views through the CLI with --data_format dtu
+    --vis_pose at bench width; returns the training's launch counts."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.data.synthetic import generate_dtu_dataset
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_dtu_")
+    try:
+        t0 = time.perf_counter()
+        root = generate_dtu_dataset(os.path.join(tmp, "scan"), H=ENTRY_SIZE,
+                                    W=ENTRY_SIZE, n_views=DTU_VIEWS)
+        ws = os.path.join(tmp, "ws")
+        argv = cli_argv(root, ws, data_format="dtu", vis_pose=True,
+                        iters=DTU_STEPS, n_eval=1, n_ckpt=1,
+                        test_no_mesh=True, test_no_video=True)
+        log(f"[dtu] {DTU_VIEWS} views written in "
+            f"{time.perf_counter() - t0:.1f} s; main {' '.join(argv[1:])}")
+        launches = {}
+        kernels.reset_launches()
+        real = counting(Trainer, "train", launches)
+        try:
+            t0 = time.perf_counter()
+            trainer = cli_main(argv, device=dev)
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+        finally:
+            Trainer.train = real
+        tl = trainer.train_log
+        losses = [e["loss"] for e in tl]
+        results = trainer.stats["results"]
+        a, b = tl[len(tl) // 2], tl[-1]
+        ms_step = (b["seconds"] - a["seconds"]) / (b["step"] - a["step"]) * 1e3
+        lines, xyz, rgb = read_pose_ply(os.path.join(ws, "poses.ply"))
+        n_cams = int((rgb == (0, 255, 0)).all(-1).sum()) // 64
+        log(f"[dtu] main ran {t_main:.1f} s; logged losses "
+            f"{np.round(losses, 5).tolist()}; steps {a['step']}-{b['step']}:"
+            f" {ms_step:.2f} ms/step; evals {results}; poses.ply "
+            f"{len(xyz)} points ({n_cams} cameras); training launches "
+            f"{launches}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite logged loss: {losses}")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"dtu loss did not fall: {losses}")
+        if not all(math.isfinite(v) for r in results for v in r.values()):
+            raise AssertionError(f"dtu evals: {results}")
+        n_train = DTU_VIEWS - len(range(0, DTU_VIEWS, 8))
+        if n_cams != n_train or not np.isfinite(xyz).all():
+            raise AssertionError(f"poses.ply: {n_cams} cameras for "
+                                 f"{n_train} training views")
+        for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"{k} was not launched by dtu training")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def grad_error(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
+    """max |got - want|, raising outside tests/test_torch_slice.py's
+    tolerances: rtol 1e-3 with atol 1e-4 * max|want| (table) or 1e-6 *
+    max|want| (MLPs), and the table within 1e-4 in relative L2."""
+    scale = float(want.abs().max())
+    atol = (1e-4 if "table" in name else 1e-6) * scale
+    err = (got - want).abs()
+    if bool((err > atol + 1e-3 * want.abs()).any()) or (
+            "table" in name and float(err.norm()) > 1e-4 * float(
+                want.norm())):
+        raise AssertionError(f"{name}: the all-reduced gradient differs "
+                             f"from the mean of the ranks' by "
+                             f"{float(err.max())} (max |g| {scale})")
+    return float(err.max())
+
+
+@contextlib.contextmanager
+def timed_grad_reduce(cuda: bool):
+    """Within: each call of distributed.all_reduce_mean_grads appends to
+    the yielded list a function that returns the call's ms.  On the card
+    that is a pair of CUDA events on the current stream around the call
+    (the wait for the other ranks included), with no host synchronisation,
+    so the step keeps its overlap; read them after a synchronize.  On the
+    CPU it is the host clock."""
+    from nerf2mesh_tpu_torch.parallel import distributed
+    real = distributed.all_reduce_mean_grads
+    timings = []
+
+    def timed(params):
+        if cuda:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            real(params)
+            b.record()
+            timings.append(lambda: a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            real(params)
+            dt = (time.perf_counter() - t0) * 1e3
+            timings.append(lambda: dt)
+
+    distributed.all_reduce_mean_grads = timed
+    try:
+        yield timings
+    finally:
+        distributed.all_reduce_mean_grads = real
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within: kernel launches are not counted (comparisons with the plain
+    versions)."""
+    from nerf2mesh_tpu_torch import kernels
+    before = dict(kernels.LAUNCHES)
+    try:
+        yield
+    finally:
+        kernels.LAUNCHES.update(before)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ms_per_step(log_entries):
+    """ms a step between the first and the last of the logged entries
+    (train_log's)."""
+    a, b = log_entries[0], log_entries[-1]
+    return (b["seconds"] - a["seconds"]) / (b["step"] - a["step"]) * 1e3
+
+
+def _dist_rank(rank, n, port, workdir, argv0, argv1, device):
+    """One rank of phase 13 (b), started as torchrun starts one: the CLI's
+    main with argv0 (stage 0, resumed from the checkpoint in the
+    workspace), then with argv1 (stage 1).  The first stage-0 step's
+    all-reduced gradient is held against the mean of both ranks' gradients
+    computed on rank 0, and rank 0's K1-K3 at that step and K2/K3 at the
+    first stage-1 step against their plain versions; writes
+    <workdir>/rank<r>.json."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.parallel import distributed
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+
+    cuda = device == "cuda"
+    held = {"first_step_err": 0.0, "errs": {}}
+    real_step, real_s1 = Trainer.train_step, Trainer.stage1_step
+
+    def keep_errs(errs):
+        for k, v in errs.items():
+            held["errs"][k] = max(held["errs"].get(k, 0.0), v)
+
+    def first_step(self, images, poses, intr, num_rays, dyn, draws=None,
+                   **kw):
+        Trainer.train_step = real_step
+        per = num_rays // self.world
+        if draws is None:
+            draws = self.draw(per, *images.shape[:3])
+        mean = None
+        with uncounted():
+            # rank 1's draws to rank 0 (gloo broadcasts CUDA tensors)
+            theirs = {k: (v.clone() if rank == 1 else torch.empty_like(v))
+                      for k, v in draws.items()}
+            for k in sorted(theirs):
+                dist.broadcast(theirs[k], 1)
+            if rank == 0:
+                grads = []
+                for d in (draws, theirs):
+                    self.optimizer.zero_grad(set_to_none=True)
+                    loss, _ = self._loss_and_metrics(
+                        self.params, self.render, images, poses, intr, dyn,
+                        per, d, kw.get("cam_near_far"), kw.get("depth"))
+                    loss.backward()
+                    grads.append({k: (torch.zeros_like(p) if p.grad is None
+                                      else p.grad.clone())
+                                  for k, p in self.params.named_parameters()})
+                mean = {k: (grads[0][k] + grads[1][k]) / 2 for k in grads[0]}
+                del grads
+        occ, calls = [], []
+        with occ_calls(occ), inwin_calls(calls):
+            m = real_step(self, images, poses, intr, num_rays, dyn,
+                          draws=draws, **kw)
+        if rank == 0:
+            with uncounted():
+                held["first_step_err"] = max(
+                    grad_error(p.grad, mean[k], k)
+                    for k, p in self.params.named_parameters())
+                keep_errs(hold_inwin(calls, "rank 0's stage-0 step"))
+                keep_errs({"occ_lookup": hold_occ(occ,
+                                                  "rank 0's stage-0 step")})
+        return m
+
+    def first_s1_step(self, *a, **k):
+        Trainer.stage1_step = real_s1
+        calls = []
+        with inwin_calls(calls):
+            m = real_s1(self, *a, **k)
+        if rank == 0:
+            with uncounted():
+                keep_errs(hold_inwin(calls, "rank 0's stage-1 step"))
+        return m
+
+    launches0, launches1 = {}, {}
+    real_train = counting(Trainer, "train", launches0)
+    real_train1 = counting(Trainer, "train_stage1", launches1)
+    Trainer.train_step, Trainer.stage1_step = first_step, first_s1_step
+    try:
+        with no_modules("PIL", "cv2", "sklearn"), \
+                timed_grad_reduce(cuda) as reduce_ms:
+            t = cli_main(argv0, device=device)
+            n0 = len(reduce_ms)
+            t0_log, steps0 = t.train_log, t.step
+            digest0 = distributed.digest(
+                list(t.params.parameters()) + list(t.ema_params.values())
+                + [t.render.density_grid, t.render.occ_grid]).hex()
+            del t
+            t = cli_main(argv1, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        reduce_ms = [f() for f in reduce_ms]
+        refine = t.stats["refines"][0][0]
+        s1_log = [e for e in t.train_log if e["step"] >= refine]
+        res = dict(
+            rank=rank, device=str(t.device), backend=dist.get_backend(),
+            steps0=steps0, losses=[e["loss"] for e in t0_log],
+            ms_step=ms_per_step(t0_log), steps_timed=(t0_log[0]["step"],
+                                                      t0_log[-1]["step"]),
+            rays_per_s=((t0_log[-1]["rays"] - t0_log[0]["rays"])
+                        / (t0_log[-1]["seconds"] - t0_log[0]["seconds"])),
+            allreduce_ms=sum(reduce_ms[:n0]) / max(n0, 1),
+            s1_losses=[e["loss"] for e in t.train_log],
+            s1_ms_step=ms_per_step(s1_log), s1_steps=(refine, t.step),
+            s1_allreduce_ms=(sum(reduce_ms[n0:])
+                             / max(len(reduce_ms) - n0, 1)),
+            faces=[e["faces"] for e in t.train_log],
+            refines=t.stats["refines"], digest0=digest0,
+            digest1=distributed.digest(
+                list(t._named_params().values())
+                + [t.stage1_mesh.vertices, t.stage1_mesh.triangles]).hex(),
+            launches0=launches0, launches1=launches1, **held)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        Trainer.train, Trainer.train_stage1 = real_train, real_train1
+        Trainer.train_step, Trainer.stage1_step = real_step, real_s1
+        dist.destroy_process_group()
+
+
+def phase_dist(dev, field):
+    """Phase 13 (b): two ranks on the one card (gloo), spawned with
+    torchrun's environment, each running the CLI's stage 0 from the
+    phase-8 field's checkpoint and then stage 1; returns rank 0's launch
+    counts of stage 0 and stage 1 and the largest |err| of its kernel
+    holds."""
+    import torch.multiprocessing as mp
+
+    from nerf2mesh_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    workdir = tempfile.mkdtemp(prefix="n2m_chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        scene_dir = generate_synthetic_dataset(
+            os.path.join(workdir, "scene"), H=ENTRY_SIZE, W=ENTRY_SIZE,
+            n_train=24, n_val=1, n_test=1)
+        ws = os.path.join(workdir, "ws")
+        field.workspace = ws
+        field.save_checkpoint()
+        start = field.step
+        argv0 = cli_argv(scene_dir, ws, iters=start + DIST_STEPS, n_eval=1,
+                         n_ckpt=1, test_no_video=True, mcubes_reso=S1_MCUBES,
+                         mesh_visibility_culling=True)
+        argv1 = cli_argv(scene_dir, ws, stage=1, iters=DIST_S1_STEPS,
+                         n_eval=1, n_ckpt=1, refine=True, s1_shell=4,
+                         s1_stochastic=True, texture_size=DIST_TEXTURE,
+                         test_no_video=True, mcubes_reso=S1_MCUBES,
+                         mesh_visibility_culling=True) + [
+                             "--refine_steps_ratio", "0.5"]
+        log(f"[dist] scene written and the phase-8 field (step {start}) "
+            f"saved in {time.perf_counter() - t0:.1f} s; each rank runs main "
+            f"{' '.join(argv0[1:])}, then main {' '.join(argv1[1:])}")
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        port = free_port()
+        procs = [ctx.Process(target=_dist_rank,
+                             args=(r, 2, port, workdir, argv0, argv1,
+                                   dev.type))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DIST_TIMEOUT)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if alive or any(codes):
+            raise AssertionError(f"data-parallel ranks: exit codes {codes}"
+                                 f"{' (timed out)' if alive else ''}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        for r in res:
+            log(f"[dist] rank {r['rank']} on {r['device']} ({r['backend']}):"
+                f" stage 0 steps {start}-{r['steps0']}, {r['ms_step']:.2f} "
+                f"ms/step and {r['rays_per_s']:.0f} rays/s (both ranks') "
+                f"over steps {r['steps_timed']} (the logged ones), "
+                f"all-reduce {r['allreduce_ms']:.2f} ms/step; stage 1 "
+                f"{r['s1_ms_step']:.2f} ms/step over steps {r['s1_steps']} "
+                f"(after the refine), all-reduce {r['s1_allreduce_ms']:.2f}"
+                f" ms/step; logged losses {np.round(r['losses'], 5)}; "
+                f"stage-1 logged losses {np.round(r['s1_losses'], 5)}; faces"
+                f" {r['faces']}, refines {r['refines']}; launches stage 0 "
+                f"{r['launches0']}, stage 1 {r['launches1']}")
+        log(f"[dist] 2 ranks ran in {time.perf_counter() - t0:.1f} s (spawn "
+            f"included); first step: the all-reduced gradient within "
+            f"{res[0]['first_step_err']:.3g} of the mean of both ranks' "
+            f"gradients computed on rank 0; rank 0's kernels against their "
+            f"plain versions at its first steps: {res[0]['errs']}")
+        a, b = res
+        if a["digest0"] != b["digest0"] or a["digest1"] != b["digest1"]:
+            raise AssertionError("the ranks' parameters, grids or meshes "
+                                 "differ")
+        if a["losses"] != b["losses"] or a["s1_losses"] != b["s1_losses"]:
+            raise AssertionError("the ranks' reduced losses differ")
+        if len(a["refines"]) != 1 or a["refines"] != b["refines"]:
+            raise AssertionError(f"stage 1 refines: {a['refines']}, "
+                                 f"{b['refines']}")
+        if a["steps0"] != start + DIST_STEPS:
+            raise AssertionError(f"stage 0 ended at step {a['steps0']}, not "
+                                 f"{start + DIST_STEPS}: the checkpoint was "
+                                 f"not resumed")
+        for r in res:
+            for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+                if r["launches0"].get(k, 0) <= 0:
+                    raise AssertionError(f"rank {r['rank']}: {k} was not "
+                                         f"launched by stage 0")
+            for k in ("inwin_fwd", "inwin_bwd"):
+                if r["launches1"].get(k, 0) <= 0:
+                    raise AssertionError(f"rank {r['rank']}: {k} was not "
+                                         f"launched by stage 1")
+        ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+        for want in ("ngp_stage0_latest.ckpt", "ngp_stage1_latest.ckpt"):
+            if want not in ckpts:
+                raise AssertionError(f"no {want} in {ckpts}")
+        nv, nf, share = surface_share(
+            os.path.join(ws, "mesh_stage0", "mesh_0.ply"), field.cfg.scale)
+        shapes = check_stage1_package(os.path.join(ws, "mesh_stage1"), False)
+        log(f"[dist] rank 0 wrote checkpoints {ckpts}, the stage-0 mesh "
+            f"(v={nv} f={nf}, surface share {share:.3f}) and the stage-1 "
+            f"package (textures {shapes})")
+        return a["launches0"], a["launches1"], a["errs"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.headers["Content-Type"], r.read()
+
+
+def viewer_frames(viewer, n, label):
+    """n frames over HTTP along an orbit: their decoded shapes, the round
+    trip's ms each (lock waits included) and the downscale after each."""
+    from nerf2mesh_tpu_torch.data.png import decode_png
+    shapes, ms, scales = [], [], []
+    for i in range(n):
+        want = viewer.frame_shape()
+        t0 = time.perf_counter()
+        kind, png = http_get(viewer.port, f"/render?theta=1.1&phi="
+                             f"{0.3 + 0.4 * i:.2f}&radius=2.5")
+        ms.append((time.perf_counter() - t0) * 1e3)
+        img = decode_png(png)
+        if kind != "image/png" or img.shape != want + (3,) or img.std() == 0:
+            raise AssertionError(f"{label} frame {i}: {kind} {img.shape} "
+                                 f"(want {want}), std {img.std()}")
+        shapes.append(img.shape[:2])
+        scales.append(viewer.downscale)
+    return shapes, ms, scales
+
+
+def phase_viewer(dev, field, ds, val, t1):
+    """Phase 13 (c): the viewer over HTTP: VIEWER_FRAMES stage-0 frames of
+    the phase-4 field with --viewer_train's thread training it, then
+    VIEWER_S1_FRAMES frames of phase 8's stage-1 state; returns the launch
+    counts of the stage-0 serving (frames and training) and the largest
+    |err| of K1 and K2 against their plain versions at one more stage-0
+    frame's arguments."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.viewer import ViewerServer
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_viewer_")
+    try:
+        field.workspace = tmp
+        step0 = field.step
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        v = ViewerServer(field, val, port=0, train_dataset=ds,
+                         host="127.0.0.1")
+        v.start()
+        try:
+            _, page = http_get(v.port, "/")
+            if b"/render" not in page:
+                raise AssertionError("the viewer's page")
+            shapes, ms, scales = viewer_frames(v, VIEWER_FRAMES, "stage-0")
+            status = json.loads(http_get(v.port, "/status")[1])
+        finally:
+            v.close()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"[viewer] stage 0: {VIEWER_FRAMES} frames, shapes {shapes}, "
+            f"downscale after each {scales}, "
+            f"round trips {np.round(ms, 1).tolist()} ms (budget "
+            f"{v.budget_ms:.0f} ms; median {np.median(ms):.1f}); training "
+            f"thread {step0} -> {field.step} steps, status {status}; "
+            f"launches {launches}")
+        if v.train_error is not None:
+            raise AssertionError(f"viewer training: {v.train_error}")
+        if set(scales) == {4}:
+            raise AssertionError(f"the downscale did not move: {scales}")
+        if field.step <= step0 or not os.path.exists(os.path.join(
+                tmp, "checkpoints", "ngp_stage0_latest.ckpt")):
+            raise AssertionError("the viewer's training thread did not run")
+        for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} was not launched by the viewer")
+        occ, calls = [], []
+        with occ_calls(occ), inwin_calls(calls):
+            v.render_frame(1.1, 0.3, 2.5)
+        errs = hold_inwin(calls, "a viewer frame", need=("inwin_fwd",))
+        errs["occ_lookup"] = hold_occ(occ, "a viewer frame")
+
+        v1 = ViewerServer(t1, val, port=0, host="127.0.0.1")
+        v1.start()
+        try:
+            shapes1, ms1, _ = viewer_frames(v1, VIEWER_S1_FRAMES, "stage-1")
+        finally:
+            v1.close()
+        log(f"[viewer] stage 1: {VIEWER_S1_FRAMES} frames, shapes {shapes1},"
+            f" round trips {np.round(ms1, 1).tolist()} ms")
+        return launches, errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_entry(dev):
+    """Phase 13 (d): entry()'s forward render on the card, then
+    dryrun_multichip(2) (two gloo ranks on the card)."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.entry import dryrun_multichip, entry
+    fn, args = entry(dev)
+    kernels.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if [tuple(o.shape) for o in out] != [(256, 3), (256,), (256,)] or not \
+            all(bool(torch.isfinite(o).all()) for o in out):
+        raise AssertionError(f"entry(): {[o.shape for o in out]}")
+    if launches.get("occ_lookup", 0) <= 0 or launches.get("inwin_fwd",
+                                                          0) <= 0:
+        raise AssertionError(f"entry() launches {launches}")
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, device=dev.type)
+    log(f"[entry] entry() on {out[0].device}: image mean "
+        f"{float(out[0].mean()):.4f}, launches {launches}; "
+        f"dryrun_multichip(2) in {time.perf_counter() - t0:.1f} s: {res}")
+    for k in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+        if res["launches"].get(k, 0) <= 0:
+            raise AssertionError(f"dryrun_multichip: {k} not launched")
+
+
+def phase_entry_points(dev, field, ds, val, t1):
+    """Phase 13, with Pillow, cv2 and sklearn blocked: (a)-(d); returns
+    the launch counts of (a), (b) (stage 0 and 1) and (c), and the largest
+    |err| of the kernel holds of (b) and (c)."""
+    t0 = time.perf_counter()
+    dtu = phase_dtu(dev)
+    log(f"[time] 13 (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist0, dist1, dist_errs = phase_dist(dev, field)
+    log(f"[time] 13 (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    viewer, viewer_errs = phase_viewer(dev, field, ds, val, t1)
+    log(f"[time] 13 (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_entry(dev)
+    log(f"[time] 13 (d) {time.perf_counter() - t0:.1f} s")
+    errs = {k: max(e.get(k, 0.0) for e in (dist_errs, viewer_errs))
+            for k in set(dist_errs) | set(viewer_errs)}
+    return dtu, {"stage0": dist0, "stage1": dist1}, viewer, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2824,8 +3397,7 @@ def main() -> int:
     with no_modules():
         cli_launches = phase_cli(dev)
         lap("phase 7")
-        s1_launches, s1_errs = phase_stage1(dev, field, ds, val)
-    del field
+        s1_launches, s1_errs, s1_trainer = phase_stage1(dev, field, ds, val)
     lap("phase 8")
     sdf_launches, sdf_errs = phase_sdf(dev)
     lap("phase 9")
@@ -2839,11 +3411,16 @@ def main() -> int:
     lap("phase 11")
     hard_launches, hard_errs = phase_hard(dev)
     lap("phase 12")
+    with no_modules("PIL", "cv2", "sklearn"):
+        (dtu_launches, dist_launches, viewer_launches,
+         entry_errs) = phase_entry_points(dev, field, ds, val, s1_trainer)
+    del field, s1_trainer
+    lap("phase 13")
     for r in results:
         # the largest error over phase 3 and the paths' own shapes
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs, cap_errs,
-                                   hard_errs)
+                                   hard_errs, entry_errs)
             if r["name"] in e])
         # the C = 1 and 2 instantiations' path is phase 12's run that
         # reaches them
@@ -2869,12 +3446,16 @@ def main() -> int:
                                          for k, v in cap_s1_launches.items()}
         r["hard_launches"] = {k: v.get(r["name"], 0)
                               for k, v in hard_launches.items()}
+        r["dtu_launches"] = dtu_launches.get(r["name"], 0)
+        r["dist_launches"] = {k: v.get(r["name"], 0)
+                              for k, v in dist_launches.items()}
+        r["viewer_launches"] = viewer_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
             "captures_launches", "captures_stage1_launches", "hard_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "dtu_launches", "dist_launches", "viewer_launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -15,8 +15,11 @@ stage-0 mesh export, stage 1 through a PyTorch rasterizer and the textured
 export, on the block512 and the small ref tables, merged or separate (the
 encode kernels at 1, 2 and 3 channels); SDF mode; COLMAP captures,
 cascades and contraction; JPEG input and depth supervision; the SH and
-frequency encoders.  Not yet ported (ROADMAP queue A): orbax checkpoints,
-progressive JPEG, dtu, ``--vis_pose`` and multi-device.
+frequency encoders; the dtu format and the single transforms.json,
+``--vis_pose``, data-parallel training over torch.distributed ranks
+(``parallel/distributed.py``), the HTTP viewer (``viewer.py``), the entry
+analogue (``entry.py``) and the recipes (``scripts/``).  Not yet ported
+(ROADMAP queue A): orbax checkpoints and progressive JPEG.
 """
 
 __version__ = "0.1.0"

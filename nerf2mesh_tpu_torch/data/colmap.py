@@ -39,40 +39,8 @@ from .jpeg import read_jpeg
 from .png import read_image
 from .provider import Dataset
 from .ransac import ransac_line
-from .rays import make_projection
+from .rays import make_projection, slerp
 from .resize import resize_bicubic, resize_linear
-
-
-def _quat(R: np.ndarray) -> np.ndarray:
-    """Unit quaternion (x, y, z, w) of a rotation matrix, w >= 0."""
-    tr = np.trace(R)
-    i = int(np.argmax([R[0, 0], R[1, 1], R[2, 2], tr]))
-    if i == 3:
-        q = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
-                      R[1, 0] - R[0, 1], 1 + tr])
-    else:
-        j, k = (i + 1) % 3, (i + 2) % 3
-        q = np.empty(4)
-        q[i] = 1 - tr + 2 * R[i, i]
-        q[j] = R[j, i] + R[i, j]
-        q[k] = R[k, i] + R[i, k]
-        q[3] = R[k, j] - R[j, k]
-    q /= np.linalg.norm(q)
-    return -q if q[3] < 0 else q
-
-
-def _slerp(R0: np.ndarray, R1: np.ndarray, t: float) -> np.ndarray:
-    """The rotation a fraction t of the way from R0 to R1 along the
-    shortest arc (scipy's Slerp, in numpy)."""
-    q = _quat(R0.T @ R1)
-    s = np.linalg.norm(q[:3])
-    angle = 2 * np.arctan2(s, q[3])
-    if s < 1e-12:
-        return np.array(R0, dtype=np.float64)
-    k = q[:3] / s
-    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-    a = t * angle
-    return R0 @ (np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K)
 
 
 def rotmat_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -161,7 +129,7 @@ def _test_trajectory(cfg: Config, poses: np.ndarray, n_test: int):
             for i in range(n_test + 1):
                 ratio = np.sin(((i / n_test) - 0.5) * np.pi) * 0.5 + 0.5
                 pose = np.eye(4)
-                pose[:3, :3] = _slerp(p0[:3, :3], p1[:3, :3], ratio)
+                pose[:3, :3] = slerp(p0[:3, :3], p1[:3, :3], ratio)
                 pose[:3, 3] = (1 - ratio) * p0[:3, 3] + ratio * p1[:3, 3]
                 traj.append(pose)
             p0 = p1

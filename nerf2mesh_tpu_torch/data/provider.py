@@ -10,10 +10,13 @@ the splits train, val, test, trainval (train + val) and all (every
 transforms_*.json); ``downscale`` divides the json's size and focal
 lengths, and a frame of another size is resized to it with cv2's
 INTER_AREA filter (data/resize.py), as JAX's reader does where cv2
-imports.  ``dataset_from_frames`` builds the identical Dataset from
-in-memory frames (data/synthetic.py).  The COLMAP reader is
-data/colmap.py.  Not ported yet (NotImplementedError, ROADMAP A7): the
-colmap-style single transforms.json and the dtu format.
+imports.  A directory with a single ``transforms.json`` (what
+colmap2nerf.py writes) is read in the reference's "colmap" mode: train is
+every frame but the first, val the first, trainval and all every frame,
+and test the 11-pose slerp between two frames (no images).
+``dataset_from_frames`` builds the identical Dataset from in-memory frames
+(data/synthetic.py).  The COLMAP reader is data/colmap.py, the DTU reader
+data/dtu.py.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 
 from ..config import Config
 from .png import read_image
-from .rays import make_mvps, make_projection, nerf_matrix_to_ngp
+from .rays import make_mvps, make_projection, nerf_matrix_to_ngp, slerp
 from .resize import resize_area
 
 
@@ -85,21 +88,42 @@ def _intrinsics(transform: dict, H: int, W: int, downscale: int = 1):
     return fl_x, fl_y, cx, cy
 
 
-def _finish(cfg: Config, poses: List[np.ndarray], images: List[np.ndarray],
-            transform: dict, split: str, downscale: int = 1) -> Dataset:
-    """Shared tail of both constructors (intrinsics + MVPs)."""
-    scale = 1.0 if cfg.scale == -1 else cfg.scale
-    poses_arr = np.stack([nerf_matrix_to_ngp(p, scale, cfg.offset)
-                          for p in poses]).astype(np.float32)
-    images_arr = np.stack(images).astype(np.uint8)
-    H, W = images_arr.shape[1], images_arr.shape[2]
+def _finish(cfg: Config, poses: np.ndarray, images: Optional[np.ndarray],
+            transform: dict, split: str, H: int, W: int,
+            downscale: int = 1) -> Dataset:
+    """Shared tail of the constructors (intrinsics + MVPs); poses are
+    already in the scene's frame (nerf_matrix_to_ngp)."""
+    poses_arr = np.asarray(poses, np.float32)
     fl_x, fl_y, cx, cy = _intrinsics(transform, H, W, downscale)
     intrinsics = np.array([fl_x, fl_y, cx, cy], np.float32)
     projection = make_projection(H, W, fl_y, cfg.min_near)
     return Dataset(
-        poses=poses_arr, images=images_arr, intrinsics=intrinsics, H=H, W=W,
+        poses=poses_arr, images=images, intrinsics=intrinsics, H=H, W=W,
         projection=projection, mvps=make_mvps(projection, poses_arr),
         training=split in ("train", "all", "trainval"))
+
+
+def _to_ngp(cfg: Config, pose) -> np.ndarray:
+    scale = 1.0 if cfg.scale == -1 else cfg.scale
+    return nerf_matrix_to_ngp(np.array(pose, np.float32), scale, cfg.offset)
+
+
+def _slerp_trajectory(cfg: Config, frames: list, n_test: int) -> np.ndarray:
+    """The single transforms.json's test path: n_test + 1 poses from one
+    frame to another (both drawn by default_rng(0)), eased by a sine (JAX
+    provider.py:118-128)."""
+    rng = np.random.default_rng(0)
+    f0, f1 = rng.choice(len(frames), 2, replace=False)
+    p0 = _to_ngp(cfg, frames[f0]["transform_matrix"])
+    p1 = _to_ngp(cfg, frames[f1]["transform_matrix"])
+    poses = []
+    for i in range(n_test + 1):
+        ratio = np.sin(((i / n_test) - 0.5) * np.pi) * 0.5 + 0.5
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = slerp(p0[:3, :3], p1[:3, :3], ratio)
+        pose[:3, 3] = (1 - ratio) * p0[:3, 3] + ratio * p1[:3, 3]
+        poses.append(pose)
+    return np.stack(poses)
 
 
 def _read_transforms(root: str, split: str) -> dict:
@@ -124,25 +148,37 @@ def _read_transforms(root: str, split: str) -> dict:
     return transform
 
 
-def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
-    """Load one split of a nerf-synthetic / blender directory."""
+def load_nerf_dataset(cfg: Config, split: str = "train",
+                      n_test: int = 10) -> Dataset:
+    """Load one split of a nerf-synthetic / blender directory, or of a
+    single transforms.json (see the module docstring)."""
     root = cfg.path
     downscale = cfg.downscale
-    if os.path.exists(os.path.join(root, "transforms.json")):
-        raise NotImplementedError(
-            f"{root}: the colmap-style single transforms.json is not ported "
-            "yet (ROADMAP A7)")
-    if not os.path.exists(os.path.join(root, "transforms_train.json")):
-        raise NotImplementedError(
-            f"{root}: no transforms_train.json; only the blender format is "
-            "ported (colmap/dtu: ROADMAP A7)")
-    transform = _read_transforms(root, split)
+    single = os.path.exists(os.path.join(root, "transforms.json"))
+    if single:
+        with open(os.path.join(root, "transforms.json")) as f:
+            transform = json.load(f)
+    elif os.path.exists(os.path.join(root, "transforms_train.json")):
+        transform = _read_transforms(root, split)
+    else:
+        raise FileNotFoundError(f"no transforms*.json under {root}")
     H = int(transform["h"]) // downscale if "h" in transform else None
     W = int(transform["w"]) // downscale if "w" in transform else None
+    frames = transform["frames"]
+    if single and split == "test":
+        poses = _slerp_trajectory(cfg, frames, n_test)
+        if H is None:
+            img = read_image(os.path.join(root, frames[0]["file_path"]))
+            H, W = img.shape[0] // downscale, img.shape[1] // downscale
+        return _finish(cfg, poses, None, transform, split, H, W, downscale)
+    if single and split == "train":
+        frames = frames[1:]
+    elif single and split == "val":
+        frames = frames[:1]
     poses, images = [], []
-    for fr in transform["frames"]:
+    for fr in frames:
         f_path = os.path.join(root, fr["file_path"])
-        if "." not in os.path.basename(f_path):
+        if not single and "." not in os.path.basename(f_path):
             f_path += ".png"
         if not os.path.exists(f_path):
             continue
@@ -159,14 +195,18 @@ def load_nerf_dataset(cfg: Config, split: str = "train") -> Dataset:
             img = np.concatenate([img[..., :3], mask[..., :1]], axis=-1)
         if img.shape[0] != H or img.shape[1] != W:
             img = resize_area(img, W, H)
-        poses.append(np.array(fr["transform_matrix"], np.float32))
+        poses.append(_to_ngp(cfg, fr["transform_matrix"]))
         images.append(img)
-    return _finish(cfg, poses, images, transform, split, downscale)
+    images = np.stack(images).astype(np.uint8)
+    return _finish(cfg, np.stack(poses), images, transform, split,
+                   images.shape[1], images.shape[2], downscale)
 
 
 def dataset_from_frames(cfg: Config, frames: dict, split: str = "train") -> Dataset:
     """The Dataset load_nerf_dataset would build from the directory that
     generate_synthetic_dataset writes; frames = render_synthetic_frames()."""
     fr = frames[split]
-    return _finish(cfg, list(fr["poses"]), list(fr["images"]),
-                   {"camera_angle_x": fr["camera_angle_x"]}, split)
+    images = np.stack(fr["images"]).astype(np.uint8)
+    return _finish(cfg, np.stack([_to_ngp(cfg, p) for p in fr["poses"]]),
+                   images, {"camera_angle_x": fr["camera_angle_x"]}, split,
+                   images.shape[1], images.shape[2])

@@ -107,3 +107,36 @@ def orbit_pose(theta: float, phi: float, radius: float) -> np.ndarray:
     pose[:3, :3] = np.stack((right, up, backward), axis=-1)
     pose[:3, 3] = center
     return pose
+
+
+def _quat(R: np.ndarray) -> np.ndarray:
+    """Unit quaternion (x, y, z, w) of a rotation matrix, w >= 0."""
+    tr = np.trace(R)
+    i = int(np.argmax([R[0, 0], R[1, 1], R[2, 2], tr]))
+    if i == 3:
+        q = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                      R[1, 0] - R[0, 1], 1 + tr])
+    else:
+        j, k = (i + 1) % 3, (i + 2) % 3
+        q = np.empty(4)
+        q[i] = 1 - tr + 2 * R[i, i]
+        q[j] = R[j, i] + R[i, j]
+        q[k] = R[k, i] + R[i, k]
+        q[3] = R[k, j] - R[j, k]
+    q /= np.linalg.norm(q)
+    return -q if q[3] < 0 else q
+
+
+def slerp(R0: np.ndarray, R1: np.ndarray, t: float) -> np.ndarray:
+    """The rotation a fraction t of the way from R0 to R1 along the
+    shortest arc (scipy's Slerp, in numpy, in float64 as scipy works)."""
+    R0, R1 = np.asarray(R0, np.float64), np.asarray(R1, np.float64)
+    q = _quat(R0.T @ R1)
+    s = np.linalg.norm(q[:3])
+    angle = 2 * np.arctan2(s, q[3])
+    if s < 1e-12:
+        return np.array(R0, dtype=np.float64)
+    k = q[:3] / s
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    a = t * angle
+    return R0 @ (np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K)

@@ -351,6 +351,45 @@ def generate_synthetic_dataset(root: str,
     return root
 
 
+# the DTU reader's axis rectification (data/dtu.py): final rotation =
+# _DTU_ROWS @ R_cv @ _DTU_COLS, final position = _DTU_ROWS @ center
+_DTU_ROWS = np.array([[0, 1, 0], [1, 0, 0], [0, 0, -1]], np.float64)
+_DTU_COLS = np.diag([1.0, -1.0, -1.0])
+
+
+def generate_dtu_dataset(root: str,
+                         scene: SphereScene | HardScene | None = None,
+                         H: int = 64, W: int = 64, n_views: int = 16,
+                         **kw) -> str:
+    """Write a DTU-format dataset (cameras_sphere.npz, image/%03d.png RGB,
+    mask/%03d.png the alpha) of the train views render_synthetic_frames
+    draws (its keywords in kw).  The world matrices K[R|t] invert the DTU
+    reader's decomposition and rectification, so data/dtu.py loads the
+    poses and intrinsics that the blender reader gives for the same frames
+    (scale matrices are the identity).  Returns root."""
+    fr = render_synthetic_frames(scene, H=H, W=W, n_train=n_views, n_val=0,
+                                 n_test=0, **kw)["train"]
+    fl = W / (2 * np.tan(fr["camera_angle_x"] / 2))
+    K = np.array([[fl, 0, W / 2], [0, fl, H / 2], [0, 0, 1]])
+    os.makedirs(os.path.join(root, "image"), exist_ok=True)
+    os.makedirs(os.path.join(root, "mask"), exist_ok=True)
+    cams = {}
+    for i, (img, pose) in enumerate(zip(fr["images"], fr["poses"])):
+        pose = np.asarray(pose, np.float64)
+        r_c2w = _DTU_ROWS.T @ pose[:3, :3] @ _DTU_COLS
+        center = _DTU_ROWS.T @ pose[:3, 3]
+        world = np.eye(4)
+        world[:3] = K @ np.concatenate(
+            [r_c2w.T, -(r_c2w.T @ center)[:, None]], 1)
+        cams[f"world_mat_{i}"], cams[f"scale_mat_{i}"] = world, np.eye(4)
+        write_image(os.path.join(root, "image", f"{i:03d}.png"),
+                    np.ascontiguousarray(img[..., :3]))
+        write_image(os.path.join(root, "mask", f"{i:03d}.png"),
+                    np.ascontiguousarray(img[..., 3]))
+    np.savez(os.path.join(root, "cameras_sphere.npz"), **cams)
+    return root
+
+
 def generate_colmap_dataset(
     root: str,
     scene: SphereScene | None = None,

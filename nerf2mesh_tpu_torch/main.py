@@ -3,7 +3,10 @@
 Usage:  python -m nerf2mesh_tpu_torch.main <data dir> [flags of config.py]
 
 The data dir is a blender scene (transforms_{split}.json; --downscale and
-the trainval/all splits resize the frames), or a COLMAP capture under
+the trainval/all splits resize the frames) or a single transforms.json
+(colmap2nerf.py's: every frame but the first trains, the first validates),
+a DTU scene under --data_format dtu (cameras_sphere.npz, image/, mask/),
+or a COLMAP capture under
 --data_format colmap (sparse/0/*.bin + images/, PNG or JPEG frames; with
 --enable_sparse_depth or --enable_dense_depth, depths/*.npy, depth
 supervision): then the ray box shrinks to the sparse points' box before
@@ -25,18 +28,60 @@ with --test it evaluates the loaded stage-1 state.  The command line exits
 non-zero when there is no card; from Python, ``main(argv, device="cpu")``
 runs on the CPU.
 
-Not ported yet (NotImplementedError naming the ROADMAP item, raised before
-any work): the dtu provider and more than one device (A7); --vis_pose (A7)
-raises once the datasets are loaded, and orbax checkpoints (A6) when one
-is written or read.
+--vis_pose writes the cameras, the box and a capture's sparse points to
+<workspace>/poses.ply (utils/vis_pose.py) before training.
+
+Data parallelism: under ``torchrun --nproc_per_node N -m
+nerf2mesh_tpu_torch.main ...`` (WORLD_SIZE > 1) every rank trains its
+share of each step's rays or crops (parallel/distributed.py picks the
+backend and the rank's card), and rank 0 alone writes.  --mesh_shape is
+JAX's device mesh: -1 (the default) takes every rank the launcher started,
+and any other value must equal their number.
+
+Not ported yet: orbax checkpoints (NotImplementedError naming ROADMAP A6
+when one is written or read).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import List, Optional
 
 import numpy as np
+
+
+def dataset_loader(cfg):
+    """The provider of cfg.data_format (nerf, colmap or dtu)."""
+    if cfg.data_format == "colmap":
+        from .data.colmap import load_colmap_dataset
+        return load_colmap_dataset
+    if cfg.data_format == "dtu":
+        from .data.dtu import load_dtu_dataset
+        return load_dtu_dataset
+    if cfg.data_format == "nerf":
+        from .data.provider import load_nerf_dataset
+        return load_nerf_dataset
+    raise ValueError(f"unknown --data_format {cfg.data_format!r}")
+
+
+def check_mesh_shape(mesh_shape, world: int) -> None:
+    """--mesh_shape against the ranks the launcher started: (-1,) takes
+    them all, any other shape must hold exactly `world` devices."""
+    if tuple(mesh_shape) == (-1,):
+        return
+    want = int(np.prod(mesh_shape))
+    if want == world:
+        return
+    if world == 1:
+        raise ValueError(
+            f"--mesh_shape {' '.join(map(str, mesh_shape))} asks for {want} "
+            f"devices but this process is one rank; launch one rank a "
+            f"device: torchrun --nproc_per_node {want} -m "
+            f"nerf2mesh_tpu_torch.main ...")
+    raise ValueError(f"--mesh_shape {' '.join(map(str, mesh_shape))} asks "
+                     f"for {want} devices but the launcher started {world} "
+                     f"ranks")
 
 
 def main(argv: Optional[List[str]] = None, device=None):
@@ -44,28 +89,23 @@ def main(argv: Optional[List[str]] = None, device=None):
     import torch
 
     from .config import parse_args
+    from .parallel import distributed
     from .utils.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
     from .utils.trainer import Trainer
 
     cfg = parse_args(argv)
+    if device is None and not torch.cuda.is_available():
+        raise SystemExit(
+            "nerf2mesh_tpu_torch.main: no CUDA device found; the port "
+            "runs on the card (from Python, main(argv, device='cpu') "
+            "runs it on the CPU)")
+    if (int(os.environ.get("WORLD_SIZE", "1")) > 1
+            and not distributed.is_initialized()):
+        device = distributed.init_distributed(device)
+    check_mesh_shape(cfg.mesh_shape, distributed.world_size())
     if device is None:
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                "nerf2mesh_tpu_torch.main: no CUDA device found; the port "
-                "runs on the card (from Python, main(argv, device='cpu') "
-                "runs it on the CPU)")
         device = "cuda:0"
-    if cfg.data_format == "colmap":
-        from .data.colmap import load_colmap_dataset as load_dataset
-    elif cfg.data_format == "nerf":
-        from .data.provider import load_nerf_dataset as load_dataset
-    else:
-        raise NotImplementedError(f"the {cfg.data_format} provider is not "
-                                  "ported yet (ROADMAP A7)")
-    if any(int(n) > 1 for n in cfg.mesh_shape):
-        raise NotImplementedError(
-            f"mesh_shape {cfg.mesh_shape}: multi-device training is not "
-            "ported yet (ROADMAP A7); the port runs on one device")
+    load_dataset = dataset_loader(cfg)
 
     np.random.seed(cfg.seed)
     trainer = Trainer(cfg, device=device)
@@ -104,8 +144,11 @@ def main(argv: Optional[List[str]] = None, device=None):
     if train_ds is None:
         train_ds = load_dataset(cfg, split=cfg.train_split)
     valid_ds = load_dataset(cfg, split="val")
-    if cfg.vis_pose:
-        raise NotImplementedError("--vis_pose is not ported yet (ROADMAP A7)")
+    if cfg.vis_pose and trainer.rank == 0:
+        from .utils.vis_pose import write_pose_vis
+        path = write_pose_vis(trainer.workspace, train_ds.poses, cfg.bound,
+                              points=train_ds.pts3d)
+        trainer.log(f"[INFO] --vis_pose wrote {path}")
     if cfg.data_format == "colmap":
         trainer.update_aabb(train_ds.pts_aabb)
 

@@ -425,11 +425,14 @@ def offsets_loss(offsets, v_inner, bound: float, v_real=None):
 
 def refine_and_decimate(mesh: Stage1Mesh, offsets: np.ndarray,
                         errors: np.ndarray, counts: np.ndarray, cfg,
-                        workspace: str, max_faces: int = 0) -> Stage1Mesh:
+                        workspace: Optional[str],
+                        max_faces: int = 0) -> Stage1Mesh:
     """Percentile-driven decimate (error < p50) / subdivide (error > p90)
     of the inner mesh within the face budget (retrying with a smaller
     subdivide set, then without the remesh, then decimating back); writes
-    mesh_{cas}_updated.ply and returns the rebuilt topology."""
+    mesh_{cas}_updated.ply under <workspace>/mesh_stage0 (nothing when
+    workspace is None: a data-parallel rank other than 0) and returns the
+    rebuilt topology."""
     from ..meshing import meshops
     from ..meshing.io import write_ply
 
@@ -459,8 +462,10 @@ def refine_and_decimate(mesh: Stage1Mesh, offsets: np.ndarray,
         sub_ids = np.where(mask == 2)[0]
         sub_ids_sorted = sub_ids[np.argsort(err[sub_ids])[::-1]]
 
-    out_dir = os.path.join(workspace, "mesh_stage0")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = None
+    if workspace is not None:
+        out_dir = os.path.join(workspace, "mesh_stage0")
+        os.makedirs(out_dir, exist_ok=True)
 
     cascades = len(mesh.v_cumsum) - 1
     verts, tris = [], []
@@ -502,7 +507,9 @@ def refine_and_decimate(mesh: Stage1Mesh, offsets: np.ndarray,
                       f"the raster budget {inner_budget}; decimating back")
                 cv, cf = meshops.decimate_mesh(
                     cv, cf, target=int(inner_budget * 0.95))
-        write_ply(os.path.join(out_dir, f"mesh_{cas}_updated.ply"), cv, cf)
+        if out_dir is not None:
+            write_ply(os.path.join(out_dir, f"mesh_{cas}_updated.ply"), cv,
+                      cf)
         verts.append(cv)
         tris.append(cf + v_cumsum[-1])
         v_cumsum.append(v_cumsum[-1] + len(cv))

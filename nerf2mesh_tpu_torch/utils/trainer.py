@@ -54,16 +54,28 @@ ground truth linear (nothing converts back, as in JAX);
 its slab loss; ``ind_dim`` > 0 gives each view a code that trains at a
 tenth of the lr.
 
+Data parallelism (parallel/distributed.py): in a process group of n > 1
+ranks each rank draws num_rays // n rays (stage 1: its own image and crop)
+from generators seeded by its rank (rank 0's are the single-device ones),
+pools pool_size // n points, and the ranks average their gradients and
+reduce the metrics before Adam, the EMA and the probes, as JAX's shard_map
+steps do; the grid generator is the same on every rank, so the ranks stay
+bit-equal.  Stage 1's face errors are summed over the ranks before every
+refine, and each rank checks that it holds the same mesh
+after the snap and each refine.  Rank 0 alone logs and writes checkpoints,
+eval images, videos and meshes while the others wait at a barrier; every
+rank loads a checkpoint.
+
 The trainer runs on the card unless the caller asks for another device.
 
-Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6 (f));
-multi-device training (A7).
+Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6 (f)).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
 import pickle
 import time
@@ -82,6 +94,7 @@ from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
                                render_eval_segment, render_frame_queue,
                                render_train, update_density_grid)
 from ..ops.hashgrid import hashgrid_tv_loss
+from ..parallel import distributed
 from .convert import (flatten_params, param_label, params_to_numpy,
                       read_jax_checkpoint, render_state_from_jax)
 from .losses import CRITERIA
@@ -185,13 +198,41 @@ class StepDynamics(NamedTuple):
     lambda_entropy: float
 
 
+# the generators of rank r > 0 start from cfg.seed + RANK_SEED_STRIDE * r
+RANK_SEED_STRIDE = 1_000_003
+
+
+def _rank0_only(method):
+    """In a process group of more than one rank, run `method` on rank 0
+    alone while the other ranks wait at a barrier after it (they return
+    None).  Calls nested inside such a call run directly."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.world == 1 or self._rank0_depth:
+            return method(self, *args, **kwargs)
+        out = None
+        if self.rank == 0:
+            self._rank0_depth += 1
+            try:
+                out = method(self, *args, **kwargs)
+            finally:
+                self._rank0_depth -= 1
+        distributed.barrier()
+        return out
+    return run
+
+
 class Trainer:
     def __init__(self, cfg: Config, device: Optional[torch.device] = None,
                  workspace: Optional[str] = None):
         """device: default the current CUDA card (RuntimeError without
         one); pass "cpu" to run on the CPU.  workspace: default
-        cfg.workspace; checkpoints, eval images and videos go there."""
+        cfg.workspace; checkpoints, eval images and videos go there.  In a
+        process group (parallel/distributed.py) the trainer is one rank of
+        a data-parallel run: pass the device init_distributed returned."""
         self.cfg = cfg
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        self._rank0_depth = 0
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -215,6 +256,7 @@ class Trainer:
         # parameters are drawn on the CPU so every device starts identical
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.params = NeRFField(self.net_spec, init_gen).to(self.device)
+        distributed.broadcast_params(self.params.parameters())
         self.optimizer, self.lr_scheduler = make_optimizer(
             cfg, *split_slow(self.params))
         # the EMA weights live in a second field (eval renders from it);
@@ -224,7 +266,9 @@ class Trainer:
         self.ema_count = 0
         self.render = init_render_state(self.render_spec, self.device)
         self.step = 0
-        self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        # the ray and crop draws differ by rank; the grid's noise does not
+        self.generator = torch.Generator(self.device).manual_seed(
+            self._rank_seed())
         self.grid_generator = torch.Generator(self.device).manual_seed(
             cfg.seed ^ 0x5EED)
         self.num_rays = cfg.num_rays
@@ -259,10 +303,14 @@ class Trainer:
         self.stage1_mesh = None
         self._s1_real_shape = None
         self._vert_horizon: Optional[int] = None
-        self.host_generator = torch.Generator().manual_seed(cfg.seed)
+        self.host_generator = torch.Generator().manual_seed(self._rank_seed())
+
+    def _rank_seed(self, step: int = 0) -> int:
+        return self.cfg.seed + RANK_SEED_STRIDE * self.rank + step
 
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
+        if self.rank == 0:
+            print(msg, flush=True)
 
     def update_aabb(self, aabb: np.ndarray) -> None:
         """Shrink the ray box to aabb [6] (a colmap dataset's pts_aabb),
@@ -387,8 +435,11 @@ class Trainer:
         else:
             gt_mask, gt_rgb = None, gt_raw
 
+        # each rank pools its share of the point budget (JAX
+        # trainer.py:499-505)
         pool = (None if self.pool_size is None
-                else min(max(128, self.pool_size), num_rays * rspec.num_fine))
+                else min(max(128, self.pool_size // self.world),
+                         num_rays * rspec.num_fine))
         out = render_train(
             params, render.occ_grid, rays["rays_o"], rays["rays_d"], bg,
             draws["u"], rspec, nspec, full_flag=dyn.full_shading,
@@ -485,14 +536,17 @@ class Trainer:
                    draws: Optional[Dict[str, torch.Tensor]] = None,
                    cam_near_far: Optional[torch.Tensor] = None, depth=None):
         """One optimizer step; returns the step's metrics (device tensors).
-        depth: see _loss_and_metrics."""
+        depth: see _loss_and_metrics.  Over n > 1 ranks this rank draws
+        num_rays // n rays (draws, when given, are this rank's), and the
+        gradients and the metrics are reduced over the ranks before Adam."""
+        per_rank = num_rays // self.world
         if draws is None:
             B, H, W, _ = images_u8.shape
-            draws = self.draw(num_rays, B, H, W)
+            draws = self.draw(per_rank, B, H, W)
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self._loss_and_metrics(
             self.params, self.render, images_u8, poses, intrinsics, dyn,
-            num_rays, draws, cam_near_far, depth)
+            per_rank, draws, cam_near_far, depth)
         loss.backward()
         # a parameter outside this step's graph (the specular head during the
         # diffuse warmup) gets a zero gradient, as JAX's value_and_grad gives
@@ -500,6 +554,9 @@ class Trainer:
         for p in self.params.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.world > 1:
+            distributed.all_reduce_mean_grads(self.params.parameters())
+            metrics = distributed.reduce_metrics(metrics)
         self.optimizer.step()
         self.lr_scheduler.step()
 
@@ -539,6 +596,9 @@ class Trainer:
             loss = sdf_pretrain_loss(self.params, x, self.net_spec)
             loss.backward()
             opt.step()
+        # the ranks' fits differ in the last bits (the table gradient's
+        # atomics): every rank takes rank 0's
+        distributed.broadcast_params(self.params.parameters())
         with torch.no_grad():
             for k, p in self.params.named_parameters():
                 self.ema_params[k].copy_(p)
@@ -934,7 +994,10 @@ class Trainer:
                     draws: Optional[Dict[str, object]] = None):
         """One stage-1 optimizer step (no EMA: the reference keeps none in
         stage 1); accumulates per-face errors and pixel counts from the
-        winning triangle ids.  Returns the metrics (device tensors)."""
+        winning triangle ids.  Returns the metrics (device tensors).  Over
+        n > 1 ranks each renders its own crop, the gradients and metrics
+        are reduced before Adam, and each rank's face errors are summed
+        over the ranks at the next refine."""
         if draws is None:
             B, H, W, _ = images_u8.shape
             draws = self.stage1_draw(B, H, W)
@@ -942,10 +1005,14 @@ class Trainer:
         loss, metrics, trig_id, loss_pix = self._stage1_crop_loss(
             images_u8, poses, mvps, intrinsics, draws)
         loss.backward()
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.world > 1:
+            distributed.all_reduce_mean_grads(params)
+            metrics = distributed.reduce_metrics(metrics)
         self.optimizer.step()
         self.lr_scheduler.step()
 
@@ -956,11 +1023,17 @@ class Trainer:
         tid = trig_id.reshape(-1)
         valid = tid >= 0
         safe = torch.where(valid, tid, 0)
-        self.tri_errors.index_add_(0, safe, torch.where(valid, lp.reshape(-1),
-                                                        0.0))
+        self.tri_errors.index_add_(0, safe,
+                                   torch.where(valid, lp.reshape(-1), 0.0))
         self.tri_counts.index_add_(0, safe, valid.float())
         self.step += 1
         return metrics
+
+    def _check_same_mesh(self, what: str) -> None:
+        distributed.check_equal(
+            f"the stage-1 mesh after {what}",
+            [self.stage1_mesh.vertices, self.stage1_mesh.triangles,
+             self.mesh_v])
 
     def _snap_stage1_mesh(self) -> None:
         """Snap the fresh inner mesh onto the field's apparent surface and
@@ -978,10 +1051,12 @@ class Trainer:
             self.net_spec, band=band, n_samples=64, passes=3)
         self.mesh_v[:v1] = torch.from_numpy(mesh.vertices[:v1]).to(
             self.device)
-        mdir = os.path.join(self.workspace, "mesh_stage0")
-        os.makedirs(mdir, exist_ok=True)
-        write_ply(os.path.join(mdir, "mesh_0_updated.ply"),
-                  mesh.vertices[:v1], mesh.triangles[:f1])
+        self._check_same_mesh("the snap")
+        if self.rank == 0:
+            mdir = os.path.join(self.workspace, "mesh_stage0")
+            os.makedirs(mdir, exist_ok=True)
+            write_ply(os.path.join(mdir, "mesh_0_updated.ply"),
+                      mesh.vertices[:v1], mesh.triangles[:f1])
 
     def train_stage1(self, dataset: Dataset,
                      valid_dataset: Optional[Dataset] = None,
@@ -1012,14 +1087,20 @@ class Trainer:
         last = None
         while self.step < steps:
             if cfg.refine and self.step + 1 in cfg.refine_steps:
+                # every rank refines the same faces (JAX's sharded step
+                # gathers all shards' triangle ids)
+                distributed.all_reduce_sum(self.tri_errors)
+                distributed.all_reduce_sum(self.tri_counts)
                 v_real, f_real = self._s1_real_shape
                 self.stage1_mesh = refine_and_decimate(
                     self.stage1_mesh,
                     self.vertices_offsets.detach()[:v_real].cpu().numpy(),
                     self.tri_errors[:f_real].cpu().numpy(),
                     self.tri_counts[:f_real].cpu().numpy(),
-                    cfg, self.workspace, max_faces=self._s1_face_budget)
+                    cfg, self.workspace if self.rank == 0 else None,
+                    max_faces=self._s1_face_budget)
                 self._reset_stage1_params()
+                self._check_same_mesh(f"the refine at step {self.step + 1}")
                 # (step, faces before, faces after) of each refine
                 self.stats.setdefault("refines", []).append(
                     (self.step + 1, f_real, self.stage1_mesh.num_faces))
@@ -1171,6 +1252,7 @@ class Trainer:
             "rounds": rounds,
         }
 
+    @_rank0_only
     def evaluate(self, dataset: Dataset, name: str = "eval",
                  write_images: bool = False,
                  max_frames: Optional[int] = None,
@@ -1232,6 +1314,7 @@ class Trainer:
             write_image(os.path.join(vdir, f"{name}_{i:04d}_error.png"),
                         (np.clip(err * 4, 0, 1) * 255).astype(np.uint8))
 
+    @_rank0_only
     def test_video(self, dataset: Dataset, name: str = "test",
                    fps: int = 24) -> str:
         """Render the dataset's trajectory and write it as an mp4 (imageio
@@ -1271,6 +1354,7 @@ class Trainer:
         return self.render_image(dataset.poses[i], dataset.intrinsics_for(i),
                                  dataset.H, dataset.W)
 
+    @_rank0_only
     def save_mesh(self, resolution: int = 512, decimate_target: float = 3e5,
                   dataset: Optional[Dataset] = None) -> Dict[str, float]:
         """Stage-0 mesh export -> <workspace>/mesh_stage0/mesh_0.ply, culled
@@ -1285,6 +1369,7 @@ class Trainer:
         self.stats["mesh_seconds"] = secs
         return secs
 
+    @_rank0_only
     def export_stage1(self, resolution: int = 4096) -> Dict[str, float]:
         """The textured mesh for renderer.html -> <workspace>/mesh_stage1/;
         returns (and keeps in stats["export_seconds"]) the wall seconds of
@@ -1355,6 +1440,7 @@ class Trainer:
             payload["s1_shape"] = tuple(self._s1_real_shape)
         return payload
 
+    @_rank0_only
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
         """Write <workspace>/checkpoints/ngp_stage<s>_<tag>.ckpt (tag: the
         step, 7 digits) and the _latest copy; keep the newest 2 step
@@ -1454,12 +1540,20 @@ class Trainer:
             self.ema_count = int(st["ema_count"])
             rng = payload.get("rng")
             if rng is not None and rng["device"] == self.device.type:
-                self.generator.set_state(torch.from_numpy(rng["generator"]))
                 self.grid_generator.set_state(
                     torch.from_numpy(rng["grid_generator"]))
-            if rng is not None and "host_generator" in rng:
+                if self.rank == 0:
+                    self.generator.set_state(
+                        torch.from_numpy(rng["generator"]))
+            if (rng is not None and "host_generator" in rng
+                    and self.rank == 0):
                 self.host_generator.set_state(
                     torch.from_numpy(rng["host_generator"]))
+            if self.rank > 0:
+                # the checkpoint holds rank 0's draws: the other ranks
+                # restart theirs from their seed and the step
+                self.generator.manual_seed(self._rank_seed(self.step))
+                self.host_generator.manual_seed(self._rank_seed(self.step))
         self.num_rays = int(payload.get("num_rays", self.cfg.num_rays))
         self.log(f"[INFO] loaded checkpoint {path} (step {self.step})")
         return True

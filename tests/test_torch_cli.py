@@ -411,15 +411,17 @@ def test_mlp_json_passes_the_viewer_emulation(tmp_path):
 
 
 def test_unported_cli_paths_raise(tmp_path):
+    # dtu and --vis_pose run (tests/test_torch_vis_pose.py), and so does
+    # data parallelism under a launcher (tests/test_torch_parallel.py);
+    # --mesh_shape 2 in one process says how to launch, before any work
     base = [str(tmp_path), "--workspace", str(tmp_path / "ws"), "--bound",
             "1", "--num_levels", "4", "--log2_hashmap_size", "12",
             "--grid_size", "16", "--test_no_mesh"]
-    for extra, item in ((["--data_format", "dtu"], "A7"),
-                        (["--mesh_shape", "2"], "A7")):
-        # each names its item before any work, with or without the mesh
-        for argv in (base + extra, base[:-1] + extra):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                main(argv, device="cpu")
+    for argv in (base + ["--mesh_shape", "2"], base[:-1] + ["--mesh_shape",
+                                                            "2", "1"]):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            main(argv, device="cpu")
+    assert not (tmp_path / "ws").exists()
     cfg = dataclasses.replace(Config(), bound=1.0, num_levels=4,
                               log2_hashmap_size=12, grid_size=16,
                               workspace=str(tmp_path / "ws"),

@@ -3,8 +3,7 @@ JAX's ``load_nerf_dataset`` on small scenes written here: intrinsics from
 ``fl_x`` / ``fl_y`` / ``cx`` / ``cy`` or ``camera_angle_y``, the size from
 ``h`` / ``w`` or the first image, and a ``mask`` directory read as alpha.
 Poses, images, intrinsics, projection and MVPs must be equal (exactly: both
-read the same PNGs and do the same float32 arithmetic).  What the port does
-not read yet raises, naming its ROADMAP item.
+read the same PNGs and do the same float32 arithmetic).
 """
 
 import dataclasses
@@ -91,8 +90,11 @@ def test_blender_reader_raises_on_what_is_not_ported(tmp_path):
         load_nerf_dataset(_configs(root)[0], "trainval")
     with open(os.path.join(root, "transforms.json"), "w") as f:
         json.dump({"frames": []}, f)
-    with pytest.raises(NotImplementedError, match="A7"):        # colmap style
-        load_nerf_dataset(_configs(root)[0], "train")
+    # the single transforms.json is ported (tests/test_torch_single_
+    # transforms.py); one without frames has nothing to stack, as in JAX
+    for load, cfg in zip((load_nerf_dataset, jax_load), _configs(root)):
+        with pytest.raises(ValueError):
+            load(cfg, "train")
     root = write_scene(str(tmp_path / "c"), dict(h=H, w=W))
     with pytest.raises(RuntimeError, match="focal"):
         load_nerf_dataset(_configs(root)[0], "train")
