@@ -209,8 +209,30 @@ Phases, in order; any failure exits non-zero:
      ms budget; (d)
      entry()'s forward render on the card (K1, K2), then
      dryrun_multichip(2) (two gloo ranks on the card).
+ 14. checkpoints and codecs (Pillow, cv2, sklearn, orbax, tensorstore and
+     zstandard blocked): (a) the phase-4 field (bench width: the block512
+     C = 3 table, EMA, both Adam moments, the 128^3 density grid) saved
+     under ckpt_backend "orbax", a fresh Trainer loaded from the .ocp:
+     every array bit-equal, step and EMA count carried, the val PSNR
+     within 1e-4 dB of the saved trainer's; a pickle-backend trainer finds
+     the .ocp; the MiB written and the save and load walls beside the
+     pickle path's on the same payload, each .ocp wall at most 2x the
+     pickle one's; (b) the committed JAX .ocp
+     (nerf2mesh_tpu_torch/fixtures/jax_stage0.ocp, zstd with Huffman
+     literals and FSE sequences) into a Trainer on the card, every leaf's
+     SHA-256 the one JAX's restore gave; (c) the committed progressive
+     JPEG capture (fixtures/progressive, 12 views at 256^2) and PNG kinds
+     (fixtures/png) decoded on the host, each array's SHA-256 Pillow's,
+     the progressive decode's ms per MP at most 500; then main on the
+     capture with --ckpt_backend orbax --n_ckpt 2 for CKPT_STEPS steps
+     (every logged loss finite, K1-K3 launched and held against plain at
+     one more step, two step .ocp directories left by the rolling window),
+     main --test reloading ngp_stage0_latest.ocp, and a fresh Trainer
+     reproducing the recorded val PSNR within 1e-4 dB; (d) in phase 8, a
+     stage-1 .ocp round trip of its stage-1 state: offsets and topology
+     restored, the val PSNR within 1e-4 dB.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
-phases 8's, 9's, 10's, 11's, 12's and 13's shapes.
+phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
 each kernel's own path: phase 4 for K1-K3, phase 6's training for K5/K6,
 phase 7's CLI run for K4 and K4b; K7 lies on no path, so its count from
@@ -227,7 +249,8 @@ and C = 2 instantiations, "<name>_c1" and "<name>_c2", count their
 launches in phase 12's run that reaches them: (b) for K2/K3, (c) for
 K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 "dist_launches": rank 0's in phase 13 (b), "stage0" and "stage1";
-"viewer_launches": phase 13 (c)'s stage-0 serving, frames and training),
+"viewer_launches": phase 13 (c)'s stage-0 serving, frames and training;
+"ckpt_cli_launches": phase 14 (c)'s training through main),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -237,6 +260,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -272,15 +296,16 @@ MESH_FIELD_STEPS = 64      # phase 8: the phase-4 field trains on first
 PROFILE_STEPS = 4          # profiled steps of each profiled window (cut
 #                            from 8)
 SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
-SDF_STEPS = 128            # phase 9's stage-0 steps
+SDF_STEPS = 64             # phase 9's stage-0 steps (cut from 128 in PR 14
+#                            for the time limit: its loss falls 10x by then)
 SDF_MCUBES = 256           # phase 9's marching grid
 SDF_S1_STEPS = 16          # phase 9's stage-1 steps (cut from 32)
 SDF_SHARE_CROPS = 32       # phase 9's crops for the field's gradient share
 UNB_VIEWS = 16             # phase 10's COLMAP capture (every 8th is val;
 #                            cut from 32, then 24, for the time limit)
 UNB_SIZE = 256             # its frames' side
-UNB_STEPS = 128            # phase 10a (LLFF recipe, bound 4) stage-0 steps
-#                            (256 until PR 11)
+UNB_STEPS = 64             # phase 10a (LLFF recipe, bound 4) stage-0 steps
+#                            (256 until PR 11, 128 until PR 13)
 UNB_MCUBES = 128           # phase 10a's inner marching grid (default 512;
 #                            256 until PR 11)
 UNB_S1_STEPS = 16          # phase 10a's stage 1 (cut from 64, then 32,
@@ -297,7 +322,8 @@ UNB_DECIMATE = 3e4         # phase 10's decimate_target (default 3e5; cut
 CON_STEPS = 64             # phase 10c (10b + --contract)
 CON_S1_STEPS = 8           # phase 10c's stage 1 (cut from 16)
 CON_TEXTURE = 512          # phase 10c's texture side
-CAP_VIEWS = 32             # phase 11's JPEG capture (every 8th is val)
+CAP_VIEWS = 16             # phase 11's JPEG capture (every 8th is val; cut
+#                            from 32 in PR 14: writing it took 25 s)
 CAP_SIZE = 1024            # its frames' side: 4:2:0 JPEGs, decoded at 1 MP
 CAP_DEPTH = 384            # its depths/*.npy side
 CAP_AFFINE = (0.7, 0.3)    # the maps are a * z + c of the analytic z-depth
@@ -325,9 +351,9 @@ HARD_STEPS = 64            # phase 12 (a) and (b): the hard scene, merged and
 HARD_REF_STEPS = 64        # phase 12 (c): separate tables, ref 2^14 table
 HARD_WS_STEPS = 64         # phase 12 (d): separate tables, winsort_fine
 #                            (its val PSNR rose 0.036 dB in 32 steps)
-HARD_VAL = 2               # phase 12's val views (cut from 4 for the time
-#                            limit: its 8 evals of 4 views took about 55 s
-#                            of a run that passed 1200 s)
+HARD_VAL = 1               # phase 12's val views (cut from 4, then 2 in PR
+#                            14, for the time limit: its 8 evals of 4 views
+#                            took about 55 s of a run that passed 1200 s)
 ENTRY_SIZE = 256           # phase 13 (a), (b): the scenes' side
 DTU_VIEWS = 24             # phase 13 (a): every 8th is val (3), 21 train
 DTU_STEPS = 64             # phase 13 (a): stage-0 steps through the CLI
@@ -337,6 +363,8 @@ DIST_TEXTURE = 512         # phase 13 (b): the stage-1 export's texture side
 DIST_TIMEOUT = 600         # phase 13 (b): seconds the ranks may take
 VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
+CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
+#                            the committed progressive capture
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
        "winsort_bwd": (1e-5, 1e-4), "sweep_fwd": (1e-5, 0.0),
@@ -1804,6 +1832,7 @@ def phase_stage1(dev, field, ds, val):
             f"seconds {esecs};"
             f" textures {shapes}; mesh v={len(v)} f={len(f)}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        stage1_ocp_round_trip(dev, t1, ds, val, tmp)
         return launches, errs, t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2132,7 +2161,7 @@ def hold_occ(occ, label) -> float:
     return 0.0
 
 
-def hold_step_kernels(trainer, ds, label, ref_ms):
+def hold_step_kernels(trainer, ds, label, ref_ms, tag="[unbounded]"):
     """K1 (exact), K2 and K3 against their plain versions on the arguments
     one more training step gives them, and timed on the largest of each
     beside phase 3's times (ref_ms); pack_bits timed on the run's grid.
@@ -2154,7 +2183,7 @@ def hold_step_kernels(trainer, ds, label, ref_ms):
           "inwin_fwd": cuda_time_ms(lambda: se.inwin_fwd(*fwd)),
           "inwin_bwd": cuda_time_ms(lambda: se.inwin_bwd(*bwd)),
           "pack_bits": cuda_time_ms(lambda: pack_bits(grid))}
-    log(f"[unbounded] {label}: K1 exact on {len(occ)} calls; at this run's "
+    log(f"{tag} {label}: K1 exact on {len(occ)} calls; at this run's "
         f"arguments (K1 {idx.numel()} cells of {words.numel()} words, "
         f"{grid.shape[0]} cascades; K2 {fwd[1].shape[0]} points at levels "
         f"{fwd[5][0]}-{fwd[5][-1]}; K3 {bwd[1].shape[0]} points): "
@@ -2459,7 +2488,7 @@ def capture_load(scene_dir, argv):
     from nerf2mesh_tpu_torch.data import colmap as colmap_mod
     from nerf2mesh_tpu_torch.data.resize import resize_linear
     walls = {}
-    with timed_calls(colmap_mod, ("read_jpeg", "resize_bicubic",
+    with timed_calls(colmap_mod, ("read_image", "resize_bicubic",
                                   "resize_linear", "fit_dense_depth"),
                      walls):
         t0 = time.perf_counter()
@@ -2469,12 +2498,12 @@ def capture_load(scene_dir, argv):
     log(f"[captures] load of {ds.num_frames} train views "
         f"({CAP_SIZE}^2 4:2:0 JPEGs -> {ds.W}x{ds.H}, {CAP_DEPTH}^2 depth "
         f"maps): {total:.3f} s, of which JPEG decode "
-        f"{walls.get('read_jpeg', 0):.3f} s "
-        f"({walls.get('read_jpeg', 0) / mp * 1e3:.2f} ms per MP over "
+        f"{walls.get('read_image', 0):.3f} s "
+        f"({walls.get('read_image', 0) / mp * 1e3:.2f} ms per MP over "
         f"{mp:.1f} MP), depth resize {walls.get('resize_linear', 0):.3f} s, "
         f"frame resize {walls.get('resize_bicubic', 0):.3f} s, RANSAC "
         f"{walls.get('fit_dense_depth', 0):.3f} s")
-    if walls.get("read_jpeg", 0) / mp > 0.5:
+    if walls.get('read_image', 0) / mp > 0.5:
         raise AssertionError("JPEG decode above 0.5 s per MP")
     # each view's fit maps a * z + c to scale * z: scale / s = a, -b / s = c
     a_true, c_true = CAP_AFFINE
@@ -3376,6 +3405,249 @@ def phase_entry_points(dev, field, ds, val, t1):
     return dtu, {"stage0": dist0, "stage1": dist1}, viewer, errs
 
 
+# --------------------------------------------------------------------------
+# phase 14: checkpoints and codecs
+# --------------------------------------------------------------------------
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nerf2mesh_tpu_torch", "fixtures")
+
+
+def sha(a) -> dict:
+    """SHA-256 of an array's values (bool as 0/1), its dtype and shape."""
+    a = np.asarray(a)
+    v = a.astype(np.uint8) if a.dtype == bool else a
+    return {"sha256": hashlib.sha256(np.ascontiguousarray(v).tobytes())
+            .hexdigest(), "dtype": str(a.dtype), "shape": list(a.shape)}
+
+
+def state_arrays(trainer) -> dict:
+    """{dotted name: array} of a trainer's state as the JAX TrainState
+    (Orbax's leaf names), the PRNG key left out: the port keeps none."""
+    from nerf2mesh_tpu_torch.utils import orbax
+    from nerf2mesh_tpu_torch.utils.convert import _RECORD_FIELDS, jax_state
+    return {".".join(k for k, _ in keys): np.asarray(v)
+            for keys, v in orbax.flatten(jax_state(trainer._payload()),
+                                         _RECORD_FIELDS)
+            if v is not orbax.MASKED and keys[0][0] != "key"}
+
+
+def dir_mib(path) -> float:
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 2 ** 20
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 2 ** 20
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stage1_ocp_round_trip(dev, t1, ds, val, ws):
+    """Phase 14 (d), run in phase 8 on its stage-1 state: its .ocp, and a
+    fresh stage-1 Trainer on the same mesh loaded from it."""
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    t1.cfg = dataclasses.replace(t1.cfg, ckpt_backend="orbax")
+    psnr = float(t1.evaluate(val, name="s1_ocp_live",
+                             track_best=False)["PSNR"])
+    path, t_save = timed(t1.save_checkpoint)
+    fresh = Trainer(t1.cfg, device=dev, workspace=ws)
+    fresh.setup_stage1(ds)
+    ok, t_load = timed(lambda: fresh.load_checkpoint(path))
+    if not ok or fresh.step != t1.step:
+        raise AssertionError(f"stage-1 .ocp: loaded {ok}, step "
+                             f"{fresh.step} != {t1.step}")
+    if (fresh._s1_real_shape != t1._s1_real_shape or not torch.equal(
+            fresh.vertices_offsets, t1.vertices_offsets)):
+        raise AssertionError(f"stage-1 .ocp: topology {fresh._s1_real_shape}"
+                             f" vs {t1._s1_real_shape}, or offsets differ")
+    got = float(fresh.evaluate(val, name="s1_ocp_reload",
+                               track_best=False)["PSNR"])
+    log(f"[ckpt] (d) stage-1 .ocp of phase 8's state ({dir_mib(path):.1f} "
+        f"MiB, topology {t1._s1_real_shape}): save {t_save:.3f} s, load "
+        f"{t_load:.3f} s; val PSNR {got:.6f} reloaded vs {psnr:.6f}")
+    if not abs(got - psnr) <= 1e-4:
+        raise AssertionError(f"stage-1 .ocp reload PSNR {got} != {psnr}")
+
+
+def ckpt_full_width(dev, field, val):
+    """Phase 14 (a): the phase-4 field's .ocp against its pickle."""
+    from nerf2mesh_tpu_torch.utils import zstd
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    zstd._load()                       # the codec's build is not timed
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_ocp_")
+    try:
+        ocp_ws, pk_ws = os.path.join(tmp, "ocp"), os.path.join(tmp, "pickle")
+        cfg = dataclasses.replace(field.cfg, ckpt_backend="orbax")
+        field.cfg, field.workspace = cfg, ocp_ws
+        psnr = float(field.evaluate(val, name="ocp_live",
+                                    track_best=False)["PSNR"])
+        live = state_arrays(field)
+        path, t_save = timed(field.save_checkpoint)
+        fresh = Trainer(cfg, device=dev, workspace=ocp_ws)
+        ok, t_load = timed(lambda: fresh.load_checkpoint(path))
+        got = state_arrays(fresh)
+        bad = [k for k in live if not (got[k].dtype == live[k].dtype
+                                       and np.array_equal(got[k], live[k]))]
+        if not ok or bad or fresh.step != field.step or (
+                fresh.ema_count != field.ema_count):
+            raise AssertionError(f".ocp round trip: loaded {ok}, arrays "
+                                 f"differ {bad}, step {fresh.step} vs "
+                                 f"{field.step}")
+        psnr_got = float(fresh.evaluate(val, name="ocp_reload",
+                                        track_best=False)["PSNR"])
+        del fresh
+        pk = Trainer(dataclasses.replace(cfg, ckpt_backend="pickle"),
+                     device=dev, workspace=ocp_ws)
+        if not pk.load_checkpoint() or pk.step != field.step:
+            raise AssertionError("a pickle-backend trainer did not find the "
+                                 ".ocp")
+        del pk
+        field.cfg = dataclasses.replace(cfg, ckpt_backend="pickle")
+        field.workspace = pk_ws
+        ppath, t_psave = timed(field.save_checkpoint)
+        fresh = Trainer(field.cfg, device=dev, workspace=pk_ws)
+        ok, t_pload = timed(lambda: fresh.load_checkpoint(ppath))
+        del fresh
+        n = sum(v.size for k, v in live.items() if k.split(".")[0] in (
+            "params", "ema_params", "opt_state"))
+        log(f"[ckpt] (a) step {field.step}, {n} parameter, EMA and moment "
+            f"values: .ocp {dir_mib(path):.2f} MiB, save {t_save:.3f} s, "
+            f"load {t_load:.3f} s; pickle {dir_mib(ppath):.2f} MiB, save "
+            f"{t_psave:.3f} s, load {t_pload:.3f} s (each save writes the "
+            f"step's and the _latest copy); every array bit-equal; val PSNR "
+            f"{psnr_got:.6f} reloaded vs {psnr:.6f}")
+        if not abs(psnr_got - psnr) <= 1e-4:
+            raise AssertionError(f".ocp reload PSNR {psnr_got} != {psnr}")
+        if not (t_save <= 2 * t_psave and t_load <= 2 * t_pload):
+            raise AssertionError(f".ocp walls (save {t_save}, load {t_load})"
+                                 f" over 2x the pickle's ({t_psave}, "
+                                 f"{t_pload})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ckpt_jax_fixture(dev):
+    """Phase 14 (b): the committed JAX .ocp into a Trainer on the card."""
+    from nerf2mesh_tpu_torch.config import Config
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    with open(os.path.join(FIXTURES, "jax_stage0.json")) as f:
+        want = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_fix_")
+    try:
+        cfg = dataclasses.replace(Config(), workspace=tmp,
+                                  **want["config"]).finalize()
+        t = Trainer(cfg, device=dev)
+        ok, secs = timed(lambda: t.load_checkpoint(
+            os.path.join(FIXTURES, "jax_stage0.ocp")))
+        got = state_arrays(t)
+        bad = [k for k, h in want["leaves"].items()
+               if k != "key" and sha(got[k]) != h]
+        log(f"[ckpt] (b) the JAX fixture: loaded {ok} in {secs:.3f} s at "
+            f"step {t.step}; {len(want['leaves']) - 1} leaves hashed, "
+            f"differing {bad}")
+        if not ok or bad or t.step != want["steps"]:
+            raise AssertionError(f"JAX fixture: {ok}, {bad}, step {t.step}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ckpt_capture(dev, ref_ms):
+    """Phase 14 (c): the committed images decoded, then the progressive
+    capture through main with --ckpt_backend orbax, --test and a reload;
+    returns the training's launches and K1-K3's errors at one step."""
+    from nerf2mesh_tpu_torch import kernels
+    from nerf2mesh_tpu_torch.config import parse_args
+    from nerf2mesh_tpu_torch.data.png import read_image
+    from nerf2mesh_tpu_torch.data.provider import load_nerf_dataset
+    from nerf2mesh_tpu_torch.main import main as cli_main
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    capture = os.path.join(FIXTURES, "progressive")
+    read_image(os.path.join(FIXTURES, "png", "gray2_adam7.png"))  # builds
+    read_image(os.path.join(capture, "val", "r_0.jpg"))
+    for kind, root in (("progressive", capture),
+                       ("png", os.path.join(FIXTURES, "png"))):
+        with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
+            want = json.load(f)
+        secs, px, bad = 0.0, 0, []
+        for rel, h in want.items():
+            t0 = time.perf_counter()
+            img = read_image(os.path.join(root, rel))
+            secs += time.perf_counter() - t0
+            px += img.shape[0] * img.shape[1]
+            if sha(img) != h:
+                bad.append(rel)
+        ms_mp = secs / (px / 1e6) * 1e3
+        log(f"[ckpt] (c) {len(want)} {kind} files decoded in {secs:.3f} s "
+            f"({ms_mp:.2f} ms per MP), differing from Pillow's hashes: {bad}")
+        if bad or (kind == "progressive" and ms_mp > 500):
+            raise AssertionError(f"{kind} decode: {bad}, {ms_mp} ms/MP")
+
+    tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_cap_")
+    try:
+        ws = os.path.join(tmp, "ws")
+        argv = cli_argv(capture, ws, iters=CKPT_STEPS, n_eval=1, n_ckpt=2,
+                        ckpt_backend="orbax", test_no_mesh=True)
+        cfg = parse_args(argv)
+        launches = {}
+        real = counting(Trainer, "train", launches)
+        kernels.reset_launches()
+        try:
+            trainer, t_main = timed(lambda: cli_main(argv, device=dev))
+        finally:
+            Trainer.train = real
+        losses = [e["loss"] for e in trainer.train_log]
+        cdir = os.path.join(ws, "checkpoints")
+        names = sorted(os.listdir(cdir))
+        log(f"[ckpt] (c) main {' '.join(argv[1:])}: {t_main:.1f} s; logged "
+            f"losses {np.round(losses, 5).tolist()}; evals "
+            f"{trainer.stats['results']}; checkpoints {names}; training "
+            f"launches {launches}")
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"capture losses: {losses}")
+        for key in ("occ_lookup", "inwin_fwd", "inwin_bwd"):
+            if launches.get(key, 0) <= 0:
+                raise AssertionError(f"{key} was not launched by training")
+        steps = [n for n in names if n.endswith(".ocp") and n[11:18].isdigit()]
+        if len(steps) != 2 or not all(
+                os.path.isdir(os.path.join(cdir, n)) for n in names):
+            raise AssertionError(f"rolling window: {names}")
+        with open(os.path.join(cdir, "ngp_stage0_latest.ocp",
+                               "n2m_meta.json")) as f:
+            saved = float(json.load(f)["stats"]["results"][0]["PSNR"])
+        tester = cli_main(argv + ["--test"], device=dev)
+        if tester.step != CKPT_STEPS:
+            raise AssertionError(f"--test: step {tester.step}")
+        fresh = Trainer(cfg, device=dev)
+        if not fresh.load_checkpoint():
+            raise AssertionError("no .ocp to load")
+        val = load_nerf_dataset(cfg, "val")
+        got = float(fresh.evaluate(val, name="reload",
+                                   track_best=False)["PSNR"])
+        log(f"[ckpt] (c) --test reloaded step {tester.step}; a fresh "
+            f"Trainer's val PSNR {got:.6f} vs {saved:.6f} recorded")
+        if not abs(got - saved) <= 1e-4:
+            raise AssertionError(f"reloaded PSNR {got} != {saved}")
+        errs = hold_step_kernels(fresh, load_nerf_dataset(cfg, "train"),
+                                 "progressive capture step", ref_ms,
+                                 "[ckpt] (c)")
+        return launches, errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_checkpoints(dev, field, val, ref_ms):
+    """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixture,
+    (c) the committed images and the capture through main ((d) runs in
+    phase 8); returns (c)'s launches and K1-K3's errors."""
+    ckpt_full_width(dev, field, val)
+    ckpt_jax_fixture(dev)
+    return ckpt_capture(dev, ref_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3414,13 +3686,19 @@ def main() -> int:
     with no_modules("PIL", "cv2", "sklearn"):
         (dtu_launches, dist_launches, viewer_launches,
          entry_errs) = phase_entry_points(dev, field, ds, val, s1_trainer)
-    del field, s1_trainer
+    del s1_trainer
     lap("phase 13")
+    with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
+                    "zstandard"):
+        ckpt_launches, ckpt_errs = phase_checkpoints(
+            dev, field, val, {r["name"]: r["ms"] for r in results})
+    del field
+    lap("phase 14")
     for r in results:
         # the largest error over phase 3 and the paths' own shapes
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             e[r["name"]] for e in (s1_errs, sdf_errs, unb_errs, cap_errs,
-                                   hard_errs, entry_errs)
+                                   hard_errs, entry_errs, ckpt_errs)
             if r["name"] in e])
         # the C = 1 and 2 instantiations' path is phase 12's run that
         # reaches them
@@ -3450,11 +3728,13 @@ def main() -> int:
         r["dist_launches"] = {k: v.get(r["name"], 0)
                               for k, v in dist_launches.items()}
         r["viewer_launches"] = viewer_launches.get(r["name"], 0)
+        r["ckpt_cli_launches"] = ckpt_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
             "captures_launches", "captures_stage1_launches", "hard_launches",
-            "dtu_launches", "dist_launches", "viewer_launches", "max_abs_err",
+            "dtu_launches", "dist_launches", "viewer_launches",
+            "ckpt_cli_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

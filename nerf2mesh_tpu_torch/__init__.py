@@ -18,8 +18,12 @@ cascades and contraction; JPEG input and depth supervision; the SH and
 frequency encoders; the dtu format and the single transforms.json,
 ``--vis_pose``, data-parallel training over torch.distributed ranks
 (``parallel/distributed.py``), the HTTP viewer (``viewer.py``), the entry
-analogue (``entry.py``) and the recipes (``scripts/``).  Not yet ported
-(ROADMAP queue A): orbax checkpoints and progressive JPEG.
+analogue (``entry.py``) and the recipes (``scripts/``); Orbax ``.ocp``
+checkpoints (``utils/orbax.py`` over ``utils/ocdbt.py``, ``utils/zarr.py``
+and a zstd codec, ``utils/zstd.py``) and progressive JPEG and every PNG
+kind without Pillow.  Still raising NotImplementedError (ROADMAP A6):
+arithmetic-coded and 12-bit JPEG, zarr3 checkpoints; the scripts that need
+model weights are not ported.
 """
 
 __version__ = "0.1.0"

@@ -35,7 +35,6 @@ from typing import Optional
 import numpy as np
 
 from ..config import Config
-from .jpeg import read_jpeg
 from .png import read_image
 from .provider import Dataset
 from .ransac import ransac_line
@@ -74,12 +73,6 @@ def center_poses(poses: np.ndarray, pts3d: Optional[np.ndarray],
     if pts3d is not None:
         pts3d = (pts3d - center) @ R[:3, :3].T
     return poses, pts3d
-
-
-def _read_capture(path: str) -> np.ndarray:
-    if path.lower().endswith((".jpg", ".jpeg")):
-        return read_jpeg(path)
-    return read_image(path)
 
 
 def fit_dense_depth(dd: np.ndarray, xy: np.ndarray, depth: np.ndarray,
@@ -304,7 +297,7 @@ def load_colmap_dataset(cfg: Config, split: str = "train",
 
         imgs = []
         for i, p in enumerate(img_paths):
-            img = _read_capture(p)
+            img = read_image(p)
             if img.ndim == 2:
                 img = img[..., None].repeat(3, -1)
             if mask_paths is not None and os.path.exists(mask_paths[i]):

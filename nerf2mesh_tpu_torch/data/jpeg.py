@@ -16,14 +16,16 @@ cumulative sum.  ``downscale`` is the antialiased bilinear reduce of
 to uint8.
 
 ``decode_jpeg`` is the C++ decoder ``native/jpegdec.cpp`` (built with g++
-at first use into the package's build/, see utils/native.py): baseline
-files, grey or YCbCr at 4:4:4, 4:2:2 or 4:2:0, restart intervals, with
-libjpeg's integer IDCT, fancy chroma upsampling and fixed-point colour
-conversion, so it gives what Pillow's decode gives.  Progressive and
-arithmetic-coded files raise NotImplementedError (ROADMAP A6 (a')).
+at first use into the package's build/, see utils/native.py): baseline and
+progressive files, grey, YCbCr at 4:4:4, 4:2:2 or 4:2:0, and CMYK,
+restart intervals, with libjpeg's integer IDCT, fancy chroma upsampling
+and fixed-point colour conversion, so it gives what Pillow's decode gives.
+Arithmetic-coded, lossless, hierarchical and 12-bit files, YCCK and other
+sampling ratios raise NotImplementedError (ROADMAP A6 (g)).
 
-``save_jpeg``, ``read_jpeg`` and ``resize_bilinear`` use Pillow where it is
-importable and this code otherwise, as data/png.py does for PNG.
+``read_jpeg`` is ``decode_jpeg`` of a file.  ``save_jpeg`` and
+``resize_bilinear`` use Pillow where it is importable and this code
+otherwise, as data/png.py's ``write_image`` does for PNG.
 """
 
 from __future__ import annotations
@@ -355,12 +357,10 @@ def _decode_call(lib, data: bytes, out) -> tuple:
     ptr, cap = (None, 0) if out is None else (out.ctypes.data, out.size)
     rc = lib.jpeg_decode(data, len(data), ptr, cap, dims, err, len(err))
     msg = err.value.decode(errors="replace")
-    if rc == 2:
+    if rc in (2, 3):
         raise NotImplementedError(
-            f"{msg}: only baseline JPEG is read without Pillow (ROADMAP "
-            "A6 (a'))")
-    if rc == 3:
-        raise NotImplementedError(f"{msg} (ROADMAP A6 (a'))")
+            f"{msg}: not read; no encoder at hand writes such a file to hold "
+            "a decoder to (ROADMAP A6 (g))")
     if rc:
         raise ValueError(f"JPEG decode failed: {msg}")
     return tuple(dims)
@@ -378,11 +378,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """np.asarray(Image.open(path)) with Pillow, else ``decode_jpeg``."""
-    try:
-        from PIL import Image
-    except ImportError:
-        with open(path, "rb") as f:
-            return decode_jpeg(f.read())
-    with Image.open(path) as im:
-        return np.asarray(im)
+    """np.asarray(Image.open(path)) of a JPEG, by ``decode_jpeg``."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())

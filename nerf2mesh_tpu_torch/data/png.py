@@ -1,34 +1,58 @@
-"""A minimal PNG codec (zlib + numpy) for machines without Pillow.
+"""A PNG codec (zlib + numpy, rows unfiltered in C++) without Pillow.
 
-Reads and writes 8-bit, non-interlaced grayscale, RGB and RGBA images: the
-blender frames, the synthetic scene's RGBA frames and the eval's rgb, depth
-and error maps.  Reading undoes the five row filters of the PNG standard;
-writing uses filter 0 on every row.  Any other PNG (palette, 16-bit, gray
-with alpha, interlaced) raises NotImplementedError (ROADMAP A6 (a')).
+Reads every PNG that Pillow reads, into the array ``np.asarray(Image.open(
+path))`` gives, in Pillow's dtype and shape for the file's mode
+(PngImagePlugin's ``_MODES``):
 
-``read_image`` / ``write_image`` use Pillow where it is importable and this
-codec otherwise, so both give the array ``np.asarray(Image.open(path))``
-gives: [H, W] for grayscale, [H, W, 3] or [H, W, 4] uint8 otherwise.
+* grey: 1-bit -> mode "1", bool [H, W]; 2- and 4-bit -> "L", the sample
+  times 85 or 17; 8-bit -> uint8 [H, W]; 16-bit -> "I;16", uint16 [H, W];
+* RGB and RGBA: uint8 [H, W, 3|4]; 16-bit samples -> their high byte;
+* grey + alpha: 8-bit -> "LA", uint8 [H, W, 2]; 16-bit -> "RGBA" (Pillow
+  reads "LA;16B" as RGBA), the grey's high byte thrice and the alpha's;
+* palette, 1-8 bits -> "P": the indices, uint8 [H, W] (a tRNS chunk does
+  not change the array, in any mode);
+* Adam7-interlaced files of any of these.
+
+The five row filters are undone by ``native/pngdec.cpp`` (built with g++
+at first use, see utils/native.py): Paeth and Average depend on each
+row's own output byte by byte.  Writing uses filter 0 on every row, for
+[H, W] and [H, W, 3|4] uint8 images: every image the package writes.
+
+``read_image`` reads a PNG with this codec and a JPEG with data/jpeg.py's
+decoder, chosen by the file's signature, never through Pillow (any other
+format raises NotImplementedError);
+``write_image`` uses Pillow where it is importable (its files are the JAX
+package's, byte for byte) and this codec otherwise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}          # PNG color type -> channels
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}       # PNG color type -> samples
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+# Adam7: (x start, y start, x step, y step) of the 7 passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
     pos = len(_SIGNATURE)
     while pos < len(data):
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG chunk")
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise ValueError(f"PNG chunk {kind!r}: truncated")
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(kind + body) != crc:
             raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
@@ -36,25 +60,43 @@ def _chunks(data: bytes):
         pos += 12 + length
 
 
-def _paeth_row(f: bytes, prior: bytes, bpp: int) -> bytearray:
-    out = bytearray(len(f))
-    for i, v in enumerate(f):
-        a = out[i - bpp] if i >= bpp else 0
-        b = prior[i]
-        c = prior[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (v + pred) & 0xFF
-    return out
+_lib = None
 
 
-def _average_row(f: bytes, prior: bytes, bpp: int) -> bytearray:
-    out = bytearray(len(f))
-    for i, v in enumerate(f):
-        a = out[i - bpp] if i >= bpp else 0
-        out[i] = (v + ((a + prior[i]) >> 1)) & 0xFF
-    return out
+def _unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int
+              ) -> np.ndarray:
+    global _lib
+    if _lib is None:
+        from ..utils.native import BUILD_DIR, build_library
+        lib = ctypes.CDLL(build_library("pngdec", BUILD_DIR))
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_void_p]
+        _lib = lib
+    if raw.size < rows * (stride + 1):
+        raise ValueError("PNG image data too short")
+    raw = np.ascontiguousarray(raw[:rows * (stride + 1)])
+    out = np.empty(rows * stride, np.uint8)
+    bad = _lib.png_unfilter(raw.ctypes.data, rows, stride, bpp,
+                            out.ctypes.data)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1}: unknown filter type")
+    return out.reshape(rows, stride)
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, ch: int) -> np.ndarray:
+    """Unfiltered rows -> [h, w, ch] samples (uint8, or uint16 at 16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        b = rows[:, :2 * w * ch].reshape(h, w, ch, 2).astype(np.uint16)
+        return (b[..., 0] << 8) | b[..., 1]         # big-endian samples
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch)
+    per = 8 // depth                     # samples a byte, first in the MSBs
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w].reshape(h, w, 1)
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -70,38 +112,44 @@ def decode_png(data: bytes) -> np.ndarray:
             break
     if header is None:
         raise ValueError("PNG without IHDR")
-    W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"PNG with bit depth {depth}, color type {ctype}, interlace "
-            f"{interlace}: only 8-bit non-interlaced gray, RGB and RGBA are "
-            "read without Pillow (ROADMAP A6 (a'))")
-    C = _CHANNELS[ctype]
-    stride = W * C
+    W, H, depth, ctype, comp, filt, interlace = header
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+        raise ValueError(f"PNG with bit depth {depth} and color type "
+                         f"{ctype} (not a combination the standard allows)")
+    if comp or filt or interlace > 1 or not W or not H:
+        raise ValueError("PNG with an unknown compression, filter method or "
+                         "interlace method, or no pixels")
+    ch = _CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(H, stride + 1)
-    out = np.zeros((H, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(H):
-        kind, f = int(raw[y, 0]), raw[y, 1:]
-        if kind == 0:
-            row = f
-        elif kind == 1:         # Sub: running sum along each channel
-            row = np.cumsum(f.reshape(W, C), axis=0, dtype=np.uint64)
-            row = (row & 0xFF).astype(np.uint8).reshape(-1)
-        elif kind == 2:         # Up
-            row = f + prior
-        elif kind == 3:         # Average
-            row = np.frombuffer(_average_row(f.tobytes(), prior.tobytes(), C),
-                                np.uint8)
-        elif kind == 4:         # Paeth
-            row = np.frombuffer(_paeth_row(f.tobytes(), prior.tobytes(), C),
-                                np.uint8)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter {kind}")
-        out[y] = row
-        prior = out[y]
-    return out.reshape(H, W, C)[..., 0] if C == 1 else out.reshape(H, W, C)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = np.empty((H, W, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        w, h = (W - x0 + dx - 1) // dx, (H - y0 + dy - 1) // dy
+        if w <= 0 or h <= 0:
+            continue
+        stride = (w * ch * depth + 7) // 8
+        rows = _unfilter(raw[pos:], h, stride, bpp)
+        pos += h * (stride + 1)
+        img[y0::dy, x0::dx] = _samples(rows, w, depth, ch)
+    return _pillow_mode(img, depth, ctype)
+
+
+def _pillow_mode(img: np.ndarray, depth: int, ctype: int) -> np.ndarray:
+    """Samples -> the array of Pillow's mode for (depth, color type)."""
+    if ctype in (0, 3):
+        g = img[..., 0]
+        if ctype == 3 or depth in (8, 16):
+            return g
+        if depth == 1:
+            return g.astype(bool)
+        return (g * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:               # "LA;16B" is read as RGBA
+            img = img[..., [0, 0, 0, 1]]
+    return np.ascontiguousarray(img)
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -111,9 +159,8 @@ def encode_png(img: np.ndarray) -> bytes:
     if img.ndim == 2:
         img = img[..., None]
     if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
-        raise NotImplementedError(
-            f"PNG writer takes [H, W] or [H, W, 3|4] images, not {img.shape} "
-            "(ROADMAP A6 (a'))")
+        raise ValueError(
+            f"PNG writer takes [H, W] or [H, W, 3|4] images, not {img.shape}")
     H, W, C = img.shape
     rows = np.concatenate([np.zeros((H, 1), np.uint8),
                            np.ascontiguousarray(img).reshape(H, W * C)], 1)
@@ -140,13 +187,17 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """np.asarray(Image.open(path)) with Pillow, else the PNG codec."""
-    try:
-        from PIL import Image
-    except ImportError:
-        return read_png(path)
-    with Image.open(path) as im:
-        return np.asarray(im)
+    """np.asarray(Image.open(path)) for a PNG or a JPEG, without Pillow.
+    Other formats (TIFF, BMP, WebP, ...) raise NotImplementedError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        from .jpeg import decode_jpeg
+        return decode_jpeg(data)
+    if data[:8] != _SIGNATURE:
+        raise NotImplementedError(
+            f"{path}: only PNG and JPEG images are read (ROADMAP A6 (i))")
+    return decode_png(data)
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -38,8 +38,9 @@ backend and the rank's card), and rank 0 alone writes.  --mesh_shape is
 JAX's device mesh: -1 (the default) takes every rank the launcher started,
 and any other value must equal their number.
 
-Not ported yet: orbax checkpoints (NotImplementedError naming ROADMAP A6
-when one is written or read).
+--ckpt_backend orbax writes the JAX trainer's Orbax .ocp checkpoint
+directories (utils/orbax.py, without orbax, tensorstore or zstandard);
+loading takes either kind, the JAX package's included.
 """
 
 from __future__ import annotations

@@ -1,22 +1,33 @@
-// Baseline sequential JPEG decoder with the output of libjpeg(-turbo)'s
-// default decompression, which Pillow's Image.open(...) gives:
-//   * Huffman entropy decoding, restart intervals (DRI / RSTn), any number
-//     of baseline scans, 8-bit samples, 1 (grey) or 3 components;
+// Baseline sequential and progressive JPEG decoder with the output of
+// libjpeg(-turbo)'s default decompression, which Pillow's Image.open(...)
+// gives:
+//   * Huffman entropy decoding, restart intervals (DRI / RSTn), 8-bit
+//     samples, 1 (grey), 3 or 4 (CMYK) components;
+//   * baseline scans (any number, interleaved or not) and progressive ones
+//     (jdphuff.c): DC first and refine scans, AC first scans with their
+//     end-of-band runs and AC refine scans with their correction bits;
+//     every scan fills a coefficient buffer, and the blocks are
+//     transformed once the file is read (no block smoothing: libjpeg
+//     smooths only blocks whose coefficients some scan left incomplete);
 //   * the integer "islow" IDCT (jidctint.c) with its range-limit table;
 //   * "fancy" triangle upsampling of 2h1v and 2h2v chroma (jdsample.c),
 //     plain replication when a chroma plane is 2 samples wide or less;
 //   * the fixed-point YCbCr -> RGB of jdcolor.c (16 fraction bits), or no
-//     conversion for RGB files (Adobe transform 0, or component ids R G B).
-// Progressive, arithmetic-coded, lossless and 12-bit files, other sampling
-// ratios and 4-component files are refused with their own codes.
+//     conversion for RGB files (Adobe transform 0, or component ids R G B);
+//     CMYK comes out inverted, as Pillow reads it ("CMYK;I").
+// Arithmetic-coded, lossless, hierarchical and 12-bit files, YCCK and
+// sampling ratios other than 1x1, 2x1 and 2x2 are refused with their own
+// codes: no encoder at hand writes them, so nothing holds a decoder of them
+// to libjpeg.
 //
 // C interface (ctypes):
 //   int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
 //                   int64_t out_cap, int32_t *dims, char *err, int errlen)
 // dims receives (height, width, channels).  With out == NULL only the
 // headers are read (to size the output).  Returns 0, or an error code:
-//   1 corrupt or not a JPEG, 2 progressive / arithmetic / lossless,
-//   3 a baseline file whose form this decoder does not read;
+//   1 corrupt or not a JPEG, 2 arithmetic / lossless / hierarchical,
+//   3 a file whose form this decoder does not read (12-bit, YCCK, other
+//   sampling ratios);
 // err holds the message.
 #include <cstdint>
 #include <cstdio>
@@ -102,7 +113,11 @@ struct Component {
   int dw, dh;        // samples of the downsampled plane that are real
   int td, ta;        // the current scan's Huffman tables
   int pred;          // DC predictor
+  std::vector<int16_t> coef;   // bh*bw blocks of 64, natural order
   std::vector<uint8_t> plane;  // bh*8 rows of bw*8 samples
+  int16_t *block(int bx, int by) {
+    return coef.data() + ((size_t)by * bw + bx) * 64;
+  }
 };
 
 struct BitReader {
@@ -317,7 +332,9 @@ struct Decoder {
   int H = 0, W = 0, hmax = 1, vmax = 1, restart = 0;
   bool adobe = false;
   int adobe_transform = -1;
-  bool frame = false;
+  bool frame = false, progressive = false;
+  int ss = 0, se = 63, ah = 0, al = 0;  // the current scan's band and bits
+  unsigned eobrun = 0;
 
   void fail(int code, const std::string &msg) { throw Error{code, msg}; }
 
@@ -334,7 +351,7 @@ struct Decoder {
     W = (b[3] << 8) | b[4];
     int nc = b[5];
     if (H == 0 || W == 0) fail(3, "JPEG with a DNL height or zero size");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       fail(3, "JPEG with " + std::to_string(nc) + " components");
     if (len < 6 + 3 * nc) fail(1, "short SOF segment");
     comps.resize(nc);
@@ -358,14 +375,18 @@ struct Decoder {
       k.bh = my * k.v;
       k.dw = (W * k.h + hmax - 1) / hmax;
       k.dh = (H * k.v + vmax - 1) / vmax;
-      k.plane.assign((size_t)k.bw * 8 * k.bh * 8, 0);
+      k.coef.assign((size_t)k.bw * k.bh * 64, 0);
     }
     frame = true;
   }
 
   void decode_block(BitReader &br, Component &k, int bx, int by) {
-    int16_t coef[64];
-    memset(coef, 0, sizeof(coef));
+    if (progressive) {
+      decode_progressive(br, k, bx, by);
+      return;
+    }
+    int16_t *coef = k.block(bx, by);
+    memset(coef, 0, 64 * sizeof(int16_t));
     const Huff &dct = dc[k.td], &act = ac[k.ta];
     int s = decode_huff(br, dct);
     if (s) {
@@ -387,9 +408,97 @@ struct Decoder {
         kk += 15;
       }
     }
-    int stride = k.bw * 8;
-    idct_islow(coef, qt[k.tq], k.plane.data() + (size_t)by * 8 * stride +
-                                   bx * 8, stride);
+  }
+
+  // jdphuff.c: decode_mcu_DC_first / DC_refine / AC_first / AC_refine
+  void decode_progressive(BitReader &br, Component &k, int bx, int by) {
+    int16_t *coef = k.block(bx, by);
+    if (ss == 0) {
+      if (ah == 0) {
+        int s = decode_huff(br, dc[k.td]);
+        if (s) s = extend(br.get(s), s);
+        k.pred += s;
+        coef[0] = (int16_t)(k.pred * (1 << al));
+      } else if (br.get(1)) {
+        coef[0] = (int16_t)(coef[0] | (1 << al));
+      }
+      return;
+    }
+    const Huff &act = ac[k.ta];
+    if (ah == 0) {
+      if (eobrun > 0) {
+        eobrun--;
+        return;
+      }
+      for (int kk = ss; kk <= se; kk++) {
+        int s = decode_huff(br, act);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          kk += r;
+          s = extend(br.get(s), s);
+          coef[kNatural[kk]] = (int16_t)(s * (1 << al));
+        } else if (r == 15) {
+          kk += 15;
+        } else {
+          eobrun = 1u << r;
+          if (r) eobrun += br.get(r);
+          eobrun--;
+          break;
+        }
+      }
+      return;
+    }
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kk = ss;
+    auto correct = [&](int16_t *c) {
+      if (br.get(1) && (*c & p1) == 0) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+    };
+    if (eobrun == 0) {
+      for (; kk <= se; kk++) {
+        int s = decode_huff(br, act);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // a newly nonzero coefficient is +-1
+        } else if (r != 15) {
+          eobrun = 1u << r;
+          if (r) eobrun += br.get(r);
+          break;  // the rest of the band is the end-of-band logic's
+        }
+        do {  // over nonzero coefficients and r zero ones
+          int16_t *c = coef + kNatural[kk];
+          if (*c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          kk++;
+        } while (kk <= se);
+        if (s) coef[kNatural[kk]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; kk <= se; kk++) {
+        int16_t *c = coef + kNatural[kk];
+        if (*c != 0) correct(c);
+      }
+      eobrun--;
+    }
+  }
+
+  // every block of every component through the IDCT into its plane
+  void transform() {
+    for (Component &k : comps) {
+      int stride = k.bw * 8;
+      k.plane.assign((size_t)stride * k.bh * 8, 0);
+      for (int by = 0; by < k.bh; by++)
+        for (int bx = 0; bx < k.bw; bx++)
+          idct_islow(k.block(bx, by), qt[k.tq],
+                     k.plane.data() + (size_t)by * 8 * stride + bx * 8,
+                     stride);
+      std::vector<int16_t>().swap(k.coef);
+    }
   }
 
   // one scan; returns the position after its entropy-coded data
@@ -405,16 +514,29 @@ struct Decoder {
       if (!found) fail(1, "SOS names an unknown component");
       found->td = t >> 4;
       found->ta = t & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined ||
-          !ac[found->ta].defined)
-        fail(1, "SOS names an undefined Huffman table");
-      if (!qt_defined[found->tq]) fail(1, "undefined quantization table");
       found->pred = 0;
       sc.push_back(found);
     }
-    int ss = b[1 + 2 * ns], se = b[2 + 2 * ns], ahl = b[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahl != 0)
-      fail(1, "baseline scan with spectral selection or approximation");
+    ss = b[1 + 2 * ns];
+    se = b[2 + 2 * ns];
+    ah = b[3 + 2 * ns] >> 4;
+    al = b[3 + 2 * ns] & 15;
+    eobrun = 0;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail(1, "baseline scan with spectral selection or approximation");
+    } else if (se > 63 || ss > se || al > 13 || (ss == 0 && se != 0) ||
+               (ss > 0 && ns != 1)) {
+      fail(1, "bad progressive scan parameters");
+    }
+    bool need_dc = !progressive || (ss == 0 && ah == 0);
+    bool need_ac = !progressive || ss > 0;
+    for (Component *k : sc) {
+      if ((need_dc && (k->td > 3 || !dc[k->td].defined)) ||
+          (need_ac && (k->ta > 3 || !ac[k->ta].defined)))
+        fail(1, "SOS names an undefined Huffman table");
+      if (!qt_defined[k->tq]) fail(1, "undefined quantization table");
+    }
     BitReader br{data, n, pos};
     int64_t mcus_x, mcus_y;
     if (ns == 1) {
@@ -436,6 +558,7 @@ struct Decoder {
         br.pos = p + 2 <= n ? p + 2 : n;
         br.marker = false;
         for (Component *k : sc) k->pred = 0;
+        eobrun = 0;
         left = restart;
       }
       int64_t mx = m % mcus_x, my = m / mcus_x;
@@ -484,24 +607,24 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           if (frame) fail(1, "two frames");
+          progressive = m == 0xC2;
           read_frame(b, blen);
           if (headers_only) return;
           break;
-        case 0xC2:
-        case 0xC6:
-        case 0xCA:
-        case 0xCE:
-          fail(2, "progressive JPEG");
         case 0xC3:
         case 0xC7:
         case 0xCB:
         case 0xCF:
           fail(2, "lossless JPEG");
         case 0xC5:
+        case 0xC6:
+        case 0xCD:
+        case 0xCE:
           fail(2, "hierarchical JPEG");
         case 0xC9:
-        case 0xCD:
+        case 0xCA:
           fail(2, "arithmetic-coded JPEG");
         case 0xC4: {
           int i = 0;
@@ -576,6 +699,9 @@ extern "C" int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
     if (out == nullptr) return 0;
     int64_t H = d.H, W = d.W;
     if (out_cap < H * W * nc) d.fail(1, "output buffer too small");
+    if (nc == 4 && d.adobe && d.adobe_transform == 2)
+      d.fail(3, "YCCK JPEG");
+    d.transform();
     // each component at full size: upsampled (fancy) or copied
     std::vector<std::vector<uint8_t>> full(nc);
     for (int c = 0; c < nc; c++) {
@@ -635,6 +761,11 @@ extern "C" int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
     }
     if (nc == 1) {
       memcpy(out, full[0].data(), (size_t)H * W);
+      return 0;
+    }
+    if (nc == 4) {  // CMYK as libjpeg gives it, inverted as Pillow reads it
+      for (int64_t p = 0; p < H * W; p++)
+        for (int c = 0; c < 4; c++) out[4 * p + c] = (uint8_t)(255 - full[c][p]);
       return 0;
     }
     bool rgb = (d.adobe && d.adobe_transform == 0) ||

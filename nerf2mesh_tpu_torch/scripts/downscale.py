@@ -4,8 +4,8 @@ counterpart of scripts/downscale.py).
 
 Resizes with cv2's INTER_AREA filter in numpy (data/resize.py), the
 port's area filter, where the JAX script takes Pillow's LANCZOS; PNG and
-baseline JPEG frames are read and written with the port's codecs (Pillow
-where it imports).
+JPEG frames are read with the port's decoders and written with its
+codecs (PNGs through Pillow where it imports).
 
     python -m nerf2mesh_tpu_torch.scripts.downscale <scene dir> [--downscale 2 4 8]
 """
@@ -14,7 +14,7 @@ import argparse
 import glob
 import os
 
-from nerf2mesh_tpu_torch.data.jpeg import read_jpeg, save_jpeg
+from nerf2mesh_tpu_torch.data.jpeg import save_jpeg
 from nerf2mesh_tpu_torch.data.png import read_image, write_image
 from nerf2mesh_tpu_torch.data.resize import resize_area
 
@@ -35,7 +35,7 @@ def main(argv=None):
         os.makedirs(dst, exist_ok=True)
         for f in files:
             jpeg = f.lower().endswith(JPEG)
-            img = read_jpeg(f) if jpeg else read_image(f)
+            img = read_image(f)
             img = resize_area(img, img.shape[1] // k, img.shape[0] // k)
             out = os.path.join(dst, os.path.basename(f))
             if jpeg:

@@ -17,7 +17,6 @@ import os
 
 import numpy as np
 
-from nerf2mesh_tpu_torch.data.jpeg import read_jpeg
 from nerf2mesh_tpu_torch.data.png import read_image, write_image
 
 
@@ -51,8 +50,7 @@ def main(argv=None):
     files = sorted(sum((glob.glob(os.path.join(src, e))
                         for e in ("*.jpg", "*.png", "*.jpeg")), []))
     for f in files:
-        img = (read_jpeg(f) if f.lower().endswith((".jpg", ".jpeg"))
-               else read_image(f))
+        img = read_image(f)
         name = os.path.splitext(os.path.basename(f))[0] + ".png"
         write_image(os.path.join(dst, name), simple_mask(rgb(img)))
     print(f"[done] wrote {len(files)} masks to {dst}")

@@ -12,11 +12,15 @@ identical, so conversion is a rename and a copy.  The occupancy state
 (``render_state_from_jax``), and so do whole checkpoints of either stage:
 ``read_jax_checkpoint`` reads a JAX one without JAX (the stage-1 ``vert``
 label's moments included), ``write_jax_checkpoint`` writes a port payload
-as one the JAX package loads.
+as one the JAX package loads; ``read_orbax_checkpoint`` and
+``write_orbax_checkpoint`` do the same for the Orbax ``.ocp`` directories
+of ``--ckpt_backend orbax`` (utils/orbax.py).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import pickle
 from functools import lru_cache
 from typing import Any, Dict
@@ -53,16 +57,21 @@ def params_from_jax(np_tree: Any, device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.array(v), device=device) for k, v in flat.items()}
 
 
-def params_to_numpy(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def params_to_numpy(named: Dict[str, torch.Tensor],
+                    shapes_only: bool = False) -> Dict[str, Any]:
     """{name: tensor} (e.g. dict(module.named_parameters())) -> the JAX
-    pytree layout with numpy leaves; numeric path parts become list items."""
+    pytree layout with numpy leaves; numeric path parts become list items.
+    shapes_only: each leaf a read-only zero of the tensor's shape and dtype
+    that holds no memory (a template for matching shapes)."""
     tree: Dict[str, Any] = {}
     for name, t in named.items():
         *path, leaf = name.split(".")
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = t.detach().cpu().numpy()
+        node[leaf] = (np.broadcast_to(np.zeros((), str(t.dtype)[6:]),
+                                      tuple(t.shape)) if shapes_only
+                      else t.detach().cpu().numpy())
     return _listify(tree)
 
 
@@ -118,6 +127,10 @@ _RECORD_FIELDS = {
     "RenderState": ("density_grid", "occ_grid", "mean_density",
                     "iter_density"),
     "ScaleByAdamState": ("count", "mu", "nu"),
+    "ScaleByScheduleState": ("count",),
+    "PartitionState": ("inner_states",),
+    "MaskedState": ("inner_state",),
+    "MaskedNode": (),
 }
 _FOREIGN_ROOTS = ("jax", "jaxlib", "optax", "nerf2mesh_tpu")
 
@@ -300,3 +313,82 @@ def write_jax_checkpoint(payload: Dict[str, Any], path: str,
     out["state"] = jax_state(payload, seed)
     with open(path, "wb") as f:
         _JaxPickler(f, protocol=4).dump(out)
+
+
+# ------------------------------------------------------- Orbax checkpoints
+
+_LABELS = ("base", "slow", "vert")
+
+
+def write_orbax_checkpoint(payload: Dict[str, Any], path: str,
+                           seed: int = 0) -> None:
+    """Write a port checkpoint payload as the JAX trainer's Orbax
+    checkpoint directory (nerf2mesh_tpu/utils/trainer.py _save_orbax): the
+    TrainState tree of ``jax_state`` through utils/orbax.py, and
+    ``n2m_meta.json`` with the payload's other keys, the port's generator
+    states among them as JSON lists (JAX's loader ignores them)."""
+    from . import orbax
+    leaves = orbax.flatten(jax_state(payload, seed), _RECORD_FIELDS)
+    meta = {k: v for k, v in payload.items()
+            if k not in ("state", "framework", "rng")}
+    rng = payload.get("rng")
+    if rng is not None:
+        meta["rng"] = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                       for k, v in rng.items()}
+    files = {"n2m_meta.json": json.dumps(meta, default=float).encode()}
+    orbax.save_pytree(path, leaves, files)
+
+
+def read_orbax_checkpoint(path: str, live: Dict[str, Any],
+                          seed: int = 0) -> Dict[str, Any]:
+    """Read an Orbax checkpoint directory of either package into the plain
+    payload of ``read_jax_checkpoint``, with JAX's ``_tree_from_raw``
+    semantics: the leaves of `live` (the loading trainer's own payload, as
+    a TrainState; its parameters and moments may be shape-only templates,
+    ``Trainer._payload(shapes_only=True)``) are matched by key path, and
+    one that the checkpoint lacks or holds in another shape makes the
+    restore partial (``payload["partial"]``) and keeps the live value: a
+    parameter, EMA or moment leaf is left out of the payload, so that the
+    trainer's non-strict merge keeps its own; any other takes `live`'s."""
+    from . import orbax
+    raw = orbax.load_pytree(path)
+    got, ok = {}, True
+    for keys, leaf in orbax.flatten(jax_state(live, seed), _RECORD_FIELDS):
+        if leaf is orbax.MASKED:
+            continue
+        names = tuple(k for k, _ in keys)
+        r = raw.get(names)
+        if r is None or r.shape != np.shape(leaf):
+            ok = False
+            if names[0] in ("params", "ema_params", "opt_state"):
+                continue
+            r = np.asarray(leaf)
+        got[names] = r
+
+    def sub(head, n):
+        return {".".join(k[n:]): v for k, v in got.items()
+                if k[:n] == head}
+    mu, nu, count = {}, {}, 0
+    for label in _LABELS:
+        pre = ("opt_state", "inner_states", label, "inner_state", "0")
+        m = sub(pre + ("mu",), 6)
+        if m:                          # a partition with unmasked leaves
+            mu.update(m)
+            nu.update(sub(pre + ("nu",), 6))
+            count = int(got.get(pre + ("count",), 0))
+    payload = {"state": {
+        "params": sub(("params",), 1), "ema_params": sub(("ema_params",), 1),
+        "opt_state": {"count": count, "mu": mu, "nu": nu},
+        "ema_count": int(got[("ema_count",)]), "step": int(got[("step",)]),
+        "render": {k: got[("render", k)]
+                   for k in _RECORD_FIELDS["RenderState"]},
+        "key": got[("key",)]}, "partial": not ok}
+    mpath = os.path.join(path, "n2m_meta.json")
+    if os.path.exists(mpath):
+        with open(mpath) as f:
+            payload.update(json.load(f))
+    rng = payload.get("rng")
+    if rng is not None:
+        payload["rng"] = {k: (np.asarray(v, np.uint8) if isinstance(v, list)
+                              else v) for k, v in rng.items()}
+    return payload

@@ -67,8 +67,9 @@ eval images, videos and meshes while the others wait at a barrier; every
 rank loads a checkpoint.
 
 The trainer runs on the card unless the caller asks for another device.
-
-Not ported yet (NotImplementedError): orbax checkpoints (ROADMAP A6 (f)).
+Checkpoints are format-2 pickles, or under ``--ckpt_backend orbax`` the
+JAX trainer's Orbax ``.ocp`` directories (utils/orbax.py); loading takes
+either kind, the JAX package's included.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ import dataclasses
 import functools
 import os
 import pickle
+import shutil
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -96,9 +98,11 @@ from ..models.renderer import (GRID_UPDATE_SLABS, RenderSpec, eval_spacing,
 from ..ops.hashgrid import hashgrid_tv_loss
 from ..parallel import distributed
 from .convert import (flatten_params, param_label, params_to_numpy,
-                      read_jax_checkpoint, render_state_from_jax)
+                      read_jax_checkpoint, read_orbax_checkpoint,
+                      render_state_from_jax, write_orbax_checkpoint)
 from .losses import CRITERIA
 from .metrics import PSNRMeter
+from .orbax import copy_checkpoint
 
 
 def lr_schedule(cfg: Config):
@@ -1384,12 +1388,9 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def _ckpt_path(self, tag: str) -> str:
-        if self.cfg.ckpt_backend == "orbax":
-            raise NotImplementedError(
-                "orbax checkpoints are not ported yet (ROADMAP A6 (f)); use "
-                "--ckpt_backend pickle")
+        ext = ".ocp" if self.cfg.ckpt_backend == "orbax" else ".ckpt"
         return os.path.join(self.workspace, "checkpoints",
-                            f"ngp_stage{self.cfg.stage}_{tag}.ckpt")
+                            f"ngp_stage{self.cfg.stage}_{tag}{ext}")
 
     def _named_params(self) -> Dict[str, torch.Tensor]:
         """The trained tensors by their JAX pytree names: the field's, and
@@ -1399,9 +1400,12 @@ class Trainer:
             named["vertices_offsets"] = self.vertices_offsets
         return named
 
-    def _payload(self) -> Dict[str, object]:
+    def _payload(self, shapes_only: bool = False) -> Dict[str, object]:
         """The JAX format-2 payload in plain dicts, lists and numpy arrays
-        (see convert.read_jax_checkpoint), plus the torch generators."""
+        (see convert.read_jax_checkpoint), plus the torch generators;
+        shapes_only: the parameters, EMA and moments as shape-only zeros
+        (convert.params_to_numpy), a template that copies nothing from the
+        card."""
         named = self._named_params()
         mu, nu, count = {}, {}, 0
         for k, p in named.items():
@@ -1410,13 +1414,14 @@ class Trainer:
                 mu[k], nu[k] = st["exp_avg"], st["exp_avg_sq"]
                 count = int(st["step"])
             else:
-                mu[k] = nu[k] = torch.zeros_like(p)
+                mu[k] = nu[k] = p if shapes_only else torch.zeros_like(p)
         r = self.render
         state = {
-            "params": params_to_numpy(named),
-            "opt_state": {"count": count, "mu": params_to_numpy(mu),
-                          "nu": params_to_numpy(nu)},
-            "ema_params": params_to_numpy(self.ema_params),
+            "params": params_to_numpy(named, shapes_only),
+            "opt_state": {"count": count,
+                          "mu": params_to_numpy(mu, shapes_only),
+                          "nu": params_to_numpy(nu, shapes_only)},
+            "ema_params": params_to_numpy(self.ema_params, shapes_only),
             "ema_count": self.ema_count,
             "render": {"density_grid": r.density_grid.cpu().numpy(),
                        "occ_grid": r.occ_grid.cpu().numpy(),
@@ -1443,23 +1448,30 @@ class Trainer:
     @_rank0_only
     def save_checkpoint(self, tag: Optional[str] = None) -> str:
         """Write <workspace>/checkpoints/ngp_stage<s>_<tag>.ckpt (tag: the
-        step, 7 digits) and the _latest copy; keep the newest 2 step
-        checkpoints (reference utils.py:1373-1379).  Returns the path."""
+        step, 7 digits) and the _latest copy, or under ckpt_backend "orbax"
+        the .ocp directories JAX's trainer writes (convert.
+        write_orbax_checkpoint); keep the newest 2 step checkpoints of
+        either kind (reference utils.py:1373-1379).  Returns the path."""
         tag = tag or f"{self.step:07d}"
         path = self._ckpt_path(tag)
         cdir = os.path.dirname(path)
         os.makedirs(cdir, exist_ok=True)
         payload = self._payload()
-        for p in (path, self._ckpt_path("latest")):
-            with open(p + ".tmp", "wb") as f:
-                pickle.dump(payload, f)
-            os.replace(p + ".tmp", p)
+        if self.cfg.ckpt_backend == "orbax":
+            write_orbax_checkpoint(payload, path)
+            copy_checkpoint(path, self._ckpt_path("latest"))
+        else:
+            for p in (path, self._ckpt_path("latest")):
+                with open(p + ".tmp", "wb") as f:
+                    pickle.dump(payload, f)
+                os.replace(p + ".tmp", p)
         prefix = f"ngp_stage{self.cfg.stage}"
         steps = sorted(p for p in os.listdir(cdir)
-                       if p.startswith(prefix) and p.endswith(".ckpt")
+                       if p.startswith(prefix) and p.endswith((".ckpt", ".ocp"))
                        and "latest" not in p and "best" not in p)
         for p in steps[:-2]:
-            os.remove(os.path.join(cdir, p))
+            full = os.path.join(cdir, p)
+            shutil.rmtree(full) if os.path.isdir(full) else os.remove(full)
         return path
 
     def _merge(self, own: Dict[str, torch.Tensor], loaded, scope: str) -> bool:
@@ -1491,9 +1503,12 @@ class Trainer:
 
     def load_checkpoint(self, path: Optional[str] = None,
                         stage: Optional[int] = None) -> bool:
-        """Load a format-2 pickle checkpoint of the port or of the JAX
-        package (default: stage `stage`'s _latest, cfg.stage's unless
-        given); False if there is none.  Parameters, EMA and the density
+        """Load a format-2 pickle checkpoint or an Orbax .ocp directory of
+        the port or of the JAX package (default: stage `stage`'s _latest,
+        .ckpt before .ocp, cfg.stage's unless given); False if there is
+        none.  An .ocp is matched leaf by leaf against this trainer's own
+        state, as JAX's _tree_from_raw does: a leaf it lacks or holds in
+        another shape makes a partial restore.  Parameters, EMA and the density
         grid merge non-strictly (see _merge); saved vertex offsets of
         another stage-1 topology are dropped; the optimizer, step and EMA
         count carry over only from a clean checkpoint of the same stage,
@@ -1508,9 +1523,12 @@ class Trainer:
         if not os.path.exists(path):
             return False
         if os.path.isdir(path):
-            raise NotImplementedError(f"{path}: orbax checkpoints are not "
-                                      "ported yet (ROADMAP A6 (f))")
-        payload = read_jax_checkpoint(path)
+            payload = read_orbax_checkpoint(path, self._payload(True))
+            if payload["partial"]:
+                self.log("[WARN] orbax checkpoint schema drift: partial "
+                         "restore (matching arrays only; optimizer restarts)")
+        else:
+            payload = read_jax_checkpoint(path)
         st = payload["state"]
         params, ema = st["params"], st["ema_params"]
         ck_shape = payload.get("s1_shape")
@@ -1534,7 +1552,8 @@ class Trainer:
         else:
             self.log("[WARN] checkpoint render state shape drift; keeping "
                      "fresh occupancy grid")
-        if payload.get("stage", 0) == self.cfg.stage and clean:
+        if (payload.get("stage", 0) == self.cfg.stage and clean
+                and not payload.get("partial", False)):
             self._load_optimizer(named, st["opt_state"])
             self.step = int(st["step"])
             self.ema_count = int(st["ema_count"])

@@ -6,7 +6,10 @@ libraries and the JAX package's readers, on the CPU at small sizes.
   restart intervals, at 67x45: within 1 of 255 of Pillow's decode
   everywhere and equal on at least 99% of the values (the share is
   printed; it is 100% where libjpeg's islow IDCT, fancy upsampling and
-  fixed-point colour conversion are matched).  Progressive files raise.
+  fixed-point colour conversion are matched).  Progressive files (DC and
+  AC scans, first and refine, end-of-band runs, restart intervals), grey
+  and CMYK: byte-equal to Pillow's decode; arithmetic-coded and 12-bit
+  files raise.
 * JPEG encode: the port's 4:2:0 and 4:2:2 files carry those sampling
   factors and decode in Pillow within the 40 dB floor of
   tests/test_torch_jpeg.py, or within 0.1 dB of Pillow's own file at the
@@ -23,9 +26,14 @@ libraries and the JAX package's readers, on the CPU at small sizes.
   (pixels and weights equal, depths to rtol 1e-6) and dense depth from
   exact affine maps with outliers (within 1e-4 relative of JAX's, which
   fits with cv2 and sklearn).
+* The committed progressive capture (nerf2mesh_tpu_torch/fixtures/
+  progressive, written by ``python tests/test_torch_captures.py``): its
+  hashes still equal Pillow's decode, the port's decode equals them, and
+  the blender provider reads it as JAX's does.
 """
 
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -105,10 +113,23 @@ def test_decoder_matches_pillow(sampling, quality, restart):
 
 
 def test_decoder_refuses_progressive_and_garbage():
+    """Progressive files read (test_progressive_decoder_matches_pillow);
+    what is still refused: arithmetic coding and 12-bit samples, which no
+    encoder at hand writes (the SOF marker or precision of a baseline file
+    rewritten), and garbage."""
     buf = io.BytesIO()
     Image.fromarray(photo(32, 40)).save(buf, "JPEG", progressive=True)
-    with pytest.raises(NotImplementedError, match="A6 \\(a'\\)"):
-        jpeg.decode_jpeg(buf.getvalue())
+    with Image.open(buf) as im:
+        np.testing.assert_array_equal(jpeg.decode_jpeg(buf.getvalue()),
+                                      np.asarray(im))
+    buf = io.BytesIO()
+    Image.fromarray(photo(32, 40)).save(buf, "JPEG")
+    base = buf.getvalue()
+    sof = base.index(b"\xff\xc0")
+    for patched in (base[:sof + 1] + b"\xc9" + base[sof + 2:],   # SOF9
+                    base[:sof + 4] + b"\x0c" + base[sof + 5:]):  # 12-bit
+        with pytest.raises(NotImplementedError, match="ROADMAP A6 \\(g\\)"):
+            jpeg.decode_jpeg(patched)
     with pytest.raises(ValueError):
         jpeg.decode_jpeg(b"not a jpeg")
     # a Huffman table with more codes than its lengths allow (3 of 1 bit)
@@ -120,6 +141,33 @@ def test_decoder_refuses_progressive_and_garbage():
     data[i:i + 16] = bytes([3, n - 3] + [0] * 14)
     with pytest.raises(ValueError, match="bad Huffman table"):
         jpeg.decode_jpeg(bytes(data))
+
+
+@pytest.mark.parametrize("form", ["rgb", "grey", "cmyk"])
+@pytest.mark.parametrize("options", [
+    dict(progressive=True), dict(progressive=True, optimize=True),
+    dict(progressive=True, restart_marker_blocks=3),
+    dict(progressive=True, restart_marker_rows=1, optimize=True),
+    dict(optimize=True)])
+def test_progressive_decoder_matches_pillow(form, options):
+    """Progressive files of Pillow's writer (its scan script: DC first and
+    refine, spectral bands, successive approximation), optimized Huffman
+    tables, restart intervals, at 4:4:4, 4:2:2 and 4:2:0, grey and CMYK,
+    odd sizes: byte-equal to Pillow's decode, dtype and shape included."""
+    for i, (H, W) in enumerate(((67, 45), (1, 1), (17, 250), (64, 64))):
+        c = {"rgb": 3, "grey": 1, "cmyk": 4}[form]
+        img = photo(H, W, c, seed=i)
+        im = (Image.fromarray(img[..., 0]) if c == 1 else
+              Image.fromarray(img, "CMYK") if c == 4 else Image.fromarray(img))
+        for sub in ((0, 1, 2) if c == 3 else (-1,)):
+            buf = io.BytesIO()
+            im.save(buf, "JPEG", quality=(50, 90)[i % 2], subsampling=sub,
+                    **options)
+            with Image.open(io.BytesIO(buf.getvalue())) as f:
+                want = np.asarray(f)
+            got = jpeg.decode_jpeg(buf.getvalue())
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want, err_msg=str((H, W, sub)))
 
 
 def test_decoder_reads_odd_sizes_and_tiny_chroma():
@@ -400,3 +448,68 @@ def test_dense_depth_without_maps_raises(tmp_path):
     with pytest.raises(RuntimeError, match="dense depth missing"):
         tload_colmap(_tcfg(root, ["--data_format", "colmap",
                                   "--enable_dense_depth"]), "train")
+
+
+# ------------------------------------------------- the progressive capture
+FIXTURES = REPO / "nerf2mesh_tpu_torch" / "fixtures"
+CAPTURE = FIXTURES / "progressive"
+CAPTURE_VIEWS = dict(n_train=8, n_val=2, n_test=2)
+
+
+def _sha(a):
+    return {"sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes())
+            .hexdigest(), "dtype": str(a.dtype), "shape": list(a.shape)}
+
+
+def write_progressive_fixture(out_dir=CAPTURE):
+    """Writes the committed capture: the synthetic blender scene at 256^2,
+    12 views (8 train, 2 val, 2 test), each saved by Pillow as a
+    progressive 4:2:0 JPEG (quality 75, optimized tables) of its RGBA over
+    a white background, the transforms pointing at the .jpg files; and progressive.json, the
+    SHA-256, dtype and shape of each file's np.asarray(Image.open(...))."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    root = jgen(os.path.join(tmp, "scene"), H=256, W=256, **CAPTURE_VIEWS)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    hashes = {}
+    for split in ("train", "val", "test"):
+        meta = json.loads(Path(root, f"transforms_{split}.json").read_text())
+        (out_dir / split).mkdir(parents=True)
+        for fr in meta["frames"]:
+            src = Path(root, fr["file_path"] + ".png")
+            rel = fr["file_path"].lstrip("./") + ".jpg"
+            with Image.open(src) as im:
+                rgba = np.asarray(im.convert("RGBA"), np.float32) / 255
+            rgb = rgba[..., :3] * rgba[..., 3:] + 1 - rgba[..., 3:]
+            Image.fromarray(np.round(rgb * 255).astype(np.uint8)).save(
+                out_dir / rel, "JPEG", quality=75, progressive=True,
+                optimize=True)
+            with Image.open(out_dir / rel) as im:
+                hashes[rel] = _sha(np.asarray(im))
+            fr["file_path"] = "./" + rel
+        Path(out_dir, f"transforms_{split}.json").write_text(
+            json.dumps(meta, indent=1) + "\n")
+    (FIXTURES / "progressive.json").write_text(
+        json.dumps(hashes, indent=1) + "\n")
+    shutil.rmtree(tmp)
+
+
+def test_committed_progressive_capture():
+    want = json.loads((FIXTURES / "progressive.json").read_text())
+    assert len(want) == sum(CAPTURE_VIEWS.values())
+    for rel, h in want.items():
+        data = (CAPTURE / rel).read_bytes()
+        assert data[:2] == b"\xff\xd8" and b"\xff\xc2" in data, rel
+        with Image.open(io.BytesIO(data)) as im:
+            assert _sha(np.asarray(im)) == h, rel
+        assert _sha(jpeg.decode_jpeg(data)) == h, rel
+    jcfg = jparse([str(CAPTURE), "--bound", "1", "--scale", "0.8"])
+    tcfg = tparse([str(CAPTURE), "--bound", "1", "--scale", "0.8"])
+    for split in ("train", "val"):
+        j, t = jload(jcfg, split), tload(tcfg, split)
+        np.testing.assert_array_equal(t.images, j.images)
+        np.testing.assert_array_equal(t.poses, j.poses)
+
+
+if __name__ == "__main__":
+    write_progressive_fixture()

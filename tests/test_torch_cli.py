@@ -5,7 +5,8 @@ writes and reads the scene and the eval images, the video falls back to an
 phase, and the two-stage flow (mesh export, stage 1 with a refine, the
 textured export, --test and a reload); the unbounded flow on a COLMAP
 capture at bound 4 (three cascades, the views' near/far); stage-1
-checkpoints between the JAX package and the port both ways; mlp.json through the viewer emulation; and
+checkpoints between the JAX package and the port both ways; mlp.json through the viewer emulation; the
+orbax backend's round trip; and
 the CLI's and the Trainer's refusal to run without a card unless the
 caller asks for the CPU.
 """
@@ -426,13 +427,20 @@ def test_unported_cli_paths_raise(tmp_path):
                               log2_hashmap_size=12, grid_size=16,
                               workspace=str(tmp_path / "ws"),
                               ckpt_backend="orbax").finalize()
+    # orbax checkpoints are ported: the .ocp directory round-trips, and a
+    # zarr3 one (which the JAX trainer never writes) still raises
     t = Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.save_checkpoint()
-    (tmp_path / "ws" / "checkpoints" / "ngp_stage0_latest.ocp").mkdir(
-        parents=True)
-    with pytest.raises(NotImplementedError):
-        t.load_checkpoint()
+    t.step = 3
+    t.save_checkpoint()
+    ocp = tmp_path / "ws" / "checkpoints" / "ngp_stage0_latest.ocp"
+    assert (ocp / "_METADATA").is_file()
+    t2 = Trainer(cfg, device="cpu")
+    assert t2.load_checkpoint() and t2.step == 3
+    meta = (ocp / "_METADATA").read_text()
+    (ocp / "_METADATA").write_text(meta.replace('"use_zarr3": false',
+                                                '"use_zarr3": true'))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        t2.load_checkpoint()
 
 
 def test_stage1_export_matches_jax(tmp_path):

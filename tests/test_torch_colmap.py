@@ -182,8 +182,9 @@ def test_colmap_reader_options_match_jax(scenes, tmp_path):
 
 def test_unported_colmap_options_raise(scenes, tmp_path, monkeypatch):
     """Depth supervision, resizing and JPEG captures without Pillow are
-    ported (A6 (a)-(c); against JAX in tests/test_torch_captures.py); a
-    progressive JPEG without Pillow still raises, naming A6 (a')."""
+    ported (A6 (a)-(c); against JAX in tests/test_torch_captures.py), and
+    so are progressive JPEG captures (A6 (a')): both read without Pillow
+    as JAX's loader reads them with it."""
     from PIL import Image
     _, troot = scenes
     assert len(tload(tparse([troot, "--enable_sparse_depth"]),
@@ -210,14 +211,9 @@ def test_unported_colmap_options_raise(scenes, tmp_path, monkeypatch):
             os.remove(src)
             ims[k] = dataclasses.replace(im, name=jpg)
         tcu.write_images_binary(ims, sp)
-        with_pil = tload(tparse([root]), "train").images
+        with_pil = jload(jparse([root]), "train").images
         assert with_pil.shape == (8, 32, 32, 3)
         with monkeypatch.context() as m:
             m.setitem(sys.modules, "PIL", None)
-            if progressive:
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP A6 \\(a'\\)"):
-                    tload(tparse([root]), "train")
-            else:
-                np.testing.assert_array_equal(
-                    tload(tparse([root]), "train").images, with_pil)
+            np.testing.assert_array_equal(
+                tload(tparse([root]), "train").images, with_pil)

@@ -214,16 +214,17 @@ def test_port_training_loss_falls(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    # the trainer options are ported: each builds a trainer; orbax still
-    # raises naming its item when a checkpoint is written
+    # the trainer options are ported: each builds a trainer; so is orbax,
+    # whose checkpoint is the JAX trainer's .ocp directory
     for kw in (dict(enable_sparse_depth=True), dict(enable_dense_depth=True),
                dict(patch_size=4), dict(color_space="linear"),
                dict(ind_dim=4), dict(trainable_density_grid=True)):
         ttr.Trainer(tiny(TConfig, **kw), device="cpu")
     t = ttr.Trainer(tiny(TConfig, ckpt_backend="orbax"), device="cpu",
                     workspace=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t.save_checkpoint()
+    path = t.save_checkpoint()
+    assert path.endswith("ngp_stage0_0000000.ocp") and os.path.isfile(
+        os.path.join(path, "manifest.ocdbt"))
     cfg = tiny(TConfig)
     ds = dataset_from_frames(cfg, render_synthetic_frames(**SCENE))
     # the stage-1 eval is ported; without a stage-1 mesh it says so
