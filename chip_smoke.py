@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero:
      plus K2 + the residual against the plain hashgrid_encode; K3's global
      vector adds counted, and K3 on a hot spot (16 tiles inside one level-0
      lattice cell); K7 (the TPU's timing variants of K2, on no path):
-     inwin_dense_deep, _const_rows and _four_tiles on K2's points at level
-     6; K6 on a long run (2048 points in one level-15 block); K5
+     inwin_dense_deep, _const_rows and _four_tiles (wgmma, 3xTF32) on K2's
+     points at levels 6 and 8, timed at 6 beside the dense product's floor
+     and a torch.bmm yardstick of its contraction; K6 on a long run (2048 points in one level-15 block); K5
      winsort_fwd and K6 winsort_bwd against theirs on 2^18 uniform points
      (with out-of-bounds and block-edge points) at winsort levels 7-15,
      K5 also on 16 tight clusters, a 2^15-point run of one window, 4096 and
@@ -374,6 +375,7 @@ TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
 # cores) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12      # dense, on the tensor cores
 
 
 def trilinear_flops(n_point_levels: int, channels: int = 3) -> int:
@@ -712,7 +714,7 @@ def phase_kernels(dev):
         plain_ms=cuda_time_ms(lambda: se.inwin_bwd_plain(g, *bargs)),
         bound=bound(N * Lk * 12 + meta + spec.table_size * 12,
                     trilinear_flops(N * Lk))))
-    results += dense_kernels(table, x, bases[6], rows[6], spec, 6,
+    results += dense_kernels(table, x, bases, rows, spec,
                              bound(level_rows(spec, (6,)) * 12 + (bases.numel()
                                    + rows.numel()) * 4 // Lk + x.numel() * 4
                                    + N * 12, trilinear_flops(N)))
@@ -728,32 +730,65 @@ def phase_kernels(dev):
     return results
 
 
-def dense_kernels(table, x, bases, rows, spec, level, k7_bound):
+def dense_kernels(table, x, bases, rows, spec, k7_bound, level=6,
+                  held=(6, 8)):
     """K7b, K7c and K7d (the TPU's timing variants of K2, on no path) on
-    K2's points at one level against their plain versions, each beside K2's
-    bound at that level (the same work, whatever implements it)."""
+    K2's points against their plain versions at each level of `held` (8 is
+    the first level with a same-window slot pair, whose window is staged
+    twice), and timed at `level` beside K2's bound there (the same work,
+    whatever implements it), the dense product's own floor (its flops as
+    three tf32 products on the tensor cores, and as one fp32 product on the
+    fp32 cores) and torch.bmm of its operands (a yardstick of the
+    contraction alone: no wx, no staging)."""
     from nerf2mesh_tpu_torch.ops import inwin_variants as iv
+    variants = (("inwin_dense_deep", True, iv.inwin_dense_plain),
+                ("inwin_dense_const_rows", False,
+                 iv.inwin_dense_const_rows_plain),
+                ("inwin_dense_four_tiles", True, iv.inwin_dense_plain))
+
+    def args_of(l, with_rows):
+        return ((table, x, bases[l], rows[l], spec, l) if with_rows
+                else (table, x, bases[l], spec, l))
+    errs = collections.defaultdict(float)
+    for l in held:
+        for name, with_rows, plain in variants:
+            a = args_of(l, with_rows)
+            err = float((getattr(iv, name)(*a) - plain(*a)).abs().max())
+            log(f"[kernels] K7 {name} at level {l}: max|err| {err:.3e}")
+            if not err <= TOL["inwin_dense"][0]:
+                raise AssertionError(f"K7 {name} at level {l} disagrees: {err}")
+            errs[name] = max(errs[name], err)
+    N = x.shape[0]
+    flops = 2 * 48 * 256 * N                 # [48, 256] x [256, 128] a tile
+    log(f"[kernels] K7 dense product at level {level}: {flops / 1e9:.3f} "
+        f"GFLOP; floor {3 * flops / TF32_FLOPS_PER_S * 1e3:.4f} ms as 3xTF32 "
+        f"on the tensor cores, {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms on the "
+        f"fp32 cores; K2's bound at the level {k7_bound[0]:.4f} ms "
+        f"({k7_bound[1]})")
+    a, b, _ = iv.dense_operands(table, x, bases[level], rows[level], spec,
+                                level)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            log(f"[kernels] K7 yardstick, contraction only, not the function: "
+                f"torch.bmm {list(a.shape)} x {list(b.shape)} fp32 with "
+                f"allow_tf32={tf32}: "
+                f"{cuda_time_ms(lambda: torch.bmm(a, b)):.4f} ms")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    del a, b
     res = []
-    for name, args, plain in (
-            ("inwin_dense_deep", (table, x, bases, rows, spec, level),
-             iv.inwin_dense_plain),
-            ("inwin_dense_const_rows", (table, x, bases, spec, level),
-             iv.inwin_dense_const_rows_plain),
-            ("inwin_dense_four_tiles", (table, x, bases, rows, spec, level),
-             iv.inwin_dense_plain)):
-        fn = getattr(iv, name)
-        err = float((fn(*args) - plain(*args)).abs().max())
-        log(f"[kernels] K7 {name} at level {level}: max|err| {err:.3e}")
-        if not err <= TOL["inwin_dense"][0]:
-            raise AssertionError(f"K7 {name} disagrees: {err}")
+    for name, with_rows, plain in variants:
+        fn, a = getattr(iv, name), args_of(level, with_rows)
         res.append(dict(
             name=name, route="cuda",
             source="nerf2mesh_tpu_torch/csrc/inwin_dense.cu",
             replaces="workspace/ab/microbench_kernel_variants.py:" + {
                 "inwin_dense_deep": "64", "inwin_dense_const_rows": "109",
                 "inwin_dense_four_tiles": "149"}[name],
-            max_abs_err=err, ms=cuda_time_ms(lambda: fn(*args)),
-            plain_ms=cuda_time_ms(lambda: plain(*args)), bound=k7_bound))
+            max_abs_err=errs[name], ms=cuda_time_ms(lambda: fn(*a)),
+            plain_ms=cuda_time_ms(lambda: plain(*a)), bound=k7_bound))
     return res
 
 

@@ -1,17 +1,16 @@
 """A/B timing of K2 (``inwin_fwd``) and K1 (``occ_lookup``) of one
 checkout, with K3 (``inwin_bwd``) beside them, on fixed inputs and in
 profiled windows of stage-0 training and eval (chip_smoke's phases 4-5);
-in a checkout that has them, also K7 (``ops/inwin_variants``) and a
-tensor-core build of K7b (``inwin_dense_tf32.cu`` beside this file).
+in a checkout that has them, also K7 (``ops/inwin_variants``).
 
     python3 nerf2mesh_tpu_torch/tools/ab_inwin.py [--tree DIR] [--out FILE]
+        [--only k7]
 
 DIR is the root of a checkout (default: the one that holds this file). Its
 package and its ``chip_smoke.py`` are imported, so one script times two
 commits: run it once per checkout in the order a, b, b, a, one after
-another on one card. Needs a CUDA card (and nvcc for the tensor-core
-build); imports only torch, numpy, the checkout and ``ab_table_grads.py``
-beside this file.
+another on one card. Needs a CUDA card; imports only torch, numpy, the
+checkout and ``ab_table_grads.py`` beside this file.
 
 K2 inputs, at the full block512 table (16 levels, 2^19 rows a level,
 finest resolution 2048), morton-sorted, each at kernel levels 0-6 (where
@@ -41,9 +40,11 @@ then 8 more steps and one more frame run under torch.profiler: wall,
 device busy time, idle share, kernel count, and the device time and
 launches of K1, K2 and K3 a step and a frame.
 
-K7 (the change only): inwin_dense_deep, _const_rows and _four_tiles at
-level 6 on the half_shell points, and the TF32 build of the deep product,
-whose largest error against the plain version is logged, not bounded.
+K7: inwin_dense_deep, _const_rows and _four_tiles at levels 6 and 8 (8
+stages one window twice in the same-window tile) on the half_shell points,
+each checked (atol 1e-5), then timed through the wrapper and through the C
+entry point alone, with K2 at the one level beside them (bare).  ``--only
+k7`` times K7 alone (~15 s a run): the A/B of two K7 bodies.
 
 Prints one line a measurement and, last, one JSON object; ``--out`` also
 appends that object to FILE.
@@ -70,7 +71,7 @@ N_POINTS = 2 ** 18
 LEVEL_SETS = (tuple(range(7)), tuple(range(9)))
 TRAIN_STEPS = 128
 PROFILE_STEPS = 8
-K7_LEVEL = 6
+K7_LEVELS = (6, 8)
 ATOL = 1e-5
 
 
@@ -277,65 +278,58 @@ def training_run(cs, se, sampling, occ_sweep, spec, table, dev, rng, res):
     abt.log(f"[ab] training and eval: {res['training']}")
 
 
-def k7(tree, spec, table, x, dev):
-    """K7's variants and the TF32 build of K7b at K7_LEVEL."""
+def bare_k7(name, table, x, bases, rows, spec, level):
+    """K7 variant `name` through the checkout's C entry point alone."""
     from nerf2mesh_tpu_torch import kernels
-    from nerf2mesh_tpu_torch.kernels import build as kbuild
+    from nerf2mesh_tpu_torch.ops import inwin_variants as iv
+    lib = kernels.load()
+    out = torch.empty((x.shape[0], 1, 3), device=x.device)
+    stream = kernels.current_stream_handle(x.device)
+    args = (iv.VARIANTS[name], table.data_ptr(), x.data_ptr(),
+            bases.data_ptr(), rows.data_ptr(), spec.level_scale32(level),
+            int(spec.offsets[level]), float(spec.shift), x.shape[0],
+            x.shape[0] // 128, out.data_ptr(), stream)
+
+    def run():
+        code = lib.n2m_inwin_dense(*args)
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+    return run, out
+
+
+@torch.no_grad()
+def k7(spec, table, x):
+    """K7's variants at K7_LEVELS: checked, timed (wrapper and bare)."""
     from nerf2mesh_tpu_torch.ops import inwin_variants as iv
     from nerf2mesh_tpu_torch.ops import splat_encode as se
-    bases, rows = se.tile_meta(x.reshape(-1, se.TILE, 3), spec, K7_LEVEL)
     res = {}
-    for name, args, plain in (
-            ("inwin_dense_deep", (table, x, bases, rows, spec, K7_LEVEL),
-             iv.inwin_dense_plain),
-            ("inwin_dense_const_rows", (table, x, bases, spec, K7_LEVEL),
-             iv.inwin_dense_const_rows_plain),
-            ("inwin_dense_four_tiles", (table, x, bases, rows, spec, K7_LEVEL),
-             iv.inwin_dense_plain)):
-        fn = getattr(iv, name)
-        err = float((fn(*args) - plain(*args)).abs().max())
-        if not err <= ATOL:
-            raise AssertionError(f"{name} out of tolerance: {err}")
-        res[name] = dict(max_abs_err=err, ms=abt.cuda_time_ms(lambda: fn(*args)))
-    run, _ = bare_k2(table, x, bases[None].contiguous(),
-                     rows[None].contiguous(), spec, (K7_LEVEL,))
-    res["inwin_fwd_one_level_bare"] = dict(ms=abt.cuda_time_ms(run))
-
-    lib_path = Path(tree) / "workspace" / "runs" / "libinwin_tf32.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    src = Path(__file__).resolve().parent / "inwin_dense_tf32.cu"
-    cmd = [kbuild.find_nvcc(), "-Xptxas=-v", *kbuild.NVCC_FLAGS, "-shared",
-           "-I", str(kbuild.SRC_DIR), "-o", str(lib_path), str(src)]
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(out.stdout + out.stderr)
-    abt.log("[ab] tf32 build: " + "; ".join(
-        ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-        if "registers" in ln))
-    lib = ctypes.CDLL(str(lib_path))
-    P = ctypes.c_void_p
-    lib.n2m_inwin_dense_tf32.argtypes = [P, P, P, P, ctypes.c_float,
-                                         ctypes.c_int, ctypes.c_float,
-                                         ctypes.c_int64, ctypes.c_int64, P, P]
-    lib.n2m_inwin_dense_tf32.restype = ctypes.c_int
-    o = torch.empty((x.shape[0], 1, 3), device=dev)
-    b, r = bases.contiguous(), rows.contiguous()
-
-    def tf32():
-        code = lib.n2m_inwin_dense_tf32(
-            table.data_ptr(), x.data_ptr(), b.data_ptr(), r.data_ptr(),
-            spec.level_scale32(K7_LEVEL), int(spec.offsets[K7_LEVEL]),
-            float(spec.shift), x.shape[0], x.shape[0] // se.TILE,
-            o.data_ptr(), kernels.current_stream_handle(dev))
-        if code:
-            raise RuntimeError(f"tf32 build: CUDA error {code}")
-
-    tf32()
-    torch.cuda.synchronize()
-    res["tf32_deep"] = dict(
-        max_abs_err=float((o - iv.inwin_dense_plain(table, x, b, r, spec,
-                                                    K7_LEVEL)).abs().max()),
-        ms=abt.cuda_time_ms(tf32))
+    for level in K7_LEVELS:
+        bases, rows = se.tile_meta(x.reshape(-1, se.TILE, 3), spec, level)
+        crows = iv.const_rows(bases.shape[0], x.device)
+        for name, args, plain in (
+                ("inwin_dense_deep", (table, x, bases, rows, spec, level),
+                 iv.inwin_dense_plain),
+                ("inwin_dense_const_rows", (table, x, bases, spec, level),
+                 iv.inwin_dense_const_rows_plain),
+                ("inwin_dense_four_tiles", (table, x, bases, rows, spec,
+                                            level), iv.inwin_dense_plain)):
+            fn = getattr(iv, name)
+            want = plain(*args)
+            run, out = bare_k7(name, table, x, bases, (
+                crows if name == "inwin_dense_const_rows" else rows), spec,
+                level)
+            run()
+            err = max(float((fn(*args) - want).abs().max()),
+                      float((out - want).abs().max()))
+            if not err <= ATOL:
+                raise AssertionError(f"{name} out of tolerance: {err}")
+            res[f"{name}_L{level}"] = dict(
+                max_abs_err=err, ms=abt.cuda_time_ms(lambda: fn(*args)),
+                bare_ms=abt.cuda_time_ms(run))
+        run, _ = bare_k2(table, x, bases[None].contiguous(),
+                         rows[None].contiguous(), spec, (level,))
+        res[f"inwin_fwd_one_level_bare_L{level}"] = dict(
+            ms=abt.cuda_time_ms(run))
     return res
 
 
@@ -344,6 +338,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
                     help="root of the checkout to time")
     ap.add_argument("--out", help="append the JSON result to this file")
+    ap.add_argument("--only", choices=("k7",),
+                    help="time K7 alone (the two checkouts must have it)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         abt.log("ab_inwin: no CUDA device")
@@ -377,7 +373,24 @@ def main(argv=None) -> int:
             for k, v in abt.point_sets(rng, N_POINTS).items()}
     sets["small"] = sort(se, torch.from_numpy(
         rng.uniform(0, 1, (4096, 3)).astype(np.float32)).to(dev))
-    res = dict(tree=tree, card=card, k2={}, k3={}, k1={})
+    res = dict(tree=tree, card=card)
+    if args.only is None:
+        k2_k3_k1(cs, se, sampling, occ_sweep, spec, table, sets, dev, rng,
+                 res)
+    if os.path.exists(os.path.join(pkg, "ops", "inwin_variants.py")):
+        res["k7"] = r = k7(spec, table, sets["half_shell"])
+        abt.log(f"[ab] K7 at levels {K7_LEVELS} (half_shell): {r}")
+    line = json.dumps(res)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+def k2_k3_k1(cs, se, sampling, occ_sweep, spec, table, sets, dev, rng, res):
+    """K2 on every point set, K3, K1, and the training window, into res."""
+    res.update(k2={}, k3={}, k1={})
     for name, x in sets.items():
         res["k2"][name] = r = k2_case(se, table, x, spec)
         abt.log(f"[ab] K2 {name}: {r}")
@@ -394,15 +407,6 @@ def main(argv=None) -> int:
         lambda: occ_sweep.pack_bits(grid))
     abt.log(f"[ab] K1 random: {r}; pack_bits {res['k1']['pack_bits_ms']:.4f} ms")
     training_run(cs, se, sampling, occ_sweep, spec, table, dev, rng, res)
-    if os.path.exists(os.path.join(pkg, "ops", "inwin_variants.py")):
-        res["k7"] = r = k7(tree, spec, table, sets["half_shell"], dev)
-        abt.log(f"[ab] K7 at level {K7_LEVEL} (half_shell): {r}")
-    line = json.dumps(res)
-    print(line)
-    if args.out:
-        with open(args.out, "a") as f:
-            f.write(line + "\n")
-    return 0
 
 
 if __name__ == "__main__":

@@ -95,6 +95,54 @@ def test_const_rows():
     assert r[2].tolist() == [0, 1, 0, 1, 0, 1, 0, 1]
 
 
+def _tf32(v):
+    """cvt.rna.tf32.f32: v rounded to 10 mantissa bits, to nearest with
+    ties away from zero (the sign stands apart from the magnitude bits)."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def test_tf32_rounding_model():
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
+    assert _tf32(v).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                                 -(1.0 + 2.0 ** -10), 1.0, 3.0]
+
+
+@pytest.mark.parametrize("probe", [False, True])
+def test_dense_3xtf32_model(probe):
+    """The kernels' arithmetic on K7's dense operands at a hashed level:
+    the 3xTF32 product (A_lo B_hi + A_hi B_lo + A_hi B_hi in fp32, tf32
+    products exact) stays within the kernels' atol 1e-5 of the plain
+    version with the table in [-1, 1]; one tf32 product does not; the
+    operands in fp32 give the plain version."""
+    _, ts = specs(14)
+    l = 4
+    table = T(uniform_table(ts))
+    x = T(sorted_points(2048))
+    bases, rows = _level_inputs(ts, x.numpy(), l)
+    if probe:
+        rows = iv.const_rows(bases.shape[0])
+        want = iv.inwin_dense_const_rows_plain(table, x, bases, ts, l)
+    else:
+        want = iv.inwin_dense_plain(table, x, bases, rows, ts, l)
+    a, b, wx = iv.dense_operands(table, x, bases, rows, ts, l)
+    assert tuple(a.shape) == (16, 128, 256) and tuple(b.shape) == (16, 256, 48)
+    assert float(want.abs().max()) > 0.5
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    split3 = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    def err(prod):
+        return float((iv.dense_features(prod, wx) - want).abs().max())
+    assert err(a @ b) <= 2e-6
+    assert err(split3) <= 1e-5
+    assert err(a_hi @ b_hi) > 1e-5
+
+
 def _dense_args():
     _, ts = specs(14)
     x = T(sorted_points(256))

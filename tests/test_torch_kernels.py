@@ -241,12 +241,16 @@ def test_occ_lookup_kernel_sampler_cells(dev):
     assert torch.equal(got, occ.reshape(-1)[idx.long()].to(torch.int32))
 
 
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
 @pytest.mark.parametrize("name", list(iv.VARIANTS))
-def test_inwin_dense_kernels_match_plain(dev, name):
+def test_inwin_dense_kernels_match_plain(dev, name, scale):
     """K7b, K7c and K7d against their plain versions at a hashed level of
     SPEC, on the inputs with the same-window tile (15 tiles: a ragged last
-    block of K7d)."""
+    block of K7d), with the table in [-1, 1] and scaled to the hash grid's
+    init scale, 1e-4 (the atol scaled with it: the 3xTF32 split's error is
+    relative)."""
     table, x, bases, rows, _ = _inputs(dev, n=1920)
+    table = table * scale
     l = 3
     args = ((table, x, bases[l], SPEC, l) if name == "inwin_dense_const_rows"
             else (table, x, bases[l], rows[l], SPEC, l))
@@ -257,8 +261,8 @@ def test_inwin_dense_kernels_match_plain(dev, name):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     ref = plain(*args)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-    assert float(ref.abs().max()) > 0.1
+    torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
+    assert float(ref.abs().max()) > 0.1 * scale
 
 
 WS_LEVELS = (3, 4, 5)          # the hashed levels of SPEC
