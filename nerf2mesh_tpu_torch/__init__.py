@@ -19,11 +19,13 @@ frequency encoders; the dtu format and the single transforms.json,
 ``--vis_pose``, data-parallel training over torch.distributed ranks
 (``parallel/distributed.py``), the HTTP viewer (``viewer.py``), the entry
 analogue (``entry.py``) and the recipes (``scripts/``); Orbax ``.ocp``
-checkpoints (``utils/orbax.py`` over ``utils/ocdbt.py``, ``utils/zarr.py``
-and a zstd codec, ``utils/zstd.py``) and progressive JPEG and every PNG
-kind without Pillow.  Still raising NotImplementedError (ROADMAP A6):
-arithmetic-coded and 12-bit JPEG, zarr3 checkpoints; the scripts that need
-model weights are not ported.
+checkpoints, zarr v2 and zarr3 (``utils/orbax.py`` over ``utils/ocdbt.py``,
+``utils/zarr.py`` and a zstd codec, ``utils/zstd.py``) without orbax or
+tensorstore; and, without Pillow, progressive JPEG, every PNG kind, BMP,
+TIFF, GIF and WebP (lossless and lossy) frames (``data/png.read_image``
+by signature).  Still raising NotImplementedError (ROADMAP A6):
+arithmetic-coded and 12-bit JPEG, JPEG-compressed TIFF; the scripts that
+need model weights are not ported.
 """
 
 __version__ = "0.1.0"

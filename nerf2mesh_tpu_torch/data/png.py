@@ -18,8 +18,9 @@ at first use, see utils/native.py): Paeth and Average depend on each
 row's own output byte by byte.  Writing uses filter 0 on every row, for
 [H, W] and [H, W, 3|4] uint8 images: every image the package writes.
 
-``read_image`` reads a PNG with this codec and a JPEG with data/jpeg.py's
-decoder, chosen by the file's signature, never through Pillow (any other
+``read_image`` reads a file by its signature, never through Pillow: a
+PNG with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF,
+GIF and WebP with data/bmp.py, tiff.py, gif.py and webp.py (any other
 format raises NotImplementedError);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
@@ -187,17 +188,30 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """np.asarray(Image.open(path)) for a PNG or a JPEG, without Pillow.
-    Other formats (TIFF, BMP, WebP, ...) raise NotImplementedError."""
+    """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF or WebP
+    file, without Pillow.  Other formats raise NotImplementedError."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
         from .jpeg import decode_jpeg
         return decode_jpeg(data)
-    if data[:8] != _SIGNATURE:
-        raise NotImplementedError(
-            f"{path}: only PNG and JPEG images are read (ROADMAP A6 (i))")
-    return decode_png(data)
+    if data[:8] == _SIGNATURE:
+        return decode_png(data)
+    if data[:2] == b"BM":
+        from .bmp import decode_bmp
+        return decode_bmp(data)
+    if data[:4] in (b"II*\0", b"MM\0*"):
+        from .tiff import decode_tiff
+        return decode_tiff(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        from .gif import decode_gif
+        return decode_gif(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        from .webp import decode_webp
+        return decode_webp(data)
+    raise NotImplementedError(
+        f"{path}: only PNG, JPEG, BMP, TIFF, GIF and WebP images are read "
+        f"(ROADMAP A6 (i)); the file starts {data[:12]!r}")
 
 
 def write_image(path: str, img: np.ndarray) -> None:

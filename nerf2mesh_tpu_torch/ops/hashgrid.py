@@ -60,6 +60,13 @@ class HashGridSpec:
             raise ValueError(f"unknown layout {self.layout!r}")
         if self.layout == "block512" and self.input_dim != 3:
             raise ValueError("block512 layout is 3-D only")
+        if (self.layout == "block512" and self.gridtype == "hash"
+                and self.log2_hashmap_size < 9):
+            # a hashed level holds whole 512-row windows: below 2^9 rows it
+            # holds none (JAX's encode turns the parameters to NaN there)
+            raise ValueError(
+                f"block512 layout needs at least 2^9 rows a level "
+                f"(log2_hashmap_size >= 9), not 2^{self.log2_hashmap_size}")
 
     @property
     def log2_scale(self) -> float:

@@ -106,7 +106,7 @@ def init_distributed(device=None, init_method: str = "env://",
             from ..kernels import load
             load()
         from ..utils.native import BUILD_DIR, build_library
-        for name in ("meshops", "jpegdec"):
+        for name in ("meshops", "jpegdec", "imgdec", "webpdec"):
             build_library(name, BUILD_DIR)
     barrier()
     return dev

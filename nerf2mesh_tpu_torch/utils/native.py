@@ -3,14 +3,17 @@
 Each library is compiled with $CXX (default g++) into the package's
 git-ignored ``build/`` directory, named by a hash of its source and the
 flags, never next to the source; a failed build raises.  meshing/meshops.py
-and data/jpeg.py load theirs this way.
+and data/jpeg.py load theirs this way; ``load_library`` builds and loads
+one with its functions' ctypes signatures (the image readers' libraries).
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -45,3 +48,22 @@ def build_library(name: str, build_dir: str) -> str:
                            f"{' '.join(cmd)}\n{res.stderr}")
     os.replace(tmp, path)
     return path
+
+
+_loaded = {}
+_lock = threading.Lock()
+
+
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """native/<name>.cpp's library, built at first use and loaded once, with
+    each function's ctypes signature set from `signatures` {function:
+    (restype, [argtypes])}."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_library(name, BUILD_DIR))
+            for fn, (res, args) in signatures.items():
+                getattr(lib, fn).restype = res
+                getattr(lib, fn).argtypes = args
+            _loaded[name] = lib
+    return lib

@@ -13,16 +13,16 @@ What ``ocp.PyTreeCheckpointer().save(path, tree)`` of orbax-checkpoint
   "skip_deserialize": true}`` with no data); ``use_ocdbt``, ``use_zarr3``,
   ``store_array_data_equal_to_fill_value``, ``custom_metadata``.
 * ``_CHECKPOINT_METADATA`` (JSON): the handler's name and timestamps.
-* the arrays: zarr v2 (utils/zarr.py), each named by its key path joined
+* the arrays: zarr v2, or zarr v3 under ``use_zarr3`` (utils/zarr.py
+  reads both), each named by its key path joined
   with dots (``params.table``, ``opt_state.inner_states.base.inner_state.
   0.mu.table``, ``step``), in an OCDBT database (``use_ocdbt``, Orbax's
   default; utils/ocdbt.py) or one directory an array.
 
 ``save_pytree`` writes the OCDBT layout, as the JAX trainer does (without
 Orbax's per-process ``ocdbt.process_0/`` database, which Orbax's own
-restore does not read); ``load_pytree`` reads either layout.  zarr3
-checkpoints (``use_zarr3``), which the JAX trainer never writes, raise
-NotImplementedError.
+restore does not read), its arrays zarr v2 as the JAX trainer writes;
+``load_pytree`` reads either layout with either zarr version.
 """
 
 from __future__ import annotations
@@ -143,10 +143,6 @@ def load_pytree(path: str) -> Dict[Tuple[str, ...], np.ndarray]:
     if "tree_metadata" not in meta:
         raise ValueError(f"{path}: _METADATA without tree_metadata (an "
                          "Orbax checkpoint from before 0.5 is not read)")
-    if meta.get("use_zarr3"):
-        raise NotImplementedError(
-            f"{path}: zarr3 Orbax checkpoints (use_zarr3) are not read "
-            "(ROADMAP A6 (h))")
     store = (OcdbtStore(path) if meta.get("use_ocdbt", True)
              else DirStore(path))
     leaves = []

@@ -392,11 +392,25 @@ def test_sparse_depth_matches_jax(capture):
     assert cfg.random_image_batch is False
 
 
-def test_dense_depth_matches_jax(capture, tmp_path):
+@pytest.mark.parametrize("global_seed", [0, 1, 2, 3])
+def test_dense_depth_matches_jax(capture, tmp_path, global_seed):
     """Maps that are an exact affine of the sparse depths at the sparse
     points' pixels (and the analytic depth elsewhere), with a tenth of
     those pixels replaced by outliers: both fits find the same line, so the
-    calibrated maps agree within 1e-4 relative."""
+    calibrated maps agree within 1e-4 relative.  JAX's fit is sklearn's
+    RANSACRegressor() without a random_state, which draws from numpy's
+    global RNG: the test seeds that RNG itself, at each of several seeds,
+    and gives back the state it found, so its outcome does not depend on
+    the tests that ran before it."""
+    state = np.random.get_state()
+    np.random.seed(global_seed)
+    try:
+        _dense_depth_matches_jax(capture, tmp_path)
+    finally:
+        np.random.set_state(state)
+
+
+def _dense_depth_matches_jax(capture, tmp_path):
     root = str(tmp_path / "exact")
     shutil.copytree(capture, root)
     argv = ["--data_format", "colmap", "--enable_sparse_depth"]

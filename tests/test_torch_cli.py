@@ -427,8 +427,8 @@ def test_unported_cli_paths_raise(tmp_path):
                               log2_hashmap_size=12, grid_size=16,
                               workspace=str(tmp_path / "ws"),
                               ckpt_backend="orbax").finalize()
-    # orbax checkpoints are ported: the .ocp directory round-trips, and a
-    # zarr3 one (which the JAX trainer never writes) still raises
+    # orbax checkpoints are ported: the .ocp directory round-trips, and so
+    # does the same state rewritten by orbax as zarr3 (use_zarr3)
     t = Trainer(cfg, device="cpu")
     t.step = 3
     t.save_checkpoint()
@@ -436,11 +436,18 @@ def test_unported_cli_paths_raise(tmp_path):
     assert (ocp / "_METADATA").is_file()
     t2 = Trainer(cfg, device="cpu")
     assert t2.load_checkpoint() and t2.step == 3
-    meta = (ocp / "_METADATA").read_text()
-    (ocp / "_METADATA").write_text(meta.replace('"use_zarr3": false',
-                                                '"use_zarr3": true'))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t2.load_checkpoint()
+    import orbax.checkpoint as orbax_ckpt
+    with orbax_ckpt.PyTreeCheckpointer() as c:
+        raw = c.restore(str(ocp))
+    z3 = tmp_path / "z3.ocp"
+    with orbax_ckpt.Checkpointer(orbax_ckpt.PyTreeCheckpointHandler(
+            use_zarr3=True)) as c:
+        c.save(str(z3), raw)
+    (z3 / "n2m_meta.json").write_bytes((ocp / "n2m_meta.json").read_bytes())
+    t3 = Trainer(cfg, device="cpu")
+    assert t3.load_checkpoint(str(z3)) and t3.step == 3
+    for a, b in zip(t2.params.parameters(), t3.params.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_stage1_export_matches_jax(tmp_path):

@@ -129,12 +129,19 @@ def test_png_reader_reads_pillow_files_and_rejects_others(tmp_path):
         png.decode_png(data)
     with pytest.raises(ValueError):
         png.decode_png(b"not a png")
-    # formats other than PNG and JPEG: Pillow reads them, the port does not
+    # BMP, TIFF and WebP read as Pillow reads them (every variant:
+    # tests/test_torch_imageio.py); a format the port does not read still
+    # raises, naming its ROADMAP item
     for ext in ("bmp", "tiff", "webp"):
         path = tmp_path / f"frame.{ext}"
         Image.fromarray(_images()["rgb"]).save(path)
-        with pytest.raises(NotImplementedError, match=r"A6 \(i\)"):
-            png.read_image(str(path))
+        with Image.open(path) as im:
+            want = np.asarray(im)
+        np.testing.assert_array_equal(png.read_image(str(path)), want)
+    path = tmp_path / "frame.ico"
+    Image.fromarray(_images()["rgb"]).save(path)
+    with pytest.raises(NotImplementedError, match=r"A6 \(i\)"):
+        png.read_image(str(path))
 
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),

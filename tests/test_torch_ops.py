@@ -117,6 +117,42 @@ def test_hashgrid_encode_parity(layout):
     np.testing.assert_allclose(got4, want4, **ENC_TOL)
 
 
+def test_block512_below_2_9_rows_is_refused(tmp_path):
+    """A hashed block512 level holds whole 512-row windows: a spec of fewer
+    rows a level is refused where it is built, through the Trainer too
+    (JAX's encode turns the parameters to NaN there)."""
+    import dataclasses
+    from nerf2mesh_tpu_torch.config import Config
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    with pytest.raises(ValueError, match=r"2\^9 rows .*log2_hashmap_size >= 9"):
+        thg.HashGridSpec(num_levels=4, level_dim=3, log2_hashmap_size=8,
+                         layout="block512")
+    cfg = dataclasses.replace(Config(), bound=1.0, grid_size=16, num_levels=4,
+                              log2_hashmap_size=8, grid_layout="block512",
+                              workspace=str(tmp_path / "ws")).finalize()
+    with pytest.raises(ValueError, match=r"log2_hashmap_size >= 9"):
+        Trainer(cfg, device="cpu")
+    # the other layouts keep their small tables
+    thg.HashGridSpec(num_levels=4, level_dim=3, log2_hashmap_size=8)
+    thg.HashGridSpec(num_levels=4, level_dim=3, log2_hashmap_size=8,
+                     layout="block512", gridtype="tiled")
+
+
+def test_block512_at_2_9_rows_encodes():
+    """2^9 rows a level, one window a hashed level: the spec builds and the
+    encode agrees with JAX's."""
+    js, ts = specs(9, "block512")
+    assert ts.use_hash.any() and (ts.level_sizes[ts.use_hash] == 512).all()
+    table = uniform_table(js)
+    x = mixed_points(500, n_oob=10)
+    with jax.disable_jit():
+        want = np.asarray(jhg.hashgrid_encode(jnp.asarray(table),
+                                              jnp.asarray(x), js))
+    got = thg.hashgrid_encode(T(table), T(x), ts).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **ENC_TOL)
+
+
 def test_tv_loss_parity():
     js, ts = specs(13)
     table = uniform_table(js)

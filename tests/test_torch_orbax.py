@@ -11,13 +11,19 @@ utils/orbax.py, the trainer's ckpt_backend "orbax").
   state written as a pickle; stage 1 both ways; schema drift gives the
   partial restore and its WARN on both sides; Orbax's one-directory-an-
   array layout; the pickle backend's auto-detect; a resume from .ocp that
-  trains on bit-equal to one from .ckpt; the rolling window of 2; zarr3
-  refused.  The port's calls run with orbax, tensorstore, zstandard and
-  PIL blocked in sys.modules.
-* The committed JAX fixture (nerf2mesh_tpu_torch/fixtures/jax_stage0.ocp,
-  written by ``python tests/test_torch_orbax.py``): its leaf hashes equal
-  JAX's restore and the port's read, and its zstd frames hold compressed
-  blocks with Huffman literals and FSE-coded sequences.
+  trains on bit-equal to one from .ckpt; the rolling window of 2.
+* zarr3 (Orbax's use_zarr3): trees with multi-chunk, bfloat16 and 0-d
+  leaves in both layouts read as orbax restores them; tensorstore's
+  absent inner chunks, big-endian bytes under a transpose, a shard index
+  at the start, v2 keys and a bool scalar as tensorstore reads them; a
+  corrupt shard index and an unknown codec are refused.  The port's calls
+  run with orbax, tensorstore, zstandard and PIL blocked in sys.modules.
+* The committed JAX fixtures (nerf2mesh_tpu_torch/fixtures/jax_stage0.ocp,
+  written by ``python tests/test_torch_orbax.py``, and its zarr3 twin
+  jax_stage0_zarr3.ocp, by ``python tests/test_torch_orbax.py zarr3``):
+  their leaf hashes equal JAX's restore and the port's read, and the v2
+  one's zstd frames hold compressed blocks with Huffman literals and
+  FSE-coded sequences.
 """
 
 import contextlib
@@ -38,6 +44,8 @@ REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "nerf2mesh_tpu_torch" / "fixtures"
 OCP_FIXTURE = FIXTURES / "jax_stage0.ocp"
 OCP_HASHES = FIXTURES / "jax_stage0.json"
+OCP3_FIXTURE = FIXTURES / "jax_stage0_zarr3.ocp"
+OCP3_HASHES = FIXTURES / "jax_stage0_zarr3.json"
 BLOCKED = ("orbax", "tensorstore", "zstandard", "PIL")
 SCENE = dict(H=32, W=32, n_train=4, n_val=1, n_test=0)
 TINY = dict(bound=1.0, scale=0.8, dt_gamma=0.0, num_rays=256,
@@ -391,18 +399,151 @@ def test_rolling_window_keeps_two_ocp_checkpoints(tmp_path):
     assert all((cdir / p).is_dir() for p in os.listdir(cdir))
 
 
+def zarr3_tree():
+    """A tree with a leaf of 4 chunks, a bfloat16 leaf, 0-d leaves and
+    integer and bool leaves, and the save_args that chunk the first."""
+    import jax.numpy as jnp
+    import orbax.checkpoint as ocp
+    rng = np.random.default_rng(0)
+    tree = {"multi": rng.standard_normal((10, 100)).astype(np.float32),
+            "bf16": jnp.asarray(rng.standard_normal(37), jnp.bfloat16),
+            "step": np.int32(7), "scale": np.float64(0.25),
+            "u8": rng.integers(0, 256, (3, 5, 2)).astype(np.uint8),
+            "mask": rng.random(9) < 0.5,
+            "nested": {"a": [np.arange(6, dtype=np.int64),
+                             np.float32(np.nan)]}}
+    args = jax_tree_map(lambda _: ocp.SaveArgs(), tree)
+    args["multi"] = ocp.SaveArgs(chunk_byte_size=1024)
+    return tree, args
+
+
+def jax_tree_map(fn, tree):
+    import jax
+    return jax.tree_util.tree_map(fn, tree)
+
+
+@pytest.mark.parametrize("use_ocdbt", [True, False])
+def test_zarr3_trees_read_bit_equal(tmp_path, use_ocdbt):
+    """Orbax's zarr3 layout (use_zarr3), in an OCDBT database and one
+    directory an array: every leaf as orbax restores it, bit for bit."""
+    import orbax.checkpoint as ocp
+    from nerf2mesh_tpu_torch.utils import ocdbt, orbax
+    tree, args = zarr3_tree()
+    path = str(tmp_path / "z3.ocp")
+    with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(
+            use_zarr3=True, use_ocdbt=use_ocdbt)) as c:
+        c.save(path, args=ocp.args.PyTreeSave(tree, save_args=args))
+        want = jax_leaves(c.restore(path))
+    store = (ocdbt.OcdbtStore(path) if use_ocdbt else ocdbt.DirStore(path))
+    assert len([k for k in store.keys()
+                if k.startswith(b"multi/c/")]) == 4
+    assert b"step/c" in store.keys()
+    with blocked():
+        got = {".".join(k): v for k, v in orbax.load_pytree(path).items()}
+    assert set(got) == set(want)
+    saved = jax_leaves(tree)
+    for k, w in want.items():
+        # orbax restores a 0-d leaf as a Python scalar: held in the saved
+        # leaf's dtype, and bfloat16 widened exactly, as the port returns it
+        dt = np.asarray(saved[k]).dtype
+        w = np.asarray(w).astype(np.float32 if dt.name == "bfloat16" else dt)
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert got[k].tobytes() == w.tobytes(), k
+
+
+def _shard(inner, codecs, where="end"):
+    return [{"name": "sharding_indexed", "configuration": {
+        "chunk_shape": inner, "codecs": codecs, "index_location": where,
+        "index_codecs": [{"name": "bytes",
+                          "configuration": {"endian": "little"}},
+                         {"name": "crc32c"}]}}]
+
+
+LE = {"name": "bytes", "configuration": {"endian": "little"}}
+ZSTD = {"name": "zstd", "configuration": {"level": 3, "checksum": False}}
+# name: (codecs, shape, chunk shape, data type, fill value, the region
+# written, key encoding)
+ZARR3_CASES = {
+    "absent_inner_chunks": (_shard([4, 4], [LE, ZSTD]), [16, 12], [16, 12],
+                            "float32", "NaN", (slice(0, 4), slice(0, 8)),
+                            "default"),
+    "big_endian_transposed": (
+        [{"name": "transpose", "configuration": {"order": [1, 0]}},
+         {"name": "bytes", "configuration": {"endian": "big"}},
+         {"name": "zstd", "configuration": {"level": 1}}],
+        [7, 9], [4, 4], "int16", 5, (slice(0, 7), slice(0, 9)), "default"),
+    "index_at_start_bf16": (_shard([2], [LE, {"name": "crc32c"}], "start"),
+                            [11], [6], "bfloat16", "Infinity",
+                            (slice(0, 5),), "default"),
+    "v2_keys": ([LE], [5, 3], [2, 2], "uint8", 0, (slice(0, 5), slice(0, 3)),
+                "v2"),
+    "bool_scalar": ([{"name": "bytes"}], [], [], "bool", True, (), "default"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZARR3_CASES))
+def test_zarr3_codecs_read_bit_equal(tmp_path, case):
+    """tensorstore's zarr3 driver writes what Orbax does not: inner chunks
+    left absent (fill_value), big-endian bytes under a transpose, the shard
+    index at the start, the v2 key encoding, a bool scalar; the port reads
+    each as tensorstore does."""
+    import tensorstore as ts
+    from nerf2mesh_tpu_torch.utils import ocdbt, zarr
+    codecs, shape, chunk, dtype, fill, region, keys = ZARR3_CASES[case]
+    t = ts.open({
+        "driver": "zarr3", "create": True,
+        "kvstore": {"driver": "file", "path": str(tmp_path / case)},
+        "metadata": {"shape": shape, "data_type": dtype, "codecs": codecs,
+                     "fill_value": fill, "chunk_key_encoding": {"name": keys},
+                     "chunk_grid": {"name": "regular",
+                                    "configuration": {"chunk_shape": chunk}}},
+    }).result()
+    rng = np.random.default_rng(1)
+    part = rng.integers(-999, 999, [s.stop - s.start for s in region])
+    t[region].write(part.astype(t.dtype.numpy_dtype)
+                    if dtype != "bool" else False).result()
+    want = np.asarray(t.read().result())
+    if dtype == "bfloat16":
+        want = want.astype(np.float32)
+    store = ocdbt.DirStore(str(tmp_path))
+    with blocked():
+        got = zarr.read_array(store, case)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if case == "absent_inner_chunks":
+        index = store.get(f"{case}/c/0/0")[-4 - 16 * 12:-4].view("<u8")
+        assert (index == 2 ** 64 - 1).sum() == 2 * 10      # 10 of 12 absent
+        assert np.isnan(got[4:]).all() and not np.isnan(got[:4, :8]).any()
+
+
 def test_zarr3_checkpoints_are_refused(tmp_path):
-    from nerf2mesh_tpu_torch.config import Config
-    from nerf2mesh_tpu_torch.utils.trainer import Trainer
-    cfg = tiny(Config, "", str(tmp_path), ckpt_backend="orbax",
-               num_levels=4, log2_hashmap_size=10)
-    t = Trainer(cfg, device="cpu")
-    path = t.save_checkpoint()
-    meta = json.loads((Path(path) / "_METADATA").read_text())
-    meta["use_zarr3"] = True
-    (Path(path) / "_METADATA").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t.load_checkpoint(path)
+    """A zarr3 checkpoint that is corrupt or uses a codec the port does not
+    read is refused: a shard index whose CRC-32C does not match raises
+    ValueError, an unknown codec NotImplementedError naming ROADMAP A6 (h);
+    the untouched checkpoint loads."""
+    import orbax.checkpoint as ocp
+    from nerf2mesh_tpu_torch.utils import orbax
+    tree, args = zarr3_tree()
+    path = tmp_path / "z3.ocp"
+    with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(
+            use_zarr3=True, use_ocdbt=False)) as c:
+        c.save(str(path), args=ocp.args.PyTreeSave(tree, save_args=args))
+    with blocked():
+        assert orbax.load_pytree(str(path))[("step",)] == 7
+        shard = path / "multi" / "c" / "0" / "1"
+        data = bytearray(shard.read_bytes())
+        data[-10] ^= 1                          # a bit of the index
+        shard.write_bytes(bytes(data))
+        with pytest.raises(ValueError, match="crc32c mismatch"):
+            orbax.load_pytree(str(path))
+        data[-10] ^= 1
+        shard.write_bytes(bytes(data))
+        meta = json.loads((path / "u8" / "zarr.json").read_text())
+        inner = meta["codecs"][0]["configuration"]["codecs"]
+        inner[-1] = {"name": "blosc", "configuration": {"cname": "lz4"}}
+        (path / "u8" / "zarr.json").write_text(json.dumps(meta))
+        with pytest.raises(NotImplementedError, match=r"'blosc'.*A6 \(h\)"):
+            orbax.load_pytree(str(path))
 
 
 # ---------------------------------------------------------------- stage 1
@@ -493,6 +634,44 @@ def write_fixture(out_dir: Path = FIXTURES) -> None:
     shutil.rmtree(tmp)
 
 
+def write_zarr3_fixture(out_dir: Path = FIXTURES) -> None:
+    """Writes jax_stage0_zarr3.ocp: the fixture's 3-step JAX state (the
+    same trainer, scene and steps as write_fixture) saved by the JAX
+    trainer through Orbax's PyTreeCheckpointHandler(use_zarr3=True), and
+    jax_stage0_zarr3.json with the config and each leaf's SHA-256."""
+    import tempfile
+    import jax
+    import orbax.checkpoint as ocp
+    JConfig, jload, jgen, jtr = jax_mods()
+    tmp = tempfile.mkdtemp()
+    root, ws = os.path.join(tmp, "scene"), os.path.join(tmp, "ws")
+    jgen(root, **SCENE)
+    cfg = dataclasses.replace(JConfig(path=root), workspace=ws,
+                              ckpt_backend="orbax",
+                              **FIXTURE_CONFIG).finalize()
+    jt = jtr.Trainer(cfg)
+    ds = jload(cfg, "train")
+    jt.mark_untrained(ds)
+    jt.train_steps(ds, 3)
+    plain = ocp.PyTreeCheckpointer
+    ocp.PyTreeCheckpointer = lambda: ocp.Checkpointer(
+        ocp.PyTreeCheckpointHandler(use_zarr3=True))
+    try:
+        jt.save_checkpoint()
+    finally:
+        ocp.PyTreeCheckpointer = plain
+    src = os.path.join(ws, "checkpoints", "ngp_stage0_latest.ocp")
+    assert json.loads(Path(src, "_METADATA").read_text())["use_zarr3"]
+    dst = out_dir / "jax_stage0_zarr3.ocp"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    leaves = jax_leaves(jax.tree_util.tree_map(np.asarray, jt.state))
+    OCP3_HASHES.write_text(json.dumps(
+        {"config": FIXTURE_CONFIG, "steps": 3,
+         "leaves": {k: sha(v) for k, v in leaves.items()}}, indent=1) + "\n")
+    shutil.rmtree(tmp)
+
+
 def zstd_block_kinds(data: bytes) -> dict:
     """Counts of the zstd block kinds in a stream of frames: raw, rle,
     compressed, and among the compressed the Huffman-coded literals and
@@ -569,9 +748,45 @@ def test_committed_jax_fixture(tmp_path):
             assert sha(got[k]) == h, k
 
 
+def test_committed_jax_zarr3_fixture(tmp_path):
+    """The JAX trainer's 3-step state through Orbax's zarr3 handler: orbax
+    restores the hashes in its JSON (the v2 fixture's, the same state), and
+    the port's Trainer loads every leaf bit-equal to orbax's restore."""
+    import orbax.checkpoint as ocp
+    from nerf2mesh_tpu_torch.config import Config
+    from nerf2mesh_tpu_torch.utils import ocdbt
+    from nerf2mesh_tpu_torch.utils.trainer import Trainer
+    want = json.loads(OCP3_HASHES.read_text())
+    assert want["leaves"] == json.loads(OCP_HASHES.read_text())["leaves"]
+    assert json.loads((OCP3_FIXTURE / "_METADATA").read_text())["use_zarr3"]
+    with ocp.PyTreeCheckpointer() as c:
+        raw = jax_leaves(c.restore(str(OCP3_FIXTURE)))
+    st = ocdbt.OcdbtStore(str(OCP3_FIXTURE))
+    metas = [json.loads(st.get(k).tobytes()) for k in st.keys()
+             if k.endswith(b"/zarr.json")]
+    assert len(metas) == len(raw) and all(
+        m["codecs"][0]["name"] == "sharding_indexed" and
+        m["codecs"][0]["configuration"]["index_codecs"][-1]["name"] ==
+        "crc32c" for m in metas)
+    cfg = dataclasses.replace(Config(), workspace=str(tmp_path),
+                              **want["config"]).finalize()
+    with blocked():
+        t = Trainer(cfg, device="cpu")
+        assert t.load_checkpoint(str(OCP3_FIXTURE))
+        got = port_leaves(t)
+    assert t.step == want["steps"]
+    for k, h in want["leaves"].items():
+        if k != "key":
+            assert sha(got[k]) == h, k
+            r = np.asarray(raw[k]).reshape(h["shape"])
+            assert got[k].dtype == r.dtype and got[k].tobytes() == \
+                r.tobytes(), k
+
+
 def test_port_reads_the_fixtures_with_the_libraries_blocked(tmp_path):
     """In a process where jax, orbax, tensorstore, zstandard, PIL and the
-    JAX package cannot be imported: the JAX fixture loads into a Trainer
+    JAX package cannot be imported: the JAX fixtures (zarr v2 and v3) load
+    into a Trainer
     (its leaves hash as JAX's did), a progressive JPEG and a 16-bit
     interlaced PNG decode, and none of those modules was imported."""
     import subprocess
@@ -590,14 +805,15 @@ from nerf2mesh_tpu_torch.utils.convert import _RECORD_FIELDS, jax_state
 from nerf2mesh_tpu_torch.utils.trainer import Trainer
 cfg = dataclasses.replace(Config(), workspace={str(tmp_path)!r},
                           **{want["config"]!r}).finalize()
-t = Trainer(cfg, device="cpu")
-assert t.load_checkpoint({str(OCP_FIXTURE)!r})
 want = json.load(open({str(OCP_HASHES)!r}))["leaves"]
-for keys, v in orbax.flatten(jax_state(t._payload()), _RECORD_FIELDS):
-    name = ".".join(k for k, _ in keys)
-    if v is not orbax.MASKED and name != "key":
-        h = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
-        assert h == want[name]["sha256"], name
+for path in ({str(OCP_FIXTURE)!r}, {str(OCP3_FIXTURE)!r}):
+    t = Trainer(cfg, device="cpu")
+    assert t.load_checkpoint(path)
+    for keys, v in orbax.flatten(jax_state(t._payload()), _RECORD_FIELDS):
+        name = ".".join(k for k, _ in keys)
+        if v is not orbax.MASKED and name != "key":
+            h = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            assert h == want[name]["sha256"], (path, name)
 assert read_image({str(FIXTURES / "progressive" / "train" / "r_0.jpg")!r}
                   ).shape == (256, 256, 3)
 assert read_image({str(FIXTURES / "png" / "rgba16_adam7.png")!r}
@@ -617,4 +833,7 @@ print("ok")
 
 
 if __name__ == "__main__":
-    write_fixture()
+    if sys.argv[1:] == ["zarr3"]:
+        write_zarr3_fixture()
+    else:
+        write_fixture()
