@@ -245,7 +245,13 @@ Phases, in order; any failure exits non-zero:
      lossy WebP, lossless WebP and BMP frames, TIFF masks) at bench
      width, bound 4, FMT_STEPS steps: every logged loss finite, K1-K3
      launched by the training, --test, the val PSNR finite, K1-K3 held
-     against plain at one more step; the phase's wall and (e)'s printed.
+     against plain at one more step; (f) the same on the committed
+     capture fixtures/colmap_forms (arithmetic baseline and progressive,
+     4:4:0, 4:1:1 and lossless JPEG, YCbCr JPEG-in-TIFF, BigTIFF, PPM,
+     RLE TGA and QOI frames, PGM and QOI masks); the phase's wall and
+     (e)'s and (f)'s printed.  (c) decodes the JPEG, TIFF, netpbm, TGA
+     and QOI variants (fixtures/formats) and the (f) capture's frames and
+     masks too, each format's ms per MP held to 500.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -267,7 +273,8 @@ K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 "viewer_launches": phase 13 (c)'s stage-0 serving, frames and training;
 "ckpt_cli_launches": phase 14 (c)'s training through main;
 "ckpt_zarr3_frame_launches": phase 14 (b)'s val frame of the zarr3
-fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training),
+fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
+"ckpt_forms_cli_launches": phase 14 (f)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -382,8 +389,8 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e): stage-0 steps through the CLI on
-#                            the committed capture in other formats
+FMT_STEPS = 16             # phase 14 (e), (f): stage-0 steps through the
+#                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
        "inwin_bwd": (1e-5, 1e-4), "winsort_fwd": (1e-5, 0.0),
@@ -3730,8 +3737,9 @@ def decode_fixtures():
     kinds = (("progressive", capture), ("png", os.path.join(FIXTURES, "png")),
              ("formats", FIXTURES))
     signatures = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
-                  (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"GIF8", "gif"),
-                  (b"RIFF", "webp"))
+                  (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
+                  (b"GIF8", "gif"), (b"RIFF", "webp"), (b"qoif", "qoi"),
+                  (b"P", "netpbm"))
     for kind, root in kinds:
         with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
             want = json.load(f)
@@ -3739,7 +3747,8 @@ def decode_fixtures():
         for rel in want:
             with open(os.path.join(root, rel), "rb") as f:
                 head = f.read(4)
-            fmt = next(n for sig, n in signatures if head.startswith(sig))
+            fmt = next((n for sig, n in signatures if head.startswith(sig)),
+                       "tga")                # TGA has no signature
             by_format.setdefault(fmt, []).append(rel)
         for rels in by_format.values():      # builds each decoder untimed
             read_image(os.path.join(root, rels[0]))
@@ -3832,19 +3841,21 @@ def ckpt_capture(dev, ref_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def ckpt_formats_capture(dev, ref_ms):
+def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
+                         masks="TIFF masks"):
     """Phase 14 (e): main on the committed COLMAP capture whose frames are
     TIFF (LZW), lossy and lossless WebP and BMP, with TIFF masks, at the
     bench's block512 C = 3 field: FMT_STEPS steps, every logged loss
     finite, K1-K3 launched by the training; --test; the val PSNR finite;
-    K1-K3 held to their plain versions at one more step.  Returns (the
+    K1-K3 held to their plain versions at one more step.  (f) is the same
+    on fixtures/colmap_forms (name, label and masks name it).  Returns (the
     training's launches, K1-K3's max|err|)."""
     from nerf2mesh_tpu_torch import kernels
     from nerf2mesh_tpu_torch.config import parse_args
     from nerf2mesh_tpu_torch.data.colmap import load_colmap_dataset
     from nerf2mesh_tpu_torch.main import main as cli_main
     from nerf2mesh_tpu_torch.utils.trainer import Trainer
-    capture = os.path.join(FIXTURES, "colmap_formats")
+    capture = os.path.join(FIXTURES, name)
     tmp = tempfile.mkdtemp(prefix="n2m_chip_smoke_fmt_")
     try:
         ws = os.path.join(tmp, "ws")
@@ -3862,9 +3873,9 @@ def ckpt_formats_capture(dev, ref_ms):
             Trainer.train = real
         losses = [e["loss"] for e in trainer.train_log]
         names = sorted(os.listdir(os.path.join(capture, "images")))
-        log(f"[ckpt] (e) main {' '.join(argv[1:])}: {t_main:.1f} s on "
+        log(f"[ckpt] {label} main {' '.join(argv[1:])}: {t_main:.1f} s on "
             f"{len(names)} frames ({sorted({n.rsplit('.', 1)[1] for n in names})}"
-            f", TIFF masks); logged losses {np.round(losses, 5).tolist()}; "
+            f", {masks}); logged losses {np.round(losses, 5).tolist()}; "
             f"evals {trainer.stats['results']}; training launches {launches}")
         if not losses or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"formats capture losses: {losses}")
@@ -3877,10 +3888,10 @@ def ckpt_formats_capture(dev, ref_ms):
         tester = cli_main(argv + ["--test"], device=dev)
         if tester.step != FMT_STEPS:
             raise AssertionError(f"--test: step {tester.step}")
-        run_eval(trainer, load_colmap_dataset(cfg, "val"), "formats capture",
-                 ("occ_lookup", "inwin_fwd"))
-        errs = hold_step_kernels(trainer, train, "formats capture step",
-                                 ref_ms, "[ckpt] (e)")
+        run_eval(trainer, load_colmap_dataset(cfg, "val"),
+                 f"{name} capture", ("occ_lookup", "inwin_fwd"))
+        errs = hold_step_kernels(trainer, train, f"{name} capture step",
+                                 ref_ms, f"[ckpt] {label}")
         return launches, errs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3889,9 +3900,10 @@ def ckpt_formats_capture(dev, ref_ms):
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e) the capture in other
-    formats through main ((d) runs in phase 8); returns (b)'s frame
-    launches, (c)'s and (e)'s training launches, and K1-K3's errors."""
+    and the progressive capture through main, (e) and (f) the captures in
+    other formats through main ((d) runs in phase 8); returns (b)'s frame
+    launches, (c)'s, (e)'s and (f)'s training launches, and K1-K3's
+    errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -3899,10 +3911,15 @@ def phase_checkpoints(dev, field, val, ref_ms):
     t_e = time.perf_counter()
     fmt_launches, fmt_errs = ckpt_formats_capture(dev, ref_ms)
     log(f"[ckpt] (e) wall {time.perf_counter() - t_e:.1f} s")
+    t_f = time.perf_counter()
+    forms_launches, forms_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_forms", "(f)", "PGM and QOI masks")
+    log(f"[ckpt] (f) wall {time.perf_counter() - t_f:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
-    for k, v in fmt_errs.items():
-        errs[k] = max(errs.get(k, 0.0), v)
-    return fixture_launches, cap_launches, fmt_launches, errs
+    for e in (fmt_errs, forms_errs):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    return fixture_launches, cap_launches, fmt_launches, forms_launches, errs
 
 
 def main() -> int:
@@ -3947,7 +3964,7 @@ def main() -> int:
     lap("phase 13")
     with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
                     "zstandard"):
-        (fix_launches, ckpt_launches, fmt_launches,
+        (fix_launches, ckpt_launches, fmt_launches, forms_launches,
          ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
@@ -3989,13 +4006,15 @@ def main() -> int:
         r["ckpt_cli_launches"] = ckpt_launches.get(r["name"], 0)
         r["ckpt_zarr3_frame_launches"] = fix_launches.get(r["name"], 0)
         r["ckpt_formats_cli_launches"] = fmt_launches.get(r["name"], 0)
+        r["ckpt_forms_cli_launches"] = forms_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
             "captures_launches", "captures_stage1_launches", "hard_launches",
             "dtu_launches", "dist_launches", "viewer_launches",
             "ckpt_cli_launches", "ckpt_zarr3_frame_launches",
-            "ckpt_formats_cli_launches", "max_abs_err",
+            "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

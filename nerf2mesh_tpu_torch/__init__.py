@@ -21,11 +21,13 @@ frequency encoders; the dtu format and the single transforms.json,
 analogue (``entry.py``) and the recipes (``scripts/``); Orbax ``.ocp``
 checkpoints, zarr v2 and zarr3 (``utils/orbax.py`` over ``utils/ocdbt.py``,
 ``utils/zarr.py`` and a zstd codec, ``utils/zstd.py``) without orbax or
-tensorstore; and, without Pillow, progressive JPEG, every PNG kind, BMP,
-TIFF, GIF and WebP (lossless and lossy) frames (``data/png.read_image``
-by signature).  Still raising NotImplementedError (ROADMAP A6):
-arithmetic-coded and 12-bit JPEG, JPEG-compressed TIFF; the scripts that
-need model weights are not ported.
+tensorstore; and, without Pillow, every JPEG Pillow reads (baseline,
+progressive, arithmetic-coded, lossless, YCCK, any integral sampling
+ratio), every PNG kind, BMP, TIFF (JPEG-compressed, BigTIFF, signed and
+float samples too), GIF, WebP, netpbm, TGA and QOI frames
+(``data/png.read_image`` by signature).  Still raising NotImplementedError
+(ROADMAP A6 (j)): the other formats Pillow reads (JPEG 2000, AVIF, ...),
+old-style JPEG TIFF; the scripts that need model weights are not ported.
 """
 
 __version__ = "0.1.0"

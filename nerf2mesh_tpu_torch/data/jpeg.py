@@ -16,12 +16,20 @@ cumulative sum.  ``downscale`` is the antialiased bilinear reduce of
 to uint8.
 
 ``decode_jpeg`` is the C++ decoder ``native/jpegdec.cpp`` (built with g++
-at first use into the package's build/, see utils/native.py): baseline and
-progressive files, grey, YCbCr at 4:4:4, 4:2:2 or 4:2:0, and CMYK,
-restart intervals, with libjpeg's integer IDCT, fancy chroma upsampling
-and fixed-point colour conversion, so it gives what Pillow's decode gives.
-Arithmetic-coded, lossless, hierarchical and 12-bit files, YCCK and other
-sampling ratios raise NotImplementedError (ROADMAP A6 (g)).
+at first use into the package's build/, see utils/native.py): every file
+Pillow reads through libjpeg-turbo, so it gives what Pillow's decode gives.
+Sequential and progressive files with Huffman or arithmetic coding (the QM
+decoder of ITU T.81 Annex D), lossless files (SOF3: predictors 1-7, the
+point transform, restarts), restart intervals; grey, YCbCr at any integral
+sampling ratio (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), RGB, CMYK and YCCK;
+libjpeg's integer IDCT, its upsampler choice per component (fancy 2h1v,
+1h2v and 2h2v filters, replication otherwise) and its fixed-point colour
+conversion.  What Pillow refuses raises ValueError: 12- and 16-bit
+precision, hierarchical frames, arithmetic-coded lossless files, a height
+given by a DNL marker, a non-integral sampling ratio.
+``decode_jpeg_tables`` decodes an abbreviated stream after a tables-only
+one with a chosen colour conversion, as libtiff feeds the strips of a
+JPEG-compressed TIFF to libjpeg (data/tiff.py).
 
 ``read_jpeg`` is ``decode_jpeg`` of a file.  ``save_jpeg`` and
 ``resize_bilinear`` use Pillow where it is importable and this code
@@ -343,38 +351,53 @@ def _load():
     if _lib is None:
         from ..utils.native import BUILD_DIR, build_library
         lib = ctypes.CDLL(build_library("jpegdec", BUILD_DIR))
-        lib.jpeg_decode.restype = ctypes.c_int
-        lib.jpeg_decode.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        lib.jpeg_decode_tables.restype = ctypes.c_int
+        lib.jpeg_decode_tables.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
         _lib = lib
     return _lib
 
 
-def _decode_call(lib, data: bytes, out) -> tuple:
+def _decode_call(lib, tables: bytes, data: bytes, colour: int,
+                 out) -> tuple:
     dims = (ctypes.c_int32 * 3)()
     err = ctypes.create_string_buffer(256)
     ptr, cap = (None, 0) if out is None else (out.ctypes.data, out.size)
-    rc = lib.jpeg_decode(data, len(data), ptr, cap, dims, err, len(err))
+    rc = lib.jpeg_decode_tables(tables, len(tables), data, len(data), colour,
+                                ptr, cap, dims, err, len(err))
     msg = err.value.decode(errors="replace")
-    if rc in (2, 3):
-        raise NotImplementedError(
-            f"{msg}: not read; no encoder at hand writes such a file to hold "
-            "a decoder to (ROADMAP A6 (g))")
+    if rc == 2:
+        raise ValueError(f"{msg}: not a JPEG Pillow reads")
     if rc:
         raise ValueError(f"JPEG decode failed: {msg}")
     return tuple(dims)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG -> [H, W, 3] (or [H, W] grey) uint8, the array
-    np.asarray(Image.open(...)) gives."""
+# decode_jpeg_tables' colour conversions (jpegdec.cpp's `colour`)
+COLOUR_AUTO, COLOUR_NONE, COLOUR_YCBCR = 0, 1, 2
+
+
+def decode_jpeg_tables(tables: bytes, data: bytes,
+                       colour: int = COLOUR_AUTO) -> np.ndarray:
+    """The abbreviated JPEG stream `data` decoded after the tables-only
+    stream `tables` (b"" for none): [H, W, C] (or [H, W] grey) uint8.
+    `colour`: COLOUR_AUTO converts as the file's markers say (libjpeg's
+    default), COLOUR_NONE gives the components as stored (libjpeg's
+    JCS_UNKNOWN; CMYK not inverted), COLOUR_YCBCR converts YCbCr to RGB."""
     lib = _load()
-    data = bytes(data)
-    H, W, C = _decode_call(lib, data, None)
+    tables, data = bytes(tables), bytes(data)
+    H, W, C = _decode_call(lib, tables, data, colour, None)
     out = np.empty((H, W, C) if C > 1 else (H, W), np.uint8)
-    _decode_call(lib, data, out)
+    _decode_call(lib, tables, data, colour, out)
     return out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A JPEG -> [H, W, 3|4] (or [H, W] grey) uint8, the array
+    np.asarray(Image.open(...)) gives."""
+    return decode_jpeg_tables(b"", data)
 
 
 def read_jpeg(path: str) -> np.ndarray:

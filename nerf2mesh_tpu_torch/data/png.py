@@ -20,8 +20,11 @@ row's own output byte by byte.  Writing uses filter 0 on every row, for
 
 ``read_image`` reads a file by its signature, never through Pillow: a
 PNG with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF,
-GIF and WebP with data/bmp.py, tiff.py, gif.py and webp.py (any other
-format raises NotImplementedError);
+GIF, WebP, netpbm and QOI with data/bmp.py, tiff.py, gif.py, webp.py,
+netpbm.py and qoi.py; a file with none of those signatures whose header
+Pillow's TGA plugin would take is read by data/tga.py (TGA has no
+signature, and Pillow tries it late); any other format raises
+NotImplementedError naming ROADMAP A6 (j);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
 """
@@ -188,8 +191,9 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF or WebP
-    file, without Pillow.  Other formats raise NotImplementedError."""
+    """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
+    netpbm, QOI or TGA file, without Pillow.  Other formats raise
+    NotImplementedError."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
@@ -200,7 +204,7 @@ def read_image(path: str) -> np.ndarray:
     if data[:2] == b"BM":
         from .bmp import decode_bmp
         return decode_bmp(data)
-    if data[:4] in (b"II*\0", b"MM\0*"):
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
         from .tiff import decode_tiff
         return decode_tiff(data)
     if data[:6] in (b"GIF87a", b"GIF89a"):
@@ -209,9 +213,19 @@ def read_image(path: str) -> np.ndarray:
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         from .webp import decode_webp
         return decode_webp(data)
+    if data[:1] == b"P" and data[1:2] in (b"0", b"1", b"2", b"3", b"4",
+                                          b"5", b"6", b"7", b"f", b"y"):
+        from .netpbm import decode_netpbm
+        return decode_netpbm(data)
+    if data[:4] == b"qoif":
+        from .qoi import decode_qoi
+        return decode_qoi(data)
+    from . import tga
+    if tga.is_tga(data):                 # no signature: tried last
+        return tga.decode_tga(data)
     raise NotImplementedError(
-        f"{path}: only PNG, JPEG, BMP, TIFF, GIF and WebP images are read "
-        f"(ROADMAP A6 (i)); the file starts {data[:12]!r}")
+        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI and TGA "
+        f"images are read (ROADMAP A6 (j)); the file starts {data[:12]!r}")
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -2,23 +2,47 @@
 ``np.asarray(Image.open(path))`` gives it, in Pillow's dtype and shape for
 the mode TiffImagePlugin's OPEN_INFO chooses.
 
-* either byte order; strips or tiles; samples contiguous or planar
-  (PlanarConfiguration 2);
-* compression none, PackBits, LZW (native/imgdec.cpp) and deflate (zlib),
-  with or without horizontal predictor 2 on 8- and 16-bit samples;
+* either byte order, classic TIFF or little-endian BigTIFF (version 43,
+  8-byte offsets and counts, LONG8 / SLONG8 / IFD8 fields; Pillow's reader
+  takes a big-endian one for a classic file and refuses it); strips or
+  tiles; samples contiguous or planar (PlanarConfiguration 2);
+* compression none, PackBits, LZW (native/imgdec.cpp), deflate (zlib),
+  with horizontal predictor 2 or floating-point predictor 3, and new-style
+  JPEG (7): each strip or tile an abbreviated JPEG stream decoded after the
+  JPEGTables stream by data/jpeg.py's decoder, YCbCr converted to RGB
+  (libtiff's JPEGCOLORMODE_RGB, which Pillow asks for), grey and RGB as
+  stored;
+* fill order 2: each stored byte's bits reversed before decompression
+  (not for JPEG, whose codec libtiff exempts), in the modes Pillow keeps a
+  fill-order-2 entry for;
 * grey (min-is-black, or min-is-white, inverted as Pillow inverts it):
   1 bit -> mode "1", bool [H, W]; 2 and 4 bits -> "L", the sample times 85
-  or 17; 8 bits -> uint8 [H, W]; 16 bits -> "I;16", uint16 [H, W] (its
-  big-endian twin "I;16B", dtype >u2, for a big-endian min-is-black file);
-  grey + unassociated alpha -> "LA";
+  or 17; 8 bits -> uint8 [H, W]; 12 bits -> "I;16" uint16; 16 bits ->
+  "I;16", uint16 [H, W] (its big-endian twin "I;16B", dtype >u2, for a
+  big-endian min-is-black file); grey + unassociated alpha -> "LA";
+  SampleFormat 2 (signed) 8 bits -> "L", the bytes as stored; 16 and 32
+  bits -> "I", int32; SampleFormat 3 (IEEE) 32 bits -> "F", float32;
+  unsigned 32 bits (little-endian) -> "I", the bits as int32.  A
+  big-endian signed or float file that libtiff decompresses comes out
+  byte-swapped, as Pillow reads it (libtiff hands it the samples in native
+  order, and Pillow unpacks them as big-endian);
 * RGB: 8-bit -> uint8 [H, W, 3]; a fourth sample that is unassociated
-  alpha (or unnamed) -> RGBA [H, W, 4]; further unnamed samples dropped;
-  16-bit samples -> their high byte, as Pillow's "RGB;16L/B" unpack;
-* palette, 1-8 bits -> "P": the indices, uint8 [H, W].
+  alpha (or unnamed) -> RGBA [H, W, 4]; associated alpha (ExtraSamples 1)
+  -> RGBA unpremultiplied as Pillow's "RGBa" unpacker does it (c * 255 //
+  a, 0 where a is 0); further samples dropped; 16-bit samples -> their
+  high byte, as Pillow's "RGB;16L/B" unpack;
+* YCbCr (photometric 6) under LZW, deflate or PackBits, any integral
+  YCbCrSubsampling: through libtiff's TIFFYCbCrtoRGB tables in float32,
+  as Pillow reads it (libtiff's RGBA interface), chroma replicated;
+  uncompressed YCbCr as Pillow's raw decoder reads it: 4 bytes a pixel
+  from each strip's offset, unconverted;
+* CMYK (8 bits, or 16 -> their high byte) and CIELab as stored;
+* palette, 1-8 bits -> "P": the indices, uint8 [H, W]; with alpha ->
+  "PA" [H, W, 2].
 
-JPEG-compressed files, associated alpha, fill order 2, sample formats other
-than unsigned integers and BigTIFF raise NotImplementedError naming ROADMAP
-A6 (i); what Pillow refuses raises ValueError.
+Old-style JPEG (compression 6), the other compressions (CCITT, LZMA,
+zstd, ...) and planar YCbCr raise NotImplementedError naming ROADMAP A6
+(j); what Pillow refuses raises ValueError.
 """
 
 from __future__ import annotations
@@ -30,44 +54,86 @@ import numpy as np
 
 from . import imgdec
 
-_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 7: "B"}
+_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q",
+          18: "Q", 7: "B", 13: "I", 11: "f", 12: "d"}
 _SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
-          11: 4, 12: 8, 16: 8}
+          11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+# the modes with a fill-order-2 entry in Pillow's OPEN_INFO: (photometric,
+# bits per sample); 16-bit grey only little-endian
+_FILL_ORDER_2 = {(0, (1,)), (1, (1,)), (0, (2,)), (1, (2,)), (0, (4,)),
+                 (1, (4,)), (0, (8,)), (1, (8,)), (1, (16,)), (2, (8, 8, 8)),
+                 (3, (1,)), (3, (2,)), (3, (4,)), (3, (8,))}
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                     np.uint8)
 
 
 def _unsupported(what: str):
-    return NotImplementedError(f"TIFF {what} is not read (ROADMAP A6 (i))")
+    return NotImplementedError(f"TIFF {what} is not read (ROADMAP A6 (j))")
 
 
-def _ifd(data: bytes, bo: str, pos: int) -> dict:
-    """{tag: tuple of its integer values} of the IFD at pos."""
-    (n,) = struct.unpack_from(bo + "H", data, pos)
+def _refused(what: str):
+    return ValueError(f"TIFF {what} (Pillow reads none)")
+
+
+def _ifd(data: bytes, bo: str, pos: int, big: bool) -> dict:
+    """{tag: tuple of its values} of the IFD at pos (rationals as floats)."""
+    count_fmt, entry, inline = ("Q", 20, 8) if big else ("H", 12, 4)
+    (n,) = struct.unpack_from(bo + count_fmt, data, pos)
+    pos += struct.calcsize(count_fmt)
     tags = {}
     for i in range(n):
-        tag, typ, count = struct.unpack_from(bo + "HHI", data, pos + 2 + 12 * i)
-        if typ not in _TYPES:
+        at = pos + entry * i
+        tag, typ = struct.unpack_from(bo + "HH", data, at)
+        (count,) = struct.unpack_from(bo + ("Q" if big else "I"), data, at + 4)
+        if typ not in _SIZES or typ == 2:
             continue
         size = _SIZES[typ] * count
-        at = pos + 2 + 12 * i + 8
-        if size > 4:
-            (at,) = struct.unpack_from(bo + "I", data, at)
-        tags[tag] = struct.unpack_from(f"{bo}{count}{_TYPES[typ]}", data, at)
+        at += 12 if big else 8
+        if size > inline:
+            (at,) = struct.unpack_from(bo + ("Q" if big else "I"), data, at)
+        if typ in (5, 10):
+            v = struct.unpack_from(f"{bo}{2 * count}{'I' if typ == 5 else 'i'}",
+                                   data, at)
+            tags[tag] = tuple(a / b if b else 0.0 for a, b in
+                              zip(v[::2], v[1::2]))
+        else:
+            tags[tag] = struct.unpack_from(f"{bo}{count}{_TYPES[typ]}", data,
+                                           at)
     return tags
 
 
 def decode_tiff(data: bytes) -> np.ndarray:
-    bo = "<" if data[:2] == b"II" else ">"
-    (magic,) = struct.unpack_from(bo + "H", data, 2)
-    if magic == 43:
-        raise _unsupported("BigTIFF")
-    if magic != 42:
+    try:
+        return _decode(data)
+    except (struct.error, zlib.error, KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"corrupt TIFF ({type(e).__name__}: {e})") from e
+
+
+def _decode(data: bytes) -> np.ndarray:
+    head = data[:4]
+    if head in (b"II*\0", b"MM\0*"):
+        big = False
+    elif head == b"II+\0":
+        big = True
+    elif head == b"MM\0+":
+        raise _refused("big-endian BigTIFF (its reader takes the header's "
+                       "third byte for the version)")
+    else:
         raise ValueError("not a TIFF file")
-    tags = _ifd(data, bo, struct.unpack_from(bo + "I", data, 4)[0])
+    bo = "<" if head[:2] == b"II" else ">"
+    if big:
+        if struct.unpack_from(bo + "HH", data, 4) != (8, 0):
+            raise ValueError("BigTIFF with offsets of other than 8 bytes")
+        (first,) = struct.unpack_from(bo + "Q", data, 8)
+    else:
+        (first,) = struct.unpack_from(bo + "I", data, 4)
+    tags = _ifd(data, bo, first, big)
 
     def one(tag, default=None):
         return tags[tag][0] if tag in tags else default
 
     W, H = one(256), one(257)
+    imgdec.check_size(W, H, "TIFF")
     spp = one(277, 1)
     bits = tags.get(258, (1,))
     if len(bits) == 1:
@@ -75,26 +141,45 @@ def decode_tiff(data: bytes) -> np.ndarray:
     comp, photo = one(259, 1), one(262)
     planar, pred = one(284, 1), one(317, 1)
     extra = tags.get(338, ())
+    fill = one(266, 1)
+    fmt = tuple(tags.get(339, (1,)))
+    if len(fmt) > 1 and set(fmt) == {1}:
+        fmt = (1,)
     if photo is None:
         raise ValueError("TIFF without PhotometricInterpretation")
-    if one(266, 1) != 1:
-        raise _unsupported("fill order 2")
-    if any(v != 1 for v in tags.get(339, (1,))):
-        raise _unsupported(f"sample format {tags[339]}")
-    if comp in (6, 7):
-        raise _unsupported("JPEG compression")
-    if comp not in (1, 5, 8, 32946, 32773):
+    if comp == 6:
+        raise _unsupported("old-style JPEG compression (6)")
+    if comp not in (1, 5, 7, 8, 32946, 32773):
         raise _unsupported(f"compression {comp}")
     if len(set(bits)) != 1:
-        raise _unsupported(f"bits per sample {bits}")
+        raise _refused(f"bits per sample {bits}")
     b = bits[0]
-    if b not in (1, 2, 4, 8, 16) or (b < 8 and spp != 1):
-        raise _unsupported(f"{b}-bit samples ({spp} a pixel)")
-    if pred not in (1, 2) or (pred == 2 and b < 8):
-        raise _unsupported(f"predictor {pred} at {b} bits")
-    if 1 in extra[:1]:
-        raise _unsupported("associated alpha")
+    if b not in (1, 2, 4, 8, 12, 16, 32) or (b < 8 and spp != 1) or (
+            b in (12, 32) and spp != 1):
+        raise _refused(f"{b}-bit samples ({spp} a pixel)")
+    if b == 12 and (photo != 1 or bo == ">" or fmt != (1,)):
+        raise _refused(f"12-bit samples, photometric {photo}")
+    if pred not in (1, 2, 3) or (pred == 2 and b < 8) or (
+            pred == 3 and (b != 32 or fmt != (3,))):
+        raise _refused(f"predictor {pred} at {b} bits")
+    if fill == 2 and ((photo, tuple(bits)) not in _FILL_ORDER_2 or extra
+                      or fmt != (1,)
+                      or (b == 16 and bo == ">")
+                      or (comp == 1 and photo == 0 and b == 8)):
+        raise _refused(f"with fill order 2, photometric {photo} and {bits} "
+                       "bits")
+    if fmt != (1,) and fmt not in ((2,), (3,)):
+        raise _refused(f"sample format {fmt}")
+    if tuple(extra[:1]) == (1,) and not (photo == 2 and spp >= 4
+                                         and b in (8, 16)):
+        raise _refused(f"photometric {photo} with associated alpha")
+    if photo == 6 and planar == 2:
+        raise _unsupported("planar YCbCr")
+    if comp == 7 and b != 8:
+        raise _refused(f"JPEG with {b}-bit samples")
 
+    if photo == 6 and comp == 1:
+        return _raw_ycbcr(data, tags, W, H)
     planes = spp if planar == 2 else 1
     per = 1 if planar == 2 else spp          # samples a pixel of a plane
     if 322 in tags:                          # tiles
@@ -109,8 +194,19 @@ def decode_tiff(data: bytes) -> np.ndarray:
             raise ValueError("TIFF strips without StripByteCounts")
     if len(offs) < across * down * planes:
         raise ValueError("TIFF: fewer strips or tiles than the image needs")
-    row_bytes = (tw * b * per + 7) // 8
-    dt = np.dtype(bo + "u2") if b == 16 else np.dtype(np.uint8)
+    sub = tuple(tags.get(530, (2, 2))) if photo == 6 and comp != 7 else (1, 1)
+    if sub[0] not in (1, 2, 4) or sub[1] not in (1, 2, 4) or (
+            sub != (1, 1) and (pred != 1 or b != 8 or spp != 3)):
+        raise _unsupported(f"YCbCr subsampling {sub}")
+    if comp == 7:
+        row_bytes = tw * per
+        tables = bytes(tags.get(347, ()))
+    elif sub != (1, 1):                      # data units of Y, Cb and Cr
+        row_bytes = -(-tw // sub[0]) * (sub[0] * sub[1] + 2)
+    else:
+        row_bytes = (tw * b * per + 7) // 8
+    dt = (np.dtype(bo + {16: "u2", 32: "u4"}[b]) if b in (16, 32) else
+          np.dtype(np.uint16) if b == 12 else np.dtype(np.uint8))
     img = np.zeros((planes, down * th, across * tw, per), dt)
     k = 0
     for p in range(planes):
@@ -119,18 +215,60 @@ def decode_tiff(data: bytes) -> np.ndarray:
             for tx in range(across):
                 raw = data[offs[k]:offs[k] + counts[k]]
                 k += 1
-                buf = _decompress(raw, comp, rows * row_bytes)
-                if pred == 2:
-                    imgdec.unpredict(buf, rows, tw, per, b // 8, bo == ">")
-                tile = (buf.view(dt).reshape(rows, tw, per) if b >= 8 else
-                        _unpack(buf.reshape(rows, row_bytes), b, tw)[..., None])
+                if comp == 7:
+                    tile = _jpeg_tile(tables, raw, photo, rows, tw, per)
+                else:
+                    if fill == 2:
+                        raw = _REVERSED[np.frombuffer(raw, np.uint8)]
+                    units = -(-rows // sub[1])
+                    buf = _decompress(raw, comp, units * row_bytes)
+                    if sub != (1, 1):
+                        tile = _ycbcr_units(buf, units, row_bytes, sub, rows,
+                                            tw)
+                    else:
+                        if pred == 2:
+                            _unpredict(buf, rows, tw, per, b, bo)
+                        elif pred == 3:
+                            buf = _unpredict_float(buf, rows, tw * per, per,
+                                                   bo)
+                        tile = (buf.view(dt).reshape(rows, tw, per)
+                                if b in (8, 16, 32) else
+                                _unpack(buf.reshape(rows, row_bytes), b,
+                                        tw)[..., None])
                 img[p, ty * th:ty * th + rows, tx * tw:(tx + 1) * tw] = tile
     img = img[:, :H, :W]
     samples = img[0] if planes == 1 else np.concatenate(list(img), axis=-1)
+    if photo == 6:
+        if comp != 7:
+            samples = _ycbcr_rgb(samples, tags.get(529), tags.get(532))
+        photo = 2                            # converted to RGB
+    if fmt != (1,) or b in (12, 32):
+        return _sample_mode(samples, photo, b, fmt, bo, comp)
     return _pillow_mode(samples, photo, b, spp, extra, bo)
 
 
-def _decompress(raw: bytes, comp: int, size: int) -> np.ndarray:
+def _raw_ycbcr(data: bytes, tags: dict, W: int, H: int) -> np.ndarray:
+    """Uncompressed YCbCr as Pillow's own raw decoder reads it (OPEN_INFO's
+    "RGBX" rawmode, no conversion): each strip's rows taken as 4 bytes a
+    pixel from the strip's offset on, whatever the data, the fourth byte
+    dropped; the file must hold that many bytes."""
+    if 322 in tags or tags.get(258, (8,))[0] != 8 or tags.get(
+            277, (1,))[0] != 3:
+        raise _refused("uncompressed YCbCr other than 8-bit strips")
+    rps = min(tags.get(278, (H,))[0], H)
+    offs = tags[273][-1:] if rps == H else tags[273]
+    out = np.empty((H, W, 3), np.uint8)
+    for i, off in enumerate(offs):
+        rows = min(rps, H - i * rps)
+        px = np.frombuffer(data[off:off + rows * W * 4], np.uint8)
+        if px.size < rows * W * 4:
+            raise _refused("uncompressed YCbCr past the end of the file "
+                           "(read as 4 bytes a pixel)")
+        out[i * rps:i * rps + rows] = px.reshape(rows, W, 4)[..., :3]
+    return out
+
+
+def _decompress(raw, comp: int, size: int) -> np.ndarray:
     if comp == 1:
         out = np.frombuffer(raw, np.uint8)[:size]
     elif comp == 5:
@@ -138,7 +276,7 @@ def _decompress(raw: bytes, comp: int, size: int) -> np.ndarray:
     elif comp == 32773:
         out = imgdec.packbits(raw, size)
     else:
-        out = np.frombuffer(zlib.decompressobj().decompress(raw, size),
+        out = np.frombuffer(zlib.decompressobj().decompress(bytes(raw), size),
                             np.uint8)
     if out.size < size:
         raise ValueError(f"TIFF strip or tile of {out.size} bytes, not "
@@ -146,10 +284,139 @@ def _decompress(raw: bytes, comp: int, size: int) -> np.ndarray:
     return np.array(out, np.uint8)
 
 
+def _unpredict(buf: np.ndarray, rows: int, cols: int, per: int, b: int,
+               bo: str) -> None:
+    """Undo horizontal predictor 2 in place."""
+    if b < 32:
+        imgdec.unpredict(buf, rows, cols, per, b // 8, bo == ">")
+        return
+    v = buf.view(bo + "u4").reshape(rows, cols, per)
+    v[:] = np.cumsum(v.astype(np.uint32), axis=1, dtype=np.uint32)
+
+
+def _unpredict_float(buf: np.ndarray, rows: int, words: int, per: int,
+                     bo: str) -> np.ndarray:
+    """Undo floating-point predictor 3 (tif_predict.c fpAcc) on rows of
+    `words` 4-byte samples: the bytes summed with a stride of a pixel, then
+    the byte planes (most significant first) put back together, here in
+    the file's byte order."""
+    rb = words * 4
+    x = buf[:rows * rb].reshape(rows, rb // per, per)
+    x = np.cumsum(x, axis=1, dtype=np.uint8).reshape(rows, 4, words)
+    if bo == "<":
+        x = x[:, ::-1]
+    return np.ascontiguousarray(x.transpose(0, 2, 1)).reshape(-1)
+
+
+def _jpeg_tile(tables: bytes, raw, photo: int, rows: int, cols: int,
+               per: int) -> np.ndarray:
+    """A JPEG-compressed strip or tile, as libtiff decodes it for Pillow:
+    YCbCr to RGB (JPEGCOLORMODE_RGB), anything else as stored."""
+    from .jpeg import COLOUR_NONE, COLOUR_YCBCR, decode_jpeg_tables
+    colour = COLOUR_YCBCR if photo == 6 else COLOUR_NONE
+    img = decode_jpeg_tables(tables, bytes(raw), colour)
+    img = img.reshape(img.shape[:2] + (-1,))
+    if img.shape[0] < rows or img.shape[1] < cols or img.shape[2] != per:
+        raise ValueError(f"TIFF JPEG strip or tile of {img.shape}, not "
+                         f"{(rows, cols, per)}")
+    return img[:rows, :cols]
+
+
+def _ycbcr_units(buf: np.ndarray, units: int, row_bytes: int, sub, rows: int,
+                 cols: int) -> np.ndarray:
+    """Subsampled YCbCr data units (h * v Y samples, Cb, Cr each) -> [rows,
+    cols, 3] samples, the chroma replicated over its unit (libtiff's
+    putcontig8bitYCbCr*tile)."""
+    h, v = sub
+    n = row_bytes // (h * v + 2)
+    u = buf[:units * row_bytes].reshape(units, n, h * v + 2)
+    y = u[..., :h * v].reshape(units, n, v, h).transpose(0, 2, 1, 3)
+    y = y.reshape(units * v, n * h)
+    c = np.repeat(np.repeat(u[..., h * v:], v, axis=0), h, axis=1)
+    return np.concatenate([y[..., None], c], -1)[:rows, :cols]
+
+
+def _fix(x) -> int:
+    """tif_color.c's FIX: (int32_t)(x * (1L << 16) + 0.5) of a float x."""
+    return int(float(np.float32(x) * np.float32(65536)) + 0.5)
+
+
+def _code2v(c: np.ndarray, rb, rw, cr) -> np.ndarray:
+    """tif_color.c's Code2V in float32, clamped as CLAMPw and cast as the
+    tables are (toward zero)."""
+    f32 = np.float32
+    rb, rw = f32(rb), f32(rw)
+    d = rw - rb
+    v = (c - np.int32(rb)).astype(f32) * f32(cr) / (d if d != 0 else f32(1))
+    return np.clip(v, f32(-128 * 32), f32(128 * 32)).astype(np.int32)
+
+
+def _ycbcr_rgb(ycc: np.ndarray, luma, refbw) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB on [H, W, 3] uint8."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in (luma or (0.299, 0.587, 0.114)))
+    rbw = [f32(v) for v in (refbw or (0, 255, 128, 255, 128, 255))]
+    f1 = f32(2) - f32(2) * lr
+    d1 = _fix(np.clip(f1, 0, 2))
+    d2 = -_fix(np.clip(lr * f1 / lg, 0, 2))
+    f3 = f32(2) - f32(2) * lb
+    d3 = _fix(np.clip(f3, 0, 2))
+    d4 = -_fix(np.clip(lb * f3 / lg, 0, 2))
+    x = np.arange(-128, 128, dtype=np.int64)
+    cr = _code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127).astype(
+        np.int64)
+    cb = _code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127).astype(
+        np.int64)
+    y_tab = _code2v(x + 128, rbw[0], rbw[1], 255).astype(np.int64)
+    cr_r = (d1 * cr + (1 << 15)) >> 16
+    cb_b = (d3 * cb + (1 << 15)) >> 16
+    cr_g = d2 * cr
+    cb_g = d4 * cb + (1 << 15)
+    y, b, r = (ycc[..., i].astype(np.intp) for i in range(3))
+    yt = y_tab[y]
+    out = np.stack([yt + cr_r[r], yt + ((cb_g[b] + cr_g[r]) >> 16),
+                    yt + cb_b[b]], -1)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def _unpack(rows: np.ndarray, b: int, w: int) -> np.ndarray:
+    """Rows of packed b-bit samples, most significant bits first -> [rows,
+    w] (uint16 at 12 bits, Pillow's "I;12" unpacker)."""
+    if b == 12:
+        n = (w + 1) // 2 * 3                 # whole pairs of samples
+        r = np.zeros((rows.shape[0], n), np.uint16)
+        r[:, :min(n, rows.shape[1])] = rows[:, :n]
+        r = r.reshape(rows.shape[0], -1, 3)
+        pair = np.stack([(r[..., 0] << 4) | (r[..., 1] >> 4),
+                         ((r[..., 1] & 15) << 8) | r[..., 2]], -1)
+        return pair.reshape(rows.shape[0], -1)[:, :w]
     shifts = np.arange(8 - b, -1, -b, dtype=np.uint8)
     vals = (rows[:, :, None] >> shifts) & ((1 << b) - 1)
     return vals.reshape(rows.shape[0], -1)[:, :w]
+
+
+def _sample_mode(s: np.ndarray, photo: int, b: int, fmt: tuple, bo: str,
+                 comp: int) -> np.ndarray:
+    """Signed, float, 12- and 32-bit grey [H, W, 1] -> Pillow's "L", "I",
+    "I;16" or "F" array."""
+    g = s[..., 0]
+    if b == 12:
+        return np.ascontiguousarray(g.astype(np.uint16))
+    if fmt == (3,) and b == 32 and photo in (0, 1):
+        out = g.view(bo + "f4")
+    elif fmt == (2,) and b == 8 and photo == 1:
+        return np.ascontiguousarray(g)
+    elif fmt == (2,) and b in (16, 32) and photo == 1:
+        out = g.view(bo + ("i2" if b == 16 else "i4"))
+    elif fmt == (1,) and b == 32 and photo == 1 and bo == "<":
+        return np.ascontiguousarray(g.view("<i4")).astype(np.int32)
+    else:
+        raise _refused(f"photometric {photo} with sample format {fmt} and "
+                       f"{b} bits")
+    if bo == ">" and comp != 1:
+        # libtiff decompresses to native order, Pillow unpacks big-endian
+        out = out.byteswap()
+    return out.astype(np.float32 if fmt == (3,) else np.int32)
 
 
 def _pillow_mode(s: np.ndarray, photo: int, b: int, spp: int, extra,
@@ -171,14 +438,32 @@ def _pillow_mode(s: np.ndarray, photo: int, b: int, spp: int, extra,
     if photo == 1 and spp == 2 and b == 8 and tuple(extra) == (2,):
         return np.ascontiguousarray(s)
     if photo == 2 and spp >= 3:
-        alpha = spp >= 4 and (not extra or extra[0] in (2, 999))
+        assoc = spp >= 4 and tuple(extra[:1]) == (1,)
+        alpha = spp >= 4 and (not extra or extra[0] in (1, 2, 999))
         if spp > 4 and not extra:
             raise ValueError(f"TIFF RGB with {spp} samples and no "
                              "ExtraSamples (Pillow reads none)")
         s = s[..., :4 if alpha else 3]
         if b == 16:
             s = (s.astype(np.uint16) >> 8).astype(np.uint8)
+        if assoc:                            # Pillow's "RGBa" unpacker
+            a = s[..., 3:].astype(np.int32)
+            rgb = np.minimum(s[..., :3].astype(np.int32) * 255
+                             // np.maximum(a, 1), 255)
+            s = np.concatenate([np.where(a == 0, 0, rgb), a], -1).astype(
+                np.uint8)
         return np.ascontiguousarray(s)
     if photo == 3 and spp == 1 and b <= 8:
         return np.ascontiguousarray(s[..., 0].astype(np.uint8))
-    raise _unsupported(f"photometric {photo} with {spp} samples of {b} bits")
+    if photo == 3 and spp == 2 and b == 8 and tuple(extra) in ((0,), (2,)):
+        return np.ascontiguousarray(s if extra[0] == 2 else s[..., 0])
+    if photo == 5 and spp >= 4 and b in (8, 16) and (
+            spp == 4 or tuple(extra) == (0,) * (spp - 4)) and (
+            b == 8 or spp == 4):
+        s = s[..., :4]
+        if b == 16:
+            s = (s.astype(np.uint16) >> 8).astype(np.uint8)
+        return np.ascontiguousarray(s)
+    if photo == 8 and spp == 3 and b == 8:
+        return np.ascontiguousarray(s)
+    raise _refused(f"photometric {photo} with {spp} samples of {b} bits")

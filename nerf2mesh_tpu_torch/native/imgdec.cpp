@@ -1,7 +1,9 @@
-// Inner loops of the BMP, TIFF and GIF readers (data/bmp.py, data/tiff.py,
-// data/gif.py): the LZW variants of TIFF and GIF, PackBits, TIFF's
-// horizontal predictor, and the BMP RLE8/RLE4 decoder as Pillow's
-// BmpRleDecoder reads it (the array JAX's providers see).
+// Inner loops of the BMP, TIFF, GIF, netpbm, TGA and QOI readers
+// (data/bmp.py, tiff.py, gif.py, netpbm.py, tga.py, qoi.py): the LZW
+// variants of TIFF and GIF, PackBits, TIFF's horizontal predictor, the BMP
+// RLE8/RLE4 decoder as Pillow's BmpRleDecoder reads it (the array JAX's
+// providers see), the plain (ASCII) netpbm samples, TGA's RLE packets and
+// the QOI operations as Pillow's decoders read them.
 //
 // C interface (ctypes); each returns the bytes written or -1 on a code
 // the stream cannot hold:
@@ -24,6 +26,22 @@
 //     RLE8/RLE4 from src[pos:] (src is the whole file: the word alignment
 //     of absolute runs is on the file offset) into out, at most count
 //     pixels.
+//   int64_t netpbm_plain(const uint8_t *src, int64_t n, int bitonal,
+//                        int32_t *out, int64_t count)
+//     the first count samples of a plain netpbm body (PpmPlainDecoder):
+//     comments from '#' through the end of their line removed first (a
+//     token may go on after one), tokens of at most 10 digits, or with
+//     bitonal every '0' or '1' a sample; -1 on any other token.
+//   int64_t tga_rle(const uint8_t *src, int64_t n, int depth,
+//                   int64_t row_bytes, uint8_t *out, int64_t count)
+//     TGA run-length packets of depth-byte pixels as TgaRleDecode.c reads
+//     them: a literal goes on across rows, a run that would cross a row's
+//     end is an overrun (-1); at most count bytes.
+//   int64_t qoi_decode(const uint8_t *src, int64_t n, int channels,
+//                      uint8_t *out, int64_t pixels)
+//     QOI's index, diff, luma, run, RGB and RGBA operations as Pillow's
+//     QoiDecoder reads them (a run does not enter the index; an index
+//     never written gives 0, 0, 0, 0); -1 when the data ends first.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -258,4 +276,112 @@ extern "C" int64_t bmp_rle(const uint8_t *src, int64_t n, int64_t pos,
   int64_t m = (int64_t)data.size() < count ? (int64_t)data.size() : count;
   memcpy(out, data.data(), m);
   return m;
+}
+
+extern "C" int64_t netpbm_plain(const uint8_t *src, int64_t n, int bitonal,
+                                int32_t *out, int64_t count) {
+  int64_t got = 0, pos = 0;
+  auto space = [](uint8_t c) { return c == ' ' || (c >= 9 && c <= 13); };
+  auto comment = [&]() {  // from '#' through the line's end
+    while (pos < n && src[pos] != '\n' && src[pos] != '\r') pos++;
+    pos++;
+  };
+  while (got < count && pos < n) {
+    uint8_t c = src[pos];
+    if (c == '#') {
+      comment();
+      continue;
+    }
+    if (space(c)) {
+      pos++;
+      continue;
+    }
+    if (bitonal) {
+      if (c != '0' && c != '1') return -1;
+      out[got++] = c - '0';
+      pos++;
+      continue;
+    }
+    int64_t v = 0;
+    int len = 0;
+    while (pos < n) {
+      c = src[pos];
+      if (c == '#') {
+        comment();
+        continue;
+      }
+      if (space(c)) break;
+      if (c < '0' || c > '9' || ++len > 10) return -1;
+      v = v * 10 + (c - '0');
+      pos++;
+    }
+    if (v > 0x7FFFFFFF) return -1;
+    out[got++] = (int32_t)v;
+  }
+  return got;
+}
+
+extern "C" int64_t tga_rle(const uint8_t *src, int64_t n, int depth,
+                           int64_t row_bytes, uint8_t *out, int64_t count) {
+  int64_t pos = 0, got = 0;
+  while (got < count && pos < n) {
+    int head = src[pos++];
+    int64_t len = (int64_t)depth * ((head & 0x7F) + 1);
+    if (head & 0x80) {
+      if (pos + depth > n) break;
+      if (got % row_bytes + len > row_bytes) return -1;
+      for (int64_t i = 0; i < len && got < count; i++)
+        out[got++] = src[pos + i % depth];
+      pos += depth;
+    } else {
+      if (pos + len > n) break;
+      int64_t m = len < count - got ? len : count - got;
+      memcpy(out + got, src + pos, m);
+      got += m;
+      pos += len;
+    }
+  }
+  return got;
+}
+
+extern "C" int64_t qoi_decode(const uint8_t *src, int64_t n, int channels,
+                              uint8_t *out, int64_t pixels) {
+  uint8_t index[64][4];
+  memset(index, 0, sizeof(index));
+  uint8_t px[4] = {0, 0, 0, 255};
+  int64_t pos = 0, got = 0;
+  auto emit = [&](const uint8_t *p) {
+    memcpy(out + got * channels, p, channels);
+    got++;
+  };
+  while (got < pixels) {
+    if (pos >= n) return -1;
+    int b = src[pos++];
+    if (b == 0xFE || b == 0xFF) {  // RGB, RGBA
+      int k = b == 0xFE ? 3 : 4;
+      if (pos + k > n) return -1;
+      memcpy(px, src + pos, k);
+      pos += k;
+    } else if ((b >> 6) == 0) {  // index
+      memcpy(px, index[b & 63], 4);
+    } else if ((b >> 6) == 1) {  // diff
+      px[0] = (uint8_t)(px[0] + ((b >> 4) & 3) - 2);
+      px[1] = (uint8_t)(px[1] + ((b >> 2) & 3) - 2);
+      px[2] = (uint8_t)(px[2] + (b & 3) - 2);
+    } else if ((b >> 6) == 2) {  // luma
+      if (pos >= n) return -1;
+      int b2 = src[pos++];
+      int dg = (b & 63) - 32;
+      px[0] = (uint8_t)(px[0] + dg + ((b2 >> 4) & 15) - 8);
+      px[1] = (uint8_t)(px[1] + dg);
+      px[2] = (uint8_t)(px[2] + dg + (b2 & 15) - 8);
+    } else {  // run: not entered into the index
+      for (int r = (b & 63) + 1; r > 0 && got < pixels; r--) emit(px);
+      continue;
+    }
+    memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px,
+           4);
+    emit(px);
+  }
+  return got;
 }

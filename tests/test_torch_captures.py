@@ -113,9 +113,13 @@ def test_decoder_matches_pillow(sampling, quality, restart):
 
 
 def test_decoder_refuses_progressive_and_garbage():
-    """Progressive files read (test_progressive_decoder_matches_pillow);
-    what is still refused: arithmetic coding and 12-bit samples, which no
-    encoder at hand writes (the SOF marker or precision of a baseline file
+    """Progressive files read (test_progressive_decoder_matches_pillow), and
+    so do arithmetic-coded ones (every form: tests/test_torch_imageforms.py):
+    a baseline file whose SOF marker is rewritten to SOF9 decodes, as
+    garbage, to the shape Pillow's libjpeg-turbo gives and to its values
+    but where the garbage's coefficients leave the range of the SIMD
+    IDCT's 16-bit arithmetic.  What is refused raises ValueError, as Pillow
+    refuses it: 12-bit samples (the precision of a baseline file
     rewritten), and garbage."""
     buf = io.BytesIO()
     Image.fromarray(photo(32, 40)).save(buf, "JPEG", progressive=True)
@@ -126,10 +130,16 @@ def test_decoder_refuses_progressive_and_garbage():
     Image.fromarray(photo(32, 40)).save(buf, "JPEG")
     base = buf.getvalue()
     sof = base.index(b"\xff\xc0")
-    for patched in (base[:sof + 1] + b"\xc9" + base[sof + 2:],   # SOF9
-                    base[:sof + 4] + b"\x0c" + base[sof + 5:]):  # 12-bit
-        with pytest.raises(NotImplementedError, match="ROADMAP A6 \\(g\\)"):
-            jpeg.decode_jpeg(patched)
+    sof9 = base[:sof + 1] + b"\xc9" + base[sof + 2:]
+    with Image.open(io.BytesIO(sof9)) as im:
+        want = np.asarray(im)
+    got = jpeg.decode_jpeg(sof9)
+    assert got.shape == want.shape and (got == want).mean() > 0.99
+    twelve = base[:sof + 4] + b"\x0c" + base[sof + 5:]
+    with pytest.raises(ValueError, match="12-bit"):
+        jpeg.decode_jpeg(twelve)
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(twelve)).load()
     with pytest.raises(ValueError):
         jpeg.decode_jpeg(b"not a jpeg")
     # a Huffman table with more codes than its lengths allow (3 of 1 bit)

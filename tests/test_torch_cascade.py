@@ -240,6 +240,42 @@ def test_cascaded_grid_update_matches_jax(scene, tmp_path, contract):
     assert (marked > 0).all() and (marked < 1).all()
 
 
+def test_untrained_marks_take_view_0_intrinsics(scene, tmp_path):
+    """A capture whose views differ in focal length: both packages'
+    ``Trainer.mark_untrained`` test every view with view 0's intrinsics
+    (JAX trainer.py:694, port utils/trainer.py:615-616), a known defect of
+    the reference (ROADMAP C): the grid is the one view 0's frustum gives
+    every view, not the one each view's own frustum gives.  The port's grid
+    equals JAX's."""
+    jt, pt, jds, tds = trainers(scene, tmp_path)
+    rng = np.random.default_rng(9)
+    f = rng.uniform(0.5, 2.0, (tds.num_frames, 1))
+    intr = (np.tile(tds.intrinsics_for(0), (tds.num_frames, 1))
+            * np.concatenate([f, f, np.ones_like(f), np.ones_like(f)], 1)
+            ).astype(np.float32)
+    zero = np.zeros(tuple(pt.render.density_grid.shape), np.float32)
+    jt.state = jt.state._replace(render=jt.state.render._replace(
+        density_grid=jnp.asarray(zero)))
+    pt.render = dataclasses.replace(pt.render, density_grid=T(zero))
+    jt.mark_untrained(dataclasses.replace(jds, intrinsics=intr))
+    pt.mark_untrained(dataclasses.replace(tds, intrinsics=intr))
+    got = pt.render.density_grid.numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jt.state.render.density_grid))
+    view0 = tren.mark_untrained_grid(
+        pt.render, tds.poses, intr[0], pt.render_spec, aabb=pt._aabb,
+        cam_near_far=tds.cam_near_far)
+    np.testing.assert_array_equal(got, view0.density_grid.numpy())
+    # each view with its own intrinsics: a cell stays unmarked when some
+    # view's own frustum sees it
+    own = np.logical_and.reduce([tren.mark_untrained_grid(
+        dataclasses.replace(pt.render, density_grid=T(zero)),
+        tds.poses[i:i + 1], intr[i], pt.render_spec, aabb=pt._aabb,
+        cam_near_far=tds.cam_near_far[i:i + 1]).density_grid.numpy() < 0
+        for i in range(tds.num_frames)])
+    assert (own != (got < 0)).any()
+
+
 # the finest level's resolution (2048 * bound) at bound 4 over bound 1's
 FINEST_RATIO = 4
 

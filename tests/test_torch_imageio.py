@@ -819,13 +819,26 @@ def all_cases() -> dict:
     return out
 
 
+def is_mine(rel: str) -> bool:
+    """Whether a formats.json entry is one of this module's files (the
+    other entries are tests/test_torch_imageforms.py's)."""
+    parts = rel.split("/")
+    return parts[0] == "colmap_formats" or (
+        parts[0] == "formats" and parts[1] in ("bmp", "tiff", "gif", "webp")
+        and not parts[2].startswith("forms_"))
+
+
 def write_fixtures() -> None:
-    """Writes fixtures/formats/ (every case above), the COLMAP capture
-    fixtures/colmap_formats/ and fixtures/formats.json, Pillow's hash of
-    each of their images (paths relative to fixtures/)."""
+    """Writes this module's files under fixtures/formats/ (every case
+    above), the COLMAP capture fixtures/colmap_formats/ and their entries
+    in fixtures/formats.json, Pillow's hash of each of their images (paths
+    relative to fixtures/); the other entries stay."""
     import shutil
     from nerf2mesh_tpu_torch.data.synthetic import generate_colmap_dataset
-    shutil.rmtree(FORMATS, ignore_errors=True)
+    hashes = json.loads(FORMAT_HASHES.read_text())
+    for rel in [k for k in hashes if is_mine(k)]:
+        (FIXTURES / rel).unlink(missing_ok=True)
+        del hashes[rel]
     for rel, data in all_cases().items():
         (FIXTURES / rel).parent.mkdir(parents=True, exist_ok=True)
         (FIXTURES / rel).write_bytes(data)
@@ -833,11 +846,12 @@ def write_fixtures() -> None:
     generate_colmap_dataset(str(CAPTURE), H=96, W=96, n_images=16,
                             n_points=400)
     reencode_capture(str(CAPTURE), CAPTURE_KINDS, mask_kind="tiff_lzw")
-    files = sorted(p for d in (FORMATS, CAPTURE / "images", CAPTURE / "mask")
-                   for p in d.rglob("*") if p.is_file())
-    FORMAT_HASHES.write_text(json.dumps(
-        {str(p.relative_to(FIXTURES)): sha(pillow_array(p.read_bytes()))
-         for p in files}, indent=1) + "\n")
+    files = list(all_cases()) + [str(p.relative_to(FIXTURES)) for d in (
+        CAPTURE / "images", CAPTURE / "mask") for p in sorted(d.iterdir())]
+    for rel in files:
+        hashes[rel] = sha(pillow_array((FIXTURES / rel).read_bytes()))
+    FORMAT_HASHES.write_text(json.dumps(dict(sorted(hashes.items())),
+                                        indent=1) + "\n")
 
 
 def test_committed_format_files(tmp_path):

@@ -140,7 +140,7 @@ def test_png_reader_reads_pillow_files_and_rejects_others(tmp_path):
         np.testing.assert_array_equal(png.read_image(str(path)), want)
     path = tmp_path / "frame.ico"
     Image.fromarray(_images()["rgb"]).save(path)
-    with pytest.raises(NotImplementedError, match=r"A6 \(i\)"):
+    with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
         png.read_image(str(path))
 
 
