@@ -248,10 +248,14 @@ Phases, in order; any failure exits non-zero:
      against plain at one more step; (f) the same on the committed
      capture fixtures/colmap_forms (arithmetic baseline and progressive,
      4:4:0, 4:1:1 and lossless JPEG, YCbCr JPEG-in-TIFF, BigTIFF, PPM,
-     RLE TGA and QOI frames, PGM and QOI masks); the phase's wall and
-     (e)'s and (f)'s printed.  (c) decodes the JPEG, TIFF, netpbm, TGA
-     and QOI variants (fixtures/formats) and the (f) capture's frames and
-     masks too, each format's ms per MP held to 500.
+     RLE TGA and QOI frames, PGM and QOI masks); (g) the same on the
+     committed capture fixtures/colmap_jp2 (JPEG 2000 frames: JP2 and raw
+     codestreams, reversible and irreversible, sYCC, tiles, layers,
+     precincts, progression orders; grey .j2k masks); the phase's wall
+     and (e)'s, (f)'s and (g)'s printed.  (c) decodes the JPEG, TIFF,
+     netpbm, TGA, QOI and JPEG 2000 variants (fixtures/formats, a 512^2
+     irreversible frame among them) and the (f) and (g) captures' frames
+     and masks too, each format's ms per MP held to 500.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -274,7 +278,8 @@ K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 "ckpt_cli_launches": phase 14 (c)'s training through main;
 "ckpt_zarr3_frame_launches": phase 14 (b)'s val frame of the zarr3
 fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
-"ckpt_forms_cli_launches": phase 14 (f)'s),
+"ckpt_forms_cli_launches": phase 14 (f)'s, "ckpt_jp2_cli_launches":
+phase 14 (g)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -389,7 +394,7 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e), (f): stage-0 steps through the
+FMT_STEPS = 16             # phase 14 (e)-(g): stage-0 steps through the
 #                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
@@ -3739,38 +3744,47 @@ def decode_fixtures():
     signatures = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
                   (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
                   (b"GIF8", "gif"), (b"RIFF", "webp"), (b"qoif", "qoi"),
-                  (b"P", "netpbm"))
+                  (b"\xff\x4f\xff\x51", "jpeg2000"),
+                  (b"\x00\x00\x00\x0cjP", "jpeg2000"), (b"P", "netpbm"))
     for kind, root in kinds:
         with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
             want = json.load(f)
         by_format = {}
         for rel in want:
             with open(os.path.join(root, rel), "rb") as f:
-                head = f.read(4)
+                head = f.read(12)
             fmt = next((n for sig, n in signatures if head.startswith(sig)),
                        "tga")                # TGA has no signature
             by_format.setdefault(fmt, []).append(rel)
         for rels in by_format.values():      # builds each decoder untimed
             read_image(os.path.join(root, rels[0]))
-        bad, rates, first = [], {}, {}
+        bad, rates, first, largest = [], {}, {}, {}
         for fmt, rels in sorted(by_format.items()):
-            passes = []
+            passes, best, pixels = [], {}, {}
             for rep in range(DECODE_PASSES):
                 secs, px = 0.0, 0
                 for rel in rels:
                     t0 = time.perf_counter()
                     img = read_image(os.path.join(root, rel))
-                    secs += time.perf_counter() - t0
-                    px += img.shape[0] * img.shape[1]
+                    dt = time.perf_counter() - t0
+                    secs += dt
+                    pixels[rel] = img.shape[0] * img.shape[1]
+                    px += pixels[rel]
+                    best[rel] = min(best.get(rel, math.inf), dt * 1e3)
                     if rep == 0 and sha(img) != want[rel]:
                         bad.append(rel)
                 passes.append(secs / (px / 1e6) * 1e3)
             rates[fmt] = (len(rels), px, min(passes))
             first[fmt] = passes[0]
+            rel = max(rels, key=pixels.get)
+            largest[fmt] = (rel, pixels[rel], round(best[rel], 3),
+                            round(best[rel] / (pixels[rel] / 1e6), 2))
         log(f"[ckpt] (c) {len(want)} {kind} files decoded, differing from "
             f"Pillow's hashes: {bad}; per format (files, pixels, ms per MP "
             f"of the fastest of {DECODE_PASSES} passes against the 500 ms "
-            f"bar): {rates}; the first pass's ms per MP {first}")
+            f"bar): {rates}; the first pass's ms per MP {first}; each "
+            f"format's largest file (pixels, its fastest ms, ms per MP): "
+            f"{largest}")
         slow = {f: r for f, r in rates.items() if r[2] > 500 and (
             kind == "formats" or f == "jpeg")}
         if bad or slow:
@@ -3900,10 +3914,10 @@ def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e) and (f) the captures in
-    other formats through main ((d) runs in phase 8); returns (b)'s frame
-    launches, (c)'s, (e)'s and (f)'s training launches, and K1-K3's
-    errors."""
+    and the progressive capture through main, (e), (f) and (g) the captures
+    in other formats (g: JPEG 2000) through main ((d) runs in phase 8);
+    returns (b)'s frame launches, (c)'s, (e)'s, (f)'s and (g)'s training
+    launches, and K1-K3's errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -3915,11 +3929,16 @@ def phase_checkpoints(dev, field, val, ref_ms):
     forms_launches, forms_errs = ckpt_formats_capture(
         dev, ref_ms, "colmap_forms", "(f)", "PGM and QOI masks")
     log(f"[ckpt] (f) wall {time.perf_counter() - t_f:.1f} s")
+    t_g = time.perf_counter()
+    jp2_launches, jp2_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_jp2", "(g)", "JPEG 2000 masks")
+    log(f"[ckpt] (g) wall {time.perf_counter() - t_g:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
-    for e in (fmt_errs, forms_errs):
+    for e in (fmt_errs, forms_errs, jp2_errs):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
-    return fixture_launches, cap_launches, fmt_launches, forms_launches, errs
+    return (fixture_launches, cap_launches, fmt_launches, forms_launches,
+            jp2_launches, errs)
 
 
 def main() -> int:
@@ -3965,7 +3984,7 @@ def main() -> int:
     with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
                     "zstandard"):
         (fix_launches, ckpt_launches, fmt_launches, forms_launches,
-         ckpt_errs) = phase_checkpoints(
+         jp2_launches, ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
     lap("phase 14")
@@ -4007,6 +4026,7 @@ def main() -> int:
         r["ckpt_zarr3_frame_launches"] = fix_launches.get(r["name"], 0)
         r["ckpt_formats_cli_launches"] = fmt_launches.get(r["name"], 0)
         r["ckpt_forms_cli_launches"] = forms_launches.get(r["name"], 0)
+        r["ckpt_jp2_cli_launches"] = jp2_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
@@ -4014,7 +4034,7 @@ def main() -> int:
             "dtu_launches", "dist_launches", "viewer_launches",
             "ckpt_cli_launches", "ckpt_zarr3_frame_launches",
             "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
-            "max_abs_err",
+            "ckpt_jp2_cli_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ row's own output byte by byte.  Writing uses filter 0 on every row, for
 
 ``read_image`` reads a file by its signature, never through Pillow: a
 PNG with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF,
-GIF, WebP, netpbm and QOI with data/bmp.py, tiff.py, gif.py, webp.py,
-netpbm.py and qoi.py; a file with none of those signatures whose header
+GIF, WebP, netpbm, QOI and JPEG 2000 (JP2 files and raw codestreams) with
+data/bmp.py, tiff.py, gif.py, webp.py, netpbm.py, qoi.py and jpeg2000.py;
+a file with none of those signatures whose header
 Pillow's TGA plugin would take is read by data/tga.py (TGA has no
 signature, and Pillow tries it late); any other format raises
 NotImplementedError naming ROADMAP A6 (j);
@@ -192,8 +193,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 def read_image(path: str) -> np.ndarray:
     """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
-    netpbm, QOI or TGA file, without Pillow.  Other formats raise
-    NotImplementedError."""
+    netpbm, QOI, JPEG 2000 or TGA file, without Pillow.  Other formats
+    raise NotImplementedError."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
@@ -220,12 +221,17 @@ def read_image(path: str) -> np.ndarray:
     if data[:4] == b"qoif":
         from .qoi import decode_qoi
         return decode_qoi(data)
+    if data[:4] == b"\xff\x4f\xff\x51" or data[:12] == (
+            b"\x00\x00\x00\x0cjP  \r\n\x87\n"):
+        from .jpeg2000 import decode_jpeg2000
+        return decode_jpeg2000(data)
     from . import tga
     if tga.is_tga(data):                 # no signature: tried last
         return tga.decode_tga(data)
     raise NotImplementedError(
-        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI and TGA "
-        f"images are read (ROADMAP A6 (j)); the file starts {data[:12]!r}")
+        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
+        f"2000 and TGA images are read (ROADMAP A6 (j)); the file starts "
+        f"{data[:12]!r}")
 
 
 def write_image(path: str, img: np.ndarray) -> None:

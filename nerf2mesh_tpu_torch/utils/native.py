@@ -5,6 +5,7 @@ git-ignored ``build/`` directory, named by a hash of its source and the
 flags, never next to the source; a failed build raises.  meshing/meshops.py
 and data/jpeg.py load theirs this way; ``load_library`` builds and loads
 one with its functions' ctypes signatures (the image readers' libraries).
+A library may add flags of its own (``LIBRARY_FLAGS``) to ``CXXFLAGS``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+# j2kdec follows OpenJPEG's float arithmetic bit for bit: no FMA may join
+# one of its multiplies to an add; it decodes code-blocks on threads
+LIBRARY_FLAGS = {"j2kdec": ("-ffp-contract=off", "-pthread")}
+
+
+def flags(name: str) -> tuple:
+    """The compiler flags of native/<name>.cpp's library."""
+    return CXXFLAGS + LIBRARY_FLAGS.get(name, ())
 
 
 def source_path(name: str) -> str:
@@ -28,7 +37,7 @@ def library_path(name: str, build_dir: str) -> str:
     """Where native/<name>.cpp's library for its current source and the
     flags lives in build_dir."""
     with open(source_path(name), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode())
+        h = hashlib.sha256(f.read() + " ".join(flags(name)).encode())
     return os.path.join(build_dir, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -40,7 +49,7 @@ def build_library(name: str, build_dir: str) -> str:
         return path
     os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp,
+    cmd = [os.environ.get("CXX", "g++"), *flags(name), "-o", tmp,
            source_path(name)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
