@@ -251,11 +251,17 @@ Phases, in order; any failure exits non-zero:
      RLE TGA and QOI frames, PGM and QOI masks); (g) the same on the
      committed capture fixtures/colmap_jp2 (JPEG 2000 frames: JP2 and raw
      codestreams, reversible and irreversible, sYCC, tiles, layers,
-     precincts, progression orders; grey .j2k masks); the phase's wall
-     and (e)'s, (f)'s and (g)'s printed.  (c) decodes the JPEG, TIFF,
-     netpbm, TGA, QOI and JPEG 2000 variants (fixtures/formats, a 512^2
-     irreversible frame among them) and the (f) and (g) captures' frames
-     and masks too, each format's ms per MP held to 500.
+     precincts, progression orders; grey .j2k masks); (h) the same on the
+     committed capture fixtures/colmap_legacy (old-style JPEG TIFF in both
+     forms, LZMA and zstd TIFF, planar YCbCr TIFF, SGI RLE at 8 and 16
+     bits, PCX, DCX, ICO of a 32-bit BMP entry and CUR frames; SGI, PCX,
+     LZMA TIFF and Group 4 masks, the last read as 0/1); the phase's wall
+     and (e)'s to (h)'s printed.  (c) decodes the JPEG, TIFF, netpbm, TGA,
+     QOI, JPEG 2000, SGI, PCX, DCX, ICO and CUR variants
+     (fixtures/formats, a 512^2 irreversible frame among them; legacy TIFF
+     timed by codec: CCITT, old-style JPEG, ThunderScan, LZMA, zstd) and
+     the (f), (g) and (h) captures' frames and masks too, each format's ms
+     per MP held to 500.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -279,7 +285,7 @@ K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 "ckpt_zarr3_frame_launches": phase 14 (b)'s val frame of the zarr3
 fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
 "ckpt_forms_cli_launches": phase 14 (f)'s, "ckpt_jp2_cli_launches":
-phase 14 (g)'s),
+phase 14 (g)'s, "ckpt_legacy_cli_launches": phase 14 (h)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -294,6 +300,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -370,9 +377,11 @@ CAP_DECIMATE = 3e4         # its decimate_target: the SDF's outer level is
 #                            1's face budget (87,381 at 256^2)
 CAP_S1_STEPS = 16          # phase 11a's stage 1 (cut from 32)
 CAP_TEXTURE = 512          # phase 11a's texture side
-CAP_SPARSE_STEPS = 64      # phase 11b (the LLFF recipe + sparse depth)
+CAP_SPARSE_STEPS = 48      # phase 11b (the LLFF recipe + sparse depth;
+#                            cut from 64 to pay for phase 14 (h))
 OPT_SIZE = 512             # phase 11c's blender scene side (--downscale 2)
-OPT_STEPS = 64             # phase 11c (the A6 (d) options)
+OPT_STEPS = 48             # phase 11c (the A6 (d) options; cut from 64 to
+#                            pay for phase 14 (h))
 HARD_STEPS = 64            # phase 12 (a) and (b): the hard scene, merged and
 #                            separate tables (cut from 256, then 128, for
 #                            the time limit: whole runs took 1272 s, then
@@ -394,7 +403,7 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e)-(g): stage-0 steps through the
+FMT_STEPS = 16             # phase 14 (e)-(h): stage-0 steps through the
 #                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
@@ -3731,6 +3740,55 @@ def ckpt_jax_fixture(dev, val):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# file signatures -> format, in data/png.read_image's order; TGA has none
+SIGNATURES = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
+              (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
+              (b"GIF8", "gif"), (b"RIFF", "webp"), (b"qoif", "qoi"),
+              (b"\xff\x4f\xff\x51", "jpeg2000"),
+              (b"\x00\x00\x00\x0cjP", "jpeg2000"), (b"P", "netpbm"),
+              (b"\x00\x00\x02\x00", "cur"), (b"\x0a", "pcx"),
+              (b"\xb1\x68\xde\x3a", "dcx"), (b"\x00\x00\x01\x00", "ico"),
+              (b"\x01\xda", "sgi"))
+# TIFF compressions timed apart in phase 14 (c)
+TIFF_CODECS = {2: "tiff_ccitt", 3: "tiff_ccitt", 4: "tiff_ccitt",
+               32771: "tiff_ccitt", 6: "tiff_ojpeg", 32809: "tiff_thunderscan",
+               34925: "tiff_lzma", 50000: "tiff_zstd"}
+
+
+def tiff_compression(data: bytes) -> int:
+    """The Compression tag of a TIFF's first IFD (1 when absent)."""
+    bo = "<" if data[:2] == b"II" else ">"
+    big = data[2:4] in (b"+\0", b"\0+")
+    (ifd,) = struct.unpack_from(bo + ("Q" if big else "I"), data,
+                                8 if big else 4)
+    (n,) = struct.unpack_from(bo + ("Q" if big else "H"), data, ifd)
+    first, step = ifd + (8 if big else 2), 20 if big else 12
+    for i in range(n):
+        if struct.unpack_from(bo + "H", data, first + step * i)[0] == 259:
+            return struct.unpack_from(bo + "H", data, first + step * i + 4 +
+                                      (8 if big else 4))[0]
+    return 1
+
+
+def fixture_format(rel: str, data: bytes) -> str:
+    """A committed image's format for phase 14 (c)'s rates: a variant's
+    directory under formats/ (uncompressed TGA shares CUR's first bytes),
+    else its signature; TIFF by its codec."""
+    parts = rel.split("/")
+    if parts[0] == "formats" and len(parts) > 2:
+        fmt = parts[1]
+        if fmt == "pcx" and data[:4] == b"\xb1\x68\xde\x3a":
+            fmt = "dcx"
+        elif fmt == "ico" and data[:4] == b"\x00\x00\x02\x00":
+            fmt = "cur"
+    else:
+        fmt = next((n for sig, n in SIGNATURES if data.startswith(sig)),
+                   "tga")
+    if fmt == "tiff":
+        fmt = TIFF_CODECS.get(tiff_compression(data), "tiff")
+    return fmt
+
+
 def decode_fixtures():
     """Phase 14 (c): the committed images decoded on the host, each array's
     hash Pillow's; the progressive JPEGs and each format's ms per MP held
@@ -3741,21 +3799,14 @@ def decode_fixtures():
     capture = os.path.join(FIXTURES, "progressive")
     kinds = (("progressive", capture), ("png", os.path.join(FIXTURES, "png")),
              ("formats", FIXTURES))
-    signatures = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
-                  (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
-                  (b"GIF8", "gif"), (b"RIFF", "webp"), (b"qoif", "qoi"),
-                  (b"\xff\x4f\xff\x51", "jpeg2000"),
-                  (b"\x00\x00\x00\x0cjP", "jpeg2000"), (b"P", "netpbm"))
     for kind, root in kinds:
         with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
             want = json.load(f)
         by_format = {}
         for rel in want:
             with open(os.path.join(root, rel), "rb") as f:
-                head = f.read(12)
-            fmt = next((n for sig, n in signatures if head.startswith(sig)),
-                       "tga")                # TGA has no signature
-            by_format.setdefault(fmt, []).append(rel)
+                by_format.setdefault(fixture_format(rel, f.read()),
+                                     []).append(rel)
         for rels in by_format.values():      # builds each decoder untimed
             read_image(os.path.join(root, rels[0]))
         bad, rates, first, largest = [], {}, {}, {}
@@ -3914,10 +3965,10 @@ def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e), (f) and (g) the captures
-    in other formats (g: JPEG 2000) through main ((d) runs in phase 8);
-    returns (b)'s frame launches, (c)'s, (e)'s, (f)'s and (g)'s training
-    launches, and K1-K3's errors."""
+    and the progressive capture through main, (e)-(h) the captures in other
+    formats (g: JPEG 2000, h: the legacy forms) through main ((d) runs in
+    phase 8); returns (b)'s frame launches, (c)'s, (e)'s, (f)'s, (g)'s and
+    (h)'s training launches, and K1-K3's errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -3933,12 +3984,17 @@ def phase_checkpoints(dev, field, val, ref_ms):
     jp2_launches, jp2_errs = ckpt_formats_capture(
         dev, ref_ms, "colmap_jp2", "(g)", "JPEG 2000 masks")
     log(f"[ckpt] (g) wall {time.perf_counter() - t_g:.1f} s")
+    t_h = time.perf_counter()
+    legacy_launches, legacy_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_legacy", "(h)",
+        "SGI, PCX, LZMA TIFF and Group 4 masks")
+    log(f"[ckpt] (h) wall {time.perf_counter() - t_h:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
-    for e in (fmt_errs, forms_errs, jp2_errs):
+    for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     return (fixture_launches, cap_launches, fmt_launches, forms_launches,
-            jp2_launches, errs)
+            jp2_launches, legacy_launches, errs)
 
 
 def main() -> int:
@@ -3984,7 +4040,7 @@ def main() -> int:
     with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
                     "zstandard"):
         (fix_launches, ckpt_launches, fmt_launches, forms_launches,
-         jp2_launches, ckpt_errs) = phase_checkpoints(
+         jp2_launches, legacy_launches, ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
     lap("phase 14")
@@ -4027,6 +4083,7 @@ def main() -> int:
         r["ckpt_formats_cli_launches"] = fmt_launches.get(r["name"], 0)
         r["ckpt_forms_cli_launches"] = forms_launches.get(r["name"], 0)
         r["ckpt_jp2_cli_launches"] = jp2_launches.get(r["name"], 0)
+        r["ckpt_legacy_cli_launches"] = legacy_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
@@ -4034,7 +4091,8 @@ def main() -> int:
             "dtu_launches", "dist_launches", "viewer_launches",
             "ckpt_cli_launches", "ckpt_zarr3_frame_launches",
             "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
-            "ckpt_jp2_cli_launches", "max_abs_err",
+            "ckpt_jp2_cli_launches", "ckpt_legacy_cli_launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -23,11 +23,14 @@ checkpoints, zarr v2 and zarr3 (``utils/orbax.py`` over ``utils/ocdbt.py``,
 ``utils/zarr.py`` and a zstd codec, ``utils/zstd.py``) without orbax or
 tensorstore; and, without Pillow, every JPEG Pillow reads (baseline,
 progressive, arithmetic-coded, lossless, YCCK, any integral sampling
-ratio), every PNG kind, BMP, TIFF (JPEG-compressed, BigTIFF, signed and
-float samples too), GIF, WebP, netpbm, TGA and QOI frames
-(``data/png.read_image`` by signature).  Still raising NotImplementedError
-(ROADMAP A6 (j)): the other formats Pillow reads (JPEG 2000, AVIF, ...),
-old-style JPEG TIFF; the scripts that need model weights are not ported.
+ratio), every PNG kind, BMP, TIFF (JPEG-compressed, old-style JPEG,
+CCITT fax, LZMA, zstd, ThunderScan, BigTIFF, planar and subsampled
+YCbCr, signed and float samples too), GIF, WebP, netpbm, TGA, QOI, JPEG
+2000, SGI, PCX, DCX, ICO and CUR frames (``data/png.read_image`` by
+signature).  Still raising NotImplementedError (ROADMAP A6 (j)): the other
+formats Pillow reads (AVIF, DDS, PSD, ...) and the JPEG 2000 features no
+writer at hand makes; old-style JPEG TIFF in planes raises ValueError
+(not read); the scripts that need model weights are not ported.
 """
 
 __version__ = "0.1.0"

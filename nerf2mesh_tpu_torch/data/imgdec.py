@@ -1,6 +1,7 @@
 """numpy wrappers of native/imgdec.cpp, the inner loops of the BMP, TIFF,
-GIF, netpbm, TGA and QOI readers (data/bmp.py, tiff.py, gif.py, netpbm.py,
-tga.py, qoi.py), built with g++ at first use (utils/native.py)."""
+GIF, netpbm, TGA, QOI, SGI and PCX readers (data/bmp.py, tiff.py, gif.py,
+netpbm.py, tga.py, qoi.py, sgi.py, pcx.py), built with g++ at first use
+(utils/native.py)."""
 
 from __future__ import annotations
 
@@ -18,7 +19,17 @@ _SIGNATURES = {
     "netpbm_plain": (_I64, [_PTR, _I64, _INT, _PTR, _I64]),
     "tga_rle": (_I64, [_PTR, _I64, _INT, _I64, _PTR, _I64]),
     "qoi_decode": (_I64, [_PTR, _I64, _INT, _PTR, _I64]),
+    "fax_decode": (_I64, [_PTR, _I64, _INT, _I64, _I64, _I64, _PTR]),
+    "thunder_decode": (_I64, [_PTR, _I64, _I64, _I64, _I64, _PTR]),
+    "sgi_rle": (_I64, [_PTR, _I64, _I64, _I64, _INT, _INT, _PTR]),
+    "pcx_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
 }
+
+
+class NotThisFormat(ValueError):
+    """A header whose plugin's _open fails in a way Image.open passes over
+    (SyntaxError, IndexError, TypeError, struct.error): Pillow tries the
+    next plugin, and data/png.read_image the next reader."""
 
 
 # Image.open's DecompressionBombError: more pixels than twice Pillow's
@@ -123,3 +134,62 @@ def qoi_decode(data: bytes, channels: int, pixels: int) -> np.ndarray:
     n = _lib().qoi_decode(src.ctypes.data, src.size, channels,
                           out.ctypes.data, pixels)
     return out[:max(n, 0) * channels]
+
+
+# fax_decode's modes
+FAX_MH, FAX_MH_WORD, FAX_G3_1D, FAX_G3_2D, FAX_G4 = range(5)
+
+
+def fax(data, mode: int, width: int, rows: int) -> np.ndarray:
+    """A strip or tile of CCITT data (fill order 1) -> [rows, ceil(width /
+    8)] packed rows, black runs as 1 bits.  A Group 4 strip that ends
+    early keeps the rows it decoded, as libtiff does, and the rest are
+    white (Pillow leaves them as whatever its buffer held); ValueError
+    where libtiff's decoder fails the strip."""
+    rowbytes = (width + 7) // 8
+    src, out = _src(data), np.zeros(rows * rowbytes, np.uint8)
+    n = _lib().fax_decode(src.ctypes.data, src.size, mode, width, rows,
+                          rowbytes, out.ctypes.data)
+    if n < 0:
+        raise ValueError("TIFF CCITT data libtiff fails to decode")
+    return out.reshape(rows, rowbytes)
+
+
+def thunderscan(data, width: int, rows: int) -> np.ndarray:
+    """ThunderScan 4-bit rows -> [rows, ceil(width / 2)] packed samples."""
+    rowbytes = (width + 1) // 2
+    src, out = _src(data), np.zeros(rows * rowbytes, np.uint8)
+    if _lib().thunder_decode(src.ctypes.data, src.size, width, rows,
+                             rowbytes, out.ctypes.data) < 0:
+        raise ValueError("ThunderScan TIFF: a row of too few or too many "
+                         "pixels (libtiff fails the strip)")
+    return out.reshape(rows, rowbytes)
+
+
+def sgi_rle(data, xsize: int, ysize: int, bands: int, bpc: int
+            ) -> tuple:
+    """SGI RLE (`data` the file from byte 512 on) -> ([ysize, xsize, bands *
+    bpc] rows in file order, the rows stored).  A run past its row or the
+    data raises ValueError, as Pillow's decoder refuses it."""
+    src = _src(data)
+    out = np.zeros(ysize * xsize * bands * bpc, np.uint8)
+    n = _lib().sgi_rle(src.ctypes.data, src.size, xsize, ysize, bands, bpc,
+                       out.ctypes.data)
+    if n < 0:
+        raise ValueError("SGI RLE: a run past its row or the data (Pillow "
+                         "reads none)")
+    return out.reshape(ysize, xsize, bands * bpc), n
+
+
+def pcx_rle(data, line: int, rows: int) -> np.ndarray:
+    """PCX RLE -> [rows, line] bytes; ValueError on a run past a line or
+    data that ends first, as Pillow refuses both."""
+    src, out = _src(data), np.zeros(rows * line, np.uint8)
+    n = _lib().pcx_rle(src.ctypes.data, src.size, line, rows,
+                       out.ctypes.data)
+    if n < 0:
+        raise ValueError("PCX: a run past the end of a line (Pillow reads "
+                         "none)")
+    if n < rows:
+        raise ValueError("PCX: image data truncated")
+    return out.reshape(rows, line)

@@ -376,7 +376,7 @@ def _decode_call(lib, tables: bytes, data: bytes, colour: int,
 
 
 # decode_jpeg_tables' colour conversions (jpegdec.cpp's `colour`)
-COLOUR_AUTO, COLOUR_NONE, COLOUR_YCBCR = 0, 1, 2
+COLOUR_AUTO, COLOUR_NONE, COLOUR_YCBCR, COLOUR_RAW = 0, 1, 2, 3
 
 
 def decode_jpeg_tables(tables: bytes, data: bytes,
@@ -385,7 +385,9 @@ def decode_jpeg_tables(tables: bytes, data: bytes,
     stream `tables` (b"" for none): [H, W, C] (or [H, W] grey) uint8.
     `colour`: COLOUR_AUTO converts as the file's markers say (libjpeg's
     default), COLOUR_NONE gives the components as stored (libjpeg's
-    JCS_UNKNOWN; CMYK not inverted), COLOUR_YCBCR converts YCbCr to RGB."""
+    JCS_UNKNOWN; CMYK not inverted), COLOUR_YCBCR converts YCbCr to RGB,
+    COLOUR_RAW gives the components as stored, each replicated to full size
+    without the fancy upsampling filters (libjpeg's raw planes)."""
     lib = _load()
     tables, data = bytes(tables), bytes(data)
     H, W, C = _decode_call(lib, tables, data, colour, None)

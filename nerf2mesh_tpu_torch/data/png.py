@@ -22,10 +22,13 @@ row's own output byte by byte.  Writing uses filter 0 on every row, for
 PNG with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF,
 GIF, WebP, netpbm, QOI and JPEG 2000 (JP2 files and raw codestreams) with
 data/bmp.py, tiff.py, gif.py, webp.py, netpbm.py, qoi.py and jpeg2000.py;
-a file with none of those signatures whose header
-Pillow's TGA plugin would take is read by data/tga.py (TGA has no
-signature, and Pillow tries it late); any other format raises
-NotImplementedError naming ROADMAP A6 (j);
+then CUR, PCX, DCX, ICO and SGI (data/ico.py, pcx.py, sgi.py) in
+Image.open's order of their plugins, a plugin whose _accept takes the
+prefix but whose _open gives up handing the file on to the next (so an
+uncompressed TGA, which starts as a CUR does, reads as TGA); a file with
+none of those signatures whose header Pillow's TGA plugin would take is
+read by data/tga.py (TGA has no signature, and Pillow tries it late); any
+other format raises NotImplementedError naming ROADMAP A6 (j);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
 """
@@ -193,8 +196,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 def read_image(path: str) -> np.ndarray:
     """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
-    netpbm, QOI, JPEG 2000 or TGA file, without Pillow.  Other formats
-    raise NotImplementedError."""
+    netpbm, QOI, JPEG 2000, CUR, PCX, DCX, ICO, SGI or TGA file, without
+    Pillow.  Other formats raise NotImplementedError."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
@@ -225,13 +228,43 @@ def read_image(path: str) -> np.ndarray:
             b"\x00\x00\x00\x0cjP  \r\n\x87\n"):
         from .jpeg2000 import decode_jpeg2000
         return decode_jpeg2000(data)
+    img = _legacy(data)
+    if img is not None:
+        return img
     from . import tga
     if tga.is_tga(data):                 # no signature: tried last
         return tga.decode_tga(data)
     raise NotImplementedError(
         f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
-        f"2000 and TGA images are read (ROADMAP A6 (j)); the file starts "
-        f"{data[:12]!r}")
+        f"2000, CUR, PCX, DCX, ICO, SGI and TGA images are read (ROADMAP A6 "
+        f"(j)); the file starts {data[:12]!r}")
+
+
+def _legacy(data: bytes):
+    """The CUR, PCX, DCX, ICO and SGI readers, in Image.open's order of
+    their plugins; a plugin that accepts the prefix but whose _open fails
+    as Image.open passes over (imgdec.NotThisFormat) gives way to the next,
+    and None when none reads the file."""
+    import struct
+    from . import ico, imgdec, pcx, sgi
+    readers = ((data[:4] == b"\0\0\2\0", ico.decode_cur),
+               (pcx.accepts_pcx(data), pcx.decode_pcx),
+               (data[:4] == b"\xb1\x68\xde\x3a", pcx.decode_dcx),
+               (data[:4] == b"\0\0\1\0", ico.decode_ico),
+               (data[:2] == b"\x01\xda", sgi.decode_sgi))
+    for accepted, read in readers:
+        if not accepted:
+            continue
+        try:
+            return read(data)
+        except imgdec.NotThisFormat:
+            continue
+        except (struct.error, IndexError) as e:
+            if read is ico.decode_ico:       # ICO decodes inside its _open
+                continue
+            raise ValueError(f"corrupt image ({type(e).__name__}: {e})") \
+                from e
+    return None
 
 
 def write_image(path: str, img: np.ndarray) -> None:

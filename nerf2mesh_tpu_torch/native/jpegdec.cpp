@@ -51,7 +51,9 @@
 // 0 for none) before the stream `data`, as libtiff feeds a JPEG-compressed
 // TIFF's abbreviated strips to libjpeg.  colour: 0 converts as the file's
 // markers say (libjpeg's default), 1 not at all (JCS_UNKNOWN: the
-// components as stored), 2 YCbCr -> RGB.  dims receives (height, width,
+// components as stored), 2 YCbCr -> RGB, 3 not at all and each component
+// replicated to full size without the fancy filters (the raw planes of
+// libjpeg's raw_data_out, as old-style JPEG TIFF reads them).  dims receives (height, width,
 // channels).  With out == NULL only the headers are read (to size the
 // output).  Returns 0, or an error code: 1 corrupt or not a JPEG, 2 a file
 // Pillow does not read; err holds the message.
@@ -1166,7 +1168,7 @@ struct Decoder {
   // YCbCr -> RGB, 2 RGB as stored, 3 CMYK inverted, 4 YCCK -> CMYK inverted
   int conversion(int colour) {
     int nc = (int)comps.size();
-    if (nc == 1 || colour == 1) return 0;
+    if (nc == 1 || colour == 1 || colour == 3) return 0;
     if (colour == 2) {
       if (nc != 3) fail(1, "YCbCr conversion of a 4-component JPEG");
       return 1;
@@ -1264,7 +1266,7 @@ int decode(const uint8_t *tables, int64_t ntables, const uint8_t *data,
     int conv = d.conversion(colour);
     if (!d.lossless) d.transform();
     // each component at full size
-    bool fancy = !d.lossless;
+    bool fancy = !d.lossless && colour != 3;
     std::vector<std::vector<uint8_t>> full(nc);
     for (int c = 0; c < nc; c++) {
       Component &k = d.comps[c];
