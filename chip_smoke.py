@@ -255,13 +255,18 @@ Phases, in order; any failure exits non-zero:
      committed capture fixtures/colmap_legacy (old-style JPEG TIFF in both
      forms, LZMA and zstd TIFF, planar YCbCr TIFF, SGI RLE at 8 and 16
      bits, PCX, DCX, ICO of a 32-bit BMP entry and CUR frames; SGI, PCX,
-     LZMA TIFF and Group 4 masks, the last read as 0/1); the phase's wall
-     and (e)'s to (h)'s printed.  (c) decodes the JPEG, TIFF, netpbm, TGA,
-     QOI, JPEG 2000, SGI, PCX, DCX, ICO and CUR variants
-     (fixtures/formats, a 512^2 irreversible frame among them; legacy TIFF
-     timed by codec: CCITT, old-style JPEG, ThunderScan, LZMA, zstd) and
-     the (f), (g) and (h) captures' frames and masks too, each format's ms
-     per MP held to 500.
+     LZMA TIFF and Group 4 masks, the last read as 0/1); (i) the same on
+     the committed capture fixtures/colmap_textures (DDS DXT1, DXT5, BC7,
+     BC6H_UF16 and 5:6:5 masked RGB, FTEX DXT1, BLP1 JPEG, BLP2 DXT5 and
+     palette, PSD RGB PackBits and RGBA raw, and 24-bit bare DIB frames;
+     PSD grey, DDS L, DDS BC4 and PSD bitmap masks, the last read as 0/1);
+     the phase's wall and (e)'s to (i)'s printed.  (c) decodes the JPEG,
+     TIFF, netpbm, TGA, QOI, JPEG 2000, SGI, PCX, DCX, ICO, CUR, DDS, FTEX,
+     BLP, PSD and DIB variants (fixtures/formats, a 512^2 irreversible
+     frame among them; legacy TIFF timed by codec: CCITT, old-style JPEG,
+     ThunderScan, LZMA, zstd; DDS by codec: BC1-BC7, masked RGB, raw) and
+     the (f), (g), (h) and (i) captures' frames and masks too, each
+     format's ms per MP held to 500.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -285,7 +290,8 @@ K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 "ckpt_zarr3_frame_launches": phase 14 (b)'s val frame of the zarr3
 fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
 "ckpt_forms_cli_launches": phase 14 (f)'s, "ckpt_jp2_cli_launches":
-phase 14 (g)'s, "ckpt_legacy_cli_launches": phase 14 (h)'s),
+phase 14 (g)'s, "ckpt_legacy_cli_launches": phase 14 (h)'s,
+"ckpt_texture_cli_launches": phase 14 (i)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -382,13 +388,16 @@ CAP_SPARSE_STEPS = 48      # phase 11b (the LLFF recipe + sparse depth;
 OPT_SIZE = 512             # phase 11c's blender scene side (--downscale 2)
 OPT_STEPS = 48             # phase 11c (the A6 (d) options; cut from 64 to
 #                            pay for phase 14 (h))
-HARD_STEPS = 64            # phase 12 (a) and (b): the hard scene, merged and
+HARD_STEPS = 40            # phase 12 (a) and (b): the hard scene, merged and
 #                            separate tables (cut from 256, then 128, for
 #                            the time limit: whole runs took 1272 s, then
-#                            over 1200 s on a slower host)
-HARD_REF_STEPS = 64        # phase 12 (c): separate tables, ref 2^14 table
-HARD_WS_STEPS = 64         # phase 12 (d): separate tables, winsort_fine
-#                            (its val PSNR rose 0.036 dB in 32 steps)
+#                            over 1200 s on a slower host; then 64, to pay
+#                            for phase 14 (i))
+HARD_REF_STEPS = 40        # phase 12 (c): separate tables, ref 2^14 table
+#                            (64 until phase 14 (i))
+HARD_WS_STEPS = 40         # phase 12 (d): separate tables, winsort_fine
+#                            (its val PSNR rose 0.036 dB in 32 steps; 64
+#                            until phase 14 (i))
 HARD_VAL = 1               # phase 12's val views (cut from 4, then 2 in PR
 #                            14, for the time limit: its 8 evals of 4 views
 #                            took about 55 s of a run that passed 1200 s)
@@ -403,7 +412,7 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e)-(h): stage-0 steps through the
+FMT_STEPS = 16             # phase 14 (e)-(i): stage-0 steps through the
 #                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
@@ -3745,10 +3754,12 @@ SIGNATURES = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
               (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
               (b"GIF8", "gif"), (b"RIFF", "webp"), (b"qoif", "qoi"),
               (b"\xff\x4f\xff\x51", "jpeg2000"),
-              (b"\x00\x00\x00\x0cjP", "jpeg2000"), (b"P", "netpbm"),
-              (b"\x00\x00\x02\x00", "cur"), (b"\x0a", "pcx"),
-              (b"\xb1\x68\xde\x3a", "dcx"), (b"\x00\x00\x01\x00", "ico"),
-              (b"\x01\xda", "sgi"))
+              (b"\x00\x00\x00\x0cjP", "jpeg2000"), (b"P", "netpbm")) + tuple(
+    (struct.pack("<I", n), "dib") for n in (12, 40, 52, 56, 64, 108, 124)
+) + ((b"BLP1", "blp"), (b"BLP2", "blp"), (b"\x00\x00\x02\x00", "cur"),
+     (b"\x0a", "pcx"), (b"\xb1\x68\xde\x3a", "dcx"), (b"DDS ", "dds"),
+     (b"FTEX", "ftex"), (b"\x00\x00\x01\x00", "ico"), (b"8BPS", "psd"),
+     (b"\x01\xda", "sgi"))
 # TIFF compressions timed apart in phase 14 (c)
 TIFF_CODECS = {2: "tiff_ccitt", 3: "tiff_ccitt", 4: "tiff_ccitt",
                32771: "tiff_ccitt", 6: "tiff_ojpeg", 32809: "tiff_thunderscan",
@@ -3770,10 +3781,19 @@ def tiff_compression(data: bytes) -> int:
     return 1
 
 
+def dds_codec(data: bytes) -> str:
+    """A DDS file's format for phase 14 (c)'s rates: its BCn codec, "rgb"
+    for masked RGB pixels, "raw" for bytes as stored."""
+    from nerf2mesh_tpu_torch.data import dds
+    n = dds.pixel_format(data)[0]
+    return ("dds_" + dds.CODEC_NAMES[n] if n > 0 else
+            "dds_rgb" if n == dds.RGB_MASKS else "dds_raw")
+
+
 def fixture_format(rel: str, data: bytes) -> str:
     """A committed image's format for phase 14 (c)'s rates: a variant's
     directory under formats/ (uncompressed TGA shares CUR's first bytes),
-    else its signature; TIFF by its codec."""
+    else its signature; TIFF by its codec, DDS by its BCn codec."""
     parts = rel.split("/")
     if parts[0] == "formats" and len(parts) > 2:
         fmt = parts[1]
@@ -3786,6 +3806,8 @@ def fixture_format(rel: str, data: bytes) -> str:
                    "tga")
     if fmt == "tiff":
         fmt = TIFF_CODECS.get(tiff_compression(data), "tiff")
+    elif fmt == "dds":
+        fmt = dds_codec(data)
     return fmt
 
 
@@ -3965,10 +3987,11 @@ def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e)-(h) the captures in other
-    formats (g: JPEG 2000, h: the legacy forms) through main ((d) runs in
-    phase 8); returns (b)'s frame launches, (c)'s, (e)'s, (f)'s, (g)'s and
-    (h)'s training launches, and K1-K3's errors."""
+    and the progressive capture through main, (e)-(i) the captures in other
+    formats (g: JPEG 2000, h: the legacy forms, i: the texture and layered
+    forms) through main ((d) runs in phase 8); returns (b)'s frame
+    launches, (c)'s, (e)'s, (f)'s, (g)'s, (h)'s and (i)'s training
+    launches, and K1-K3's errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -3989,12 +4012,17 @@ def phase_checkpoints(dev, field, val, ref_ms):
         dev, ref_ms, "colmap_legacy", "(h)",
         "SGI, PCX, LZMA TIFF and Group 4 masks")
     log(f"[ckpt] (h) wall {time.perf_counter() - t_h:.1f} s")
+    t_i = time.perf_counter()
+    texture_launches, texture_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_textures", "(i)",
+        "PSD grey, DDS L, DDS BC4 and PSD bitmap masks")
+    log(f"[ckpt] (i) wall {time.perf_counter() - t_i:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
-    for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs):
+    for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs, texture_errs):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     return (fixture_launches, cap_launches, fmt_launches, forms_launches,
-            jp2_launches, legacy_launches, errs)
+            jp2_launches, legacy_launches, texture_launches, errs)
 
 
 def main() -> int:
@@ -4040,7 +4068,8 @@ def main() -> int:
     with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
                     "zstandard"):
         (fix_launches, ckpt_launches, fmt_launches, forms_launches,
-         jp2_launches, legacy_launches, ckpt_errs) = phase_checkpoints(
+         jp2_launches, legacy_launches, texture_launches,
+         ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
     lap("phase 14")
@@ -4084,6 +4113,7 @@ def main() -> int:
         r["ckpt_forms_cli_launches"] = forms_launches.get(r["name"], 0)
         r["ckpt_jp2_cli_launches"] = jp2_launches.get(r["name"], 0)
         r["ckpt_legacy_cli_launches"] = legacy_launches.get(r["name"], 0)
+        r["ckpt_texture_cli_launches"] = texture_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
@@ -4092,7 +4122,7 @@ def main() -> int:
             "ckpt_cli_launches", "ckpt_zarr3_frame_launches",
             "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
             "ckpt_jp2_cli_launches", "ckpt_legacy_cli_launches",
-            "max_abs_err",
+            "ckpt_texture_cli_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

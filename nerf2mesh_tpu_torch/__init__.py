@@ -26,9 +26,10 @@ progressive, arithmetic-coded, lossless, YCCK, any integral sampling
 ratio), every PNG kind, BMP, TIFF (JPEG-compressed, old-style JPEG,
 CCITT fax, LZMA, zstd, ThunderScan, BigTIFF, planar and subsampled
 YCbCr, signed and float samples too), GIF, WebP, netpbm, TGA, QOI, JPEG
-2000, SGI, PCX, DCX, ICO and CUR frames (``data/png.read_image`` by
-signature).  Still raising NotImplementedError (ROADMAP A6 (j)): the other
-formats Pillow reads (AVIF, DDS, PSD, ...) and the JPEG 2000 features no
+2000, SGI, PCX, DCX, ICO, CUR, DDS (every BCn codec), FTEX, BLP, PSD
+and bare DIB frames (``data/png.read_image`` by signature).  Still
+raising NotImplementedError (ROADMAP A6 (j)): the other formats Pillow
+reads (AVIF, ICNS, IM, ...) and the JPEG 2000 features no
 writer at hand makes; old-style JPEG TIFF in planes raises ValueError
 (not read); the scripts that need model weights are not ported.
 """

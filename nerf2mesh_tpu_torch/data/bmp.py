@@ -17,7 +17,8 @@ gives, in Pillow's dtype and shape for the mode BmpImagePlugin chooses.
 
 What Pillow refuses (other depths, masks and compressions) raises
 ValueError.  ``bitmap`` reads a bitmap from its header on, for the BMP
-entries of icons and cursors (data/ico.py).
+entries of icons and cursors (data/ico.py) and for a bare DIB (a BMP
+without its 14-byte file header: ``decode_dib``, Pillow's DibImageFile).
 """
 
 from __future__ import annotations
@@ -52,6 +53,20 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if data[:2] != b"BM":
         raise ValueError("not a BMP file")
     return bitmap(data, 14, _u32(data, 10))[0]
+
+
+# the header sizes DibImageFile's _accept takes (the first 4 bytes)
+DIB_HEADERS = (12,) + _HEADERS
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """A bare DIB: the bitmap from byte 0, its pixels after its header,
+    masks and palette.  Bitfield masks cut short (struct.error in Pillow)
+    make Image.open pass the file over: imgdec.NotThisFormat."""
+    try:
+        return bitmap(data, 0)[0]
+    except struct.error as e:
+        raise imgdec.NotThisFormat(f"DIB masks truncated ({e})") from e
 
 
 def bitmap(data: bytes, header: int, offset: int = 0, half: bool = False,

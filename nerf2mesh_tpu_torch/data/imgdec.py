@@ -1,7 +1,7 @@
 """numpy wrappers of native/imgdec.cpp, the inner loops of the BMP, TIFF,
-GIF, netpbm, TGA, QOI, SGI and PCX readers (data/bmp.py, tiff.py, gif.py,
-netpbm.py, tga.py, qoi.py, sgi.py, pcx.py), built with g++ at first use
-(utils/native.py)."""
+GIF, netpbm, TGA, QOI, SGI, PCX and PSD readers (data/bmp.py, tiff.py,
+gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py, psd.py), built with g++
+at first use (utils/native.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ _SIGNATURES = {
     "thunder_decode": (_I64, [_PTR, _I64, _I64, _I64, _I64, _PTR]),
     "sgi_rle": (_I64, [_PTR, _I64, _I64, _I64, _INT, _INT, _PTR]),
     "pcx_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
+    "packbits_rows": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
 }
 
 
@@ -193,3 +194,16 @@ def pcx_rle(data, line: int, rows: int) -> np.ndarray:
     if n < rows:
         raise ValueError("PCX: image data truncated")
     return out.reshape(rows, line)
+
+
+def packbits_rows(data, rowbytes: int, rows: int) -> tuple:
+    """Pillow's PackBits decoder from the start of `data`: ([rows, rowbytes]
+    bytes, the bytes read).  A packet that passes a row's end is cut there,
+    unlike ``packbits``'s single stream; ValueError when the data ends
+    before the rows are full (Pillow: image file is truncated)."""
+    src, out = _src(data), np.zeros(rows * rowbytes, np.uint8)
+    n = _lib().packbits_rows(src.ctypes.data, src.size, rowbytes, rows,
+                             out.ctypes.data)
+    if n < 0:
+        raise ValueError("PackBits data truncated (image file is truncated)")
+    return out.reshape(rows, rowbytes), n

@@ -196,8 +196,9 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 def read_image(path: str) -> np.ndarray:
     """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
-    netpbm, QOI, JPEG 2000, CUR, PCX, DCX, ICO, SGI or TGA file, without
-    Pillow.  Other formats raise NotImplementedError."""
+    netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICO, PSD,
+    SGI or TGA file, without Pillow.  Other formats raise
+    NotImplementedError naming ROADMAP A6 (j)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
@@ -236,23 +237,38 @@ def read_image(path: str) -> np.ndarray:
         return tga.decode_tga(data)
     raise NotImplementedError(
         f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
-        f"2000, CUR, PCX, DCX, ICO, SGI and TGA images are read (ROADMAP A6 "
-        f"(j)); the file starts {data[:12]!r}")
+        f"2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICO, PSD, SGI and TGA "
+        f"images are read (ROADMAP A6 (j)); the file starts {data[:12]!r}")
+
+
+def legacy_readers(data: bytes) -> tuple:
+    """(Pillow's format name, whether its _accept takes `data`, the port's
+    reader) of the formats without an early signature test, in the order
+    Image.open tries their plugins (preinit's DIB, then Image.OPEN's)."""
+    import struct
+    from . import blp, bmp, dds, ftex, ico, pcx, psd, sgi
+    dib = len(data) >= 4 and struct.unpack_from("<I", data)[0] in \
+        bmp.DIB_HEADERS
+    return (("DIB", dib, bmp.decode_dib),
+            ("BLP", data[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
+            ("CUR", data[:4] == b"\0\0\2\0", ico.decode_cur),
+            ("PCX", pcx.accepts_pcx(data), pcx.decode_pcx),
+            ("DCX", data[:4] == b"\xb1\x68\xde\x3a", pcx.decode_dcx),
+            ("DDS", data[:4] == b"DDS ", dds.decode_dds),
+            ("FTEX", data[:4] == b"FTEX", ftex.decode_ftex),
+            ("ICO", data[:4] == b"\0\0\1\0", ico.decode_ico),
+            ("PSD", data[:4] == b"8BPS", psd.decode_psd),
+            ("SGI", data[:2] == b"\x01\xda", sgi.decode_sgi))
 
 
 def _legacy(data: bytes):
-    """The CUR, PCX, DCX, ICO and SGI readers, in Image.open's order of
-    their plugins; a plugin that accepts the prefix but whose _open fails
-    as Image.open passes over (imgdec.NotThisFormat) gives way to the next,
-    and None when none reads the file."""
+    """The readers of ``legacy_readers`` in turn; a plugin that accepts the
+    prefix but whose _open fails as Image.open passes over
+    (imgdec.NotThisFormat) gives way to the next, and None when none reads
+    the file."""
     import struct
-    from . import ico, imgdec, pcx, sgi
-    readers = ((data[:4] == b"\0\0\2\0", ico.decode_cur),
-               (pcx.accepts_pcx(data), pcx.decode_pcx),
-               (data[:4] == b"\xb1\x68\xde\x3a", pcx.decode_dcx),
-               (data[:4] == b"\0\0\1\0", ico.decode_ico),
-               (data[:2] == b"\x01\xda", sgi.decode_sgi))
-    for accepted, read in readers:
+    from . import ico, imgdec
+    for _, accepted, read in legacy_readers(data):
         if not accepted:
             continue
         try:

@@ -4,8 +4,9 @@
 // predictor, the CCITT fax and ThunderScan codecs as libtiff decodes them,
 // the BMP RLE8/RLE4 decoder as Pillow's BmpRleDecoder reads it (the array
 // JAX's providers see), the plain (ASCII) netpbm samples, TGA's RLE
-// packets, the QOI operations and the SGI and PCX run-length codes as
-// Pillow's decoders read them.
+// packets, the QOI operations, the SGI and PCX run-length codes and
+// PackBits in rows (PSD's channels, data/psd.py) as Pillow's decoders read
+// them.
 //
 // C interface (ctypes); each returns the bytes written or -1 on a code
 // the stream cannot hold:
@@ -66,6 +67,12 @@
 //                   int64_t rows, uint8_t *out)
 //     PCX RLE (PcxDecode.c) into rows of line bytes; returns the rows
 //     written (fewer when the data ends first), -1 on a run past a line.
+//   int64_t packbits_rows(const uint8_t *src, int64_t n, int64_t rowbytes,
+//                         int64_t rows, uint8_t *out)
+//     PackBits as PackbitsDecode.c reads it: a run or literal that passes
+//     a row's end is cut there (the rest of it dropped), 128 is a no-op,
+//     a packet is taken only whole; returns the bytes read when the rows
+//     are full, or -1 when the data ends first.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -988,4 +995,34 @@ extern "C" int64_t pcx_rle(const uint8_t *src, int64_t n, int64_t line,
     }
   }
   return y;
+}
+
+extern "C" int64_t packbits_rows(const uint8_t *src, int64_t n,
+                                 int64_t rowbytes, int64_t rows,
+                                 uint8_t *out) {
+  int64_t pos = 0, x = 0, y = 0;
+  if (rows <= 0) return 0;
+  uint8_t *row = out;
+  for (;;) {
+    if (pos >= n) return -1;
+    int c = src[pos];
+    if (c == 0x80) {
+      pos++;
+      continue;
+    }
+    if (c & 0x80) {
+      if (pos + 2 > n) return -1;
+      for (int k = 257 - c; k > 0 && x < rowbytes; k--) row[x++] = src[pos + 1];
+      pos += 2;
+    } else {
+      if (pos + c + 2 > n) return -1;
+      for (int k = 1; k < c + 2 && x < rowbytes; k++) row[x++] = src[pos + k];
+      pos += c + 2;
+    }
+    if (x >= rowbytes) {
+      x = 0;
+      row += rowbytes;
+      if (++y >= rows) return pos;
+    }
+  }
 }

@@ -129,16 +129,17 @@ def test_png_reader_reads_pillow_files_and_rejects_others(tmp_path):
         png.decode_png(data)
     with pytest.raises(ValueError):
         png.decode_png(b"not a png")
-    # BMP, TIFF, WebP and ICO read as Pillow reads them (every variant:
-    # tests/test_torch_imageio.py, test_torch_legacyforms.py); a format the
-    # port does not read still raises, naming its ROADMAP item
-    for ext in ("bmp", "tiff", "webp", "ico"):
+    # BMP, TIFF, WebP, ICO and DDS read as Pillow reads them (every
+    # variant: tests/test_torch_imageio.py, test_torch_legacyforms.py,
+    # test_torch_textureforms.py); a format the port does not read still
+    # raises, naming its ROADMAP item
+    for ext in ("bmp", "tiff", "webp", "ico", "dds"):
         path = tmp_path / f"frame.{ext}"
         Image.fromarray(_images()["rgb"]).save(path)
         with Image.open(path) as im:
             want = np.asarray(im)
         np.testing.assert_array_equal(png.read_image(str(path)), want)
-    path = tmp_path / "frame.dds"
+    path = tmp_path / "frame.im"
     Image.fromarray(_images()["rgb"]).save(path)
     with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
         png.read_image(str(path))
