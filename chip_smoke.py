@@ -260,13 +260,18 @@ Phases, in order; any failure exits non-zero:
      BC6H_UF16 and 5:6:5 masked RGB, FTEX DXT1, BLP1 JPEG, BLP2 DXT5 and
      palette, PSD RGB PackBits and RGBA raw, and 24-bit bare DIB frames;
      PSD grey, DDS L, DDS BC4 and PSD bitmap masks, the last read as 0/1);
-     the phase's wall and (e)'s to (i)'s printed.  (c) decodes the JPEG,
-     TIFF, netpbm, TGA, QOI, JPEG 2000, SGI, PCX, DCX, ICO, CUR, DDS, FTEX,
-     BLP, PSD and DIB variants (fixtures/formats, a 512^2 irreversible
-     frame among them; legacy TIFF timed by codec: CCITT, old-style JPEG,
-     ThunderScan, LZMA, zstd; DDS by codec: BC1-BC7, masked RGB, raw) and
-     the (f), (g), (h) and (i) captures' frames and masks too, each
-     format's ms per MP held to 500.
+     (j) the same on the committed capture fixtures/colmap_misc (128^2:
+     ICNS in each entry kind (PNG RGBA and RGB, JPEG 2000, RLE and raw
+     24-bit with masks) and as Pillow writes it (read at 1024^2), IM RGB
+     and RGB;L, SPIDER frames; MSP and XBM masks, read as 0/1); the
+     phase's wall and (e)'s to (j)'s printed.  (c) decodes the JPEG, TIFF,
+     netpbm, TGA, QOI, JPEG 2000, SGI, PCX, DCX, ICO, CUR, DDS, FTEX, BLP,
+     PSD, DIB, ICNS, IM, MSP, SPIDER and XBM variants (fixtures/formats, a
+     512^2 irreversible frame among them; legacy TIFF timed by codec:
+     CCITT, old-style JPEG, ThunderScan, LZMA, zstd; DDS by codec: BC1-BC7,
+     masked RGB, raw) and the (f)-(j) captures' frames and masks too, each
+     format's ms per MP held to 500, and logs each format's read (open and
+     read) and decode (from bytes) apart from the same fastest pass.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -291,7 +296,8 @@ K4/K4b, (d) for K5/K6; "dtu_launches": phase 13 (a)'s training;
 fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
 "ckpt_forms_cli_launches": phase 14 (f)'s, "ckpt_jp2_cli_launches":
 phase 14 (g)'s, "ckpt_legacy_cli_launches": phase 14 (h)'s,
-"ckpt_texture_cli_launches": phase 14 (i)'s),
+"ckpt_texture_cli_launches": phase 14 (i)'s, "ckpt_misc_cli_launches":
+phase 14 (j)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -335,8 +341,9 @@ S1_TEXTURE = 1024          # phase 8's texture side (the default 4096;
 #                            2048 until PR 11)
 MESH_FIELD_STEPS = 64      # phase 8: the phase-4 field trains on first
 #                            (cut from 256, then 128)
-PROFILE_STEPS = 4          # profiled steps of each profiled window (cut
-#                            from 8)
+PROFILE_STEPS = 2          # profiled steps of each profiled window (cut
+#                            from 8, then 4 to pay for phase 14 (j): each
+#                            profiled step costs 0.3-1 s of event handling)
 SDF_PRETRAIN = 500         # phase 9's pretrain iterations (the CLI: 2000)
 SDF_STEPS = 64             # phase 9's stage-0 steps (cut from 128 in PR 14
 #                            for the time limit: its loss falls 10x by then)
@@ -412,7 +419,7 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e)-(i): stage-0 steps through the
+FMT_STEPS = 16             # phase 14 (e)-(j): stage-0 steps through the
 #                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
@@ -485,6 +492,7 @@ def profile_region(fn, label: str, per: int = 1, top: int = 6):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_all = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -515,7 +523,9 @@ def profile_region(fn, label: str, per: int = 1, top: int = 6):
         f"{len(kern) / per:.0f} kernels, per {'step' if per > 1 else 'run'}"
         f" (profiled); top device time: " + "; ".join(
             f"{k} {t / per:.3f} ms ({t / busy:.1%})"
-            for k, t in by_op.most_common(top)))
+            for k, t in by_op.most_common(top)) + f"; the window took "
+        f"{time.perf_counter() - t_all:.2f} s with the profiler's event "
+        f"handling")
     return wall / per, busy / per
 
 
@@ -3759,7 +3769,8 @@ SIGNATURES = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
 ) + ((b"BLP1", "blp"), (b"BLP2", "blp"), (b"\x00\x00\x02\x00", "cur"),
      (b"\x0a", "pcx"), (b"\xb1\x68\xde\x3a", "dcx"), (b"DDS ", "dds"),
      (b"FTEX", "ftex"), (b"\x00\x00\x01\x00", "ico"), (b"8BPS", "psd"),
-     (b"\x01\xda", "sgi"))
+     (b"\x01\xda", "sgi"), (b"icns", "icns"), (b"Image type", "im"),
+     (b"DanM", "msp"), (b"LinS", "msp"), (b"#define", "xbm"))
 # TIFF compressions timed apart in phase 14 (c)
 TIFF_CODECS = {2: "tiff_ccitt", 3: "tiff_ccitt", 4: "tiff_ccitt",
                32771: "tiff_ccitt", 6: "tiff_ojpeg", 32809: "tiff_thunderscan",
@@ -3793,7 +3804,8 @@ def dds_codec(data: bytes) -> str:
 def fixture_format(rel: str, data: bytes) -> str:
     """A committed image's format for phase 14 (c)'s rates: a variant's
     directory under formats/ (uncompressed TGA shares CUR's first bytes),
-    else its signature; TIFF by its codec, DDS by its BCn codec."""
+    else its signature (a .spi frame is SPIDER); TIFF by its codec, DDS by
+    its BCn codec."""
     parts = rel.split("/")
     if parts[0] == "formats" and len(parts) > 2:
         fmt = parts[1]
@@ -3801,6 +3813,8 @@ def fixture_format(rel: str, data: bytes) -> str:
             fmt = "dcx"
         elif fmt == "ico" and data[:4] == b"\x00\x00\x02\x00":
             fmt = "cur"
+    elif rel.endswith(".spi"):                # SPIDER has no signature
+        fmt = "spider"
     else:
         fmt = next((n for sig, n in SIGNATURES if data.startswith(sig)),
                    "tga")
@@ -3816,52 +3830,78 @@ def decode_fixtures():
     hash Pillow's; the progressive JPEGs and each format's ms per MP held
     to the 500 ms bar, in the fastest of DECODE_PASSES passes over its
     files: the files are small, so a pass's time is mostly each call's
-    fixed cost, which the host's other load moves by 2x between runs."""
+    fixed cost, which the host's other load moves by 2x between runs.
+    read_image is timed on the path as a user calls it; its file read
+    (png.read_bytes: open, fstat, read) is timed inside the same calls, so
+    the log gives each format's read and decode (the rest) apart from the
+    same fastest pass."""
+    from nerf2mesh_tpu_torch.data import png
     from nerf2mesh_tpu_torch.data.png import read_image
     capture = os.path.join(FIXTURES, "progressive")
     kinds = (("progressive", capture), ("png", os.path.join(FIXTURES, "png")),
              ("formats", FIXTURES))
-    for kind, root in kinds:
-        with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
-            want = json.load(f)
-        by_format = {}
-        for rel in want:
-            with open(os.path.join(root, rel), "rb") as f:
-                by_format.setdefault(fixture_format(rel, f.read()),
-                                     []).append(rel)
-        for rels in by_format.values():      # builds each decoder untimed
-            read_image(os.path.join(root, rels[0]))
-        bad, rates, first, largest = [], {}, {}, {}
-        for fmt, rels in sorted(by_format.items()):
-            passes, best, pixels = [], {}, {}
-            for rep in range(DECODE_PASSES):
-                secs, px = 0.0, 0
-                for rel in rels:
-                    t0 = time.perf_counter()
-                    img = read_image(os.path.join(root, rel))
-                    dt = time.perf_counter() - t0
-                    secs += dt
-                    pixels[rel] = img.shape[0] * img.shape[1]
-                    px += pixels[rel]
-                    best[rel] = min(best.get(rel, math.inf), dt * 1e3)
-                    if rep == 0 and sha(img) != want[rel]:
-                        bad.append(rel)
-                passes.append(secs / (px / 1e6) * 1e3)
-            rates[fmt] = (len(rels), px, min(passes))
-            first[fmt] = passes[0]
-            rel = max(rels, key=pixels.get)
-            largest[fmt] = (rel, pixels[rel], round(best[rel], 3),
-                            round(best[rel] / (pixels[rel] / 1e6), 2))
-        log(f"[ckpt] (c) {len(want)} {kind} files decoded, differing from "
-            f"Pillow's hashes: {bad}; per format (files, pixels, ms per MP "
-            f"of the fastest of {DECODE_PASSES} passes against the 500 ms "
-            f"bar): {rates}; the first pass's ms per MP {first}; each "
-            f"format's largest file (pixels, its fastest ms, ms per MP): "
-            f"{largest}")
-        slow = {f: r for f, r in rates.items() if r[2] > 500 and (
-            kind == "formats" or f == "jpeg")}
-        if bad or slow:
-            raise AssertionError(f"{kind} decode: {bad}, over the bar {slow}")
+    real_read, reads = png.read_bytes, [0.0]
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        data = real_read(path)
+        reads[0] += time.perf_counter() - t0
+        return data
+
+    png.read_bytes = timed_read
+    try:
+        for kind, root in kinds:
+            with open(os.path.join(FIXTURES, f"{kind}.json")) as f:
+                want = json.load(f)
+            by_format = {}
+            for rel in want:
+                with open(os.path.join(root, rel), "rb") as f:
+                    by_format.setdefault(fixture_format(rel, f.read()),
+                                         []).append(rel)
+            for rels in by_format.values():  # builds each decoder untimed
+                read_image(os.path.join(root, rels[0]))
+            bad, rates, first, largest, split = [], {}, {}, {}, {}
+            for fmt, rels in sorted(by_format.items()):
+                passes, best, pixels = [], {}, {}
+                for rep in range(DECODE_PASSES):
+                    secs, px, reads[0] = 0.0, 0, 0.0
+                    for rel in rels:
+                        t0 = time.perf_counter()
+                        img = read_image(os.path.join(root, rel))
+                        dt = time.perf_counter() - t0
+                        secs += dt
+                        pixels[rel] = img.shape[0] * img.shape[1]
+                        px += pixels[rel]
+                        best[rel] = min(best.get(rel, math.inf), dt * 1e3)
+                        if rep == 0 and sha(img) != want[rel]:
+                            bad.append(rel)
+                    passes.append((secs / (px / 1e6) * 1e3, secs, reads[0]))
+                rate, secs, rd = min(passes)
+                rates[fmt] = (len(rels), px, rate)
+                first[fmt] = passes[0][0]
+                # per file: read us, decode us; and their ms per MP
+                split[fmt] = (round(rd / len(rels) * 1e6, 1),
+                              round((secs - rd) / len(rels) * 1e6, 1),
+                              round(rd / (px / 1e6) * 1e3, 2),
+                              round((secs - rd) / (px / 1e6) * 1e3, 2))
+                rel = max(rels, key=pixels.get)
+                largest[fmt] = (rel, pixels[rel], round(best[rel], 3),
+                                round(best[rel] / (pixels[rel] / 1e6), 2))
+            log(f"[ckpt] (c) {len(want)} {kind} files decoded, differing "
+                f"from Pillow's hashes: {bad}; per format (files, pixels, ms "
+                f"per MP of the fastest of {DECODE_PASSES} passes against "
+                f"the 500 ms bar): {rates}; the first pass's ms per MP "
+                f"{first}; the fastest pass apart (read us a file, decode "
+                f"us a file, read ms per MP, decode ms per MP): {split}; "
+                f"each format's largest file (pixels, its fastest ms, ms per "
+                f"MP): {largest}")
+            slow = {f: r for f, r in rates.items() if r[2] > 500 and (
+                kind == "formats" or f == "jpeg")}
+            if bad or slow:
+                raise AssertionError(f"{kind} decode: {bad}, over the bar "
+                                     f"{slow}")
+    finally:
+        png.read_bytes = real_read
 
 
 def ckpt_capture(dev, ref_ms):
@@ -3987,11 +4027,11 @@ def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e)-(i) the captures in other
+    and the progressive capture through main, (e)-(j) the captures in other
     formats (g: JPEG 2000, h: the legacy forms, i: the texture and layered
-    forms) through main ((d) runs in phase 8); returns (b)'s frame
-    launches, (c)'s, (e)'s, (f)'s, (g)'s, (h)'s and (i)'s training
-    launches, and K1-K3's errors."""
+    forms, j: ICNS, IM, SPIDER, MSP and XBM) through main ((d) runs in
+    phase 8); returns (b)'s frame launches, (c)'s, (e)'s, (f)'s, (g)'s,
+    (h)'s, (i)'s and (j)'s training launches, and K1-K3's errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -4017,12 +4057,18 @@ def phase_checkpoints(dev, field, val, ref_ms):
         dev, ref_ms, "colmap_textures", "(i)",
         "PSD grey, DDS L, DDS BC4 and PSD bitmap masks")
     log(f"[ckpt] (i) wall {time.perf_counter() - t_i:.1f} s")
+    t_j = time.perf_counter()
+    misc_launches, misc_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_misc", "(j)", "MSP and XBM masks")
+    log(f"[ckpt] (j) wall {time.perf_counter() - t_j:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
-    for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs, texture_errs):
+    for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs, texture_errs,
+              misc_errs):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     return (fixture_launches, cap_launches, fmt_launches, forms_launches,
-            jp2_launches, legacy_launches, texture_launches, errs)
+            jp2_launches, legacy_launches, texture_launches, misc_launches,
+            errs)
 
 
 def main() -> int:
@@ -4068,7 +4114,7 @@ def main() -> int:
     with no_modules("PIL", "cv2", "sklearn", "orbax", "tensorstore",
                     "zstandard"):
         (fix_launches, ckpt_launches, fmt_launches, forms_launches,
-         jp2_launches, legacy_launches, texture_launches,
+         jp2_launches, legacy_launches, texture_launches, misc_launches,
          ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
@@ -4114,6 +4160,7 @@ def main() -> int:
         r["ckpt_jp2_cli_launches"] = jp2_launches.get(r["name"], 0)
         r["ckpt_legacy_cli_launches"] = legacy_launches.get(r["name"], 0)
         r["ckpt_texture_cli_launches"] = texture_launches.get(r["name"], 0)
+        r["ckpt_misc_cli_launches"] = misc_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
@@ -4122,7 +4169,8 @@ def main() -> int:
             "ckpt_cli_launches", "ckpt_zarr3_frame_launches",
             "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
             "ckpt_jp2_cli_launches", "ckpt_legacy_cli_launches",
-            "ckpt_texture_cli_launches", "max_abs_err",
+            "ckpt_texture_cli_launches", "ckpt_misc_cli_launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

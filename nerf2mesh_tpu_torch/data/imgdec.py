@@ -1,7 +1,7 @@
 """numpy wrappers of native/imgdec.cpp, the inner loops of the BMP, TIFF,
-GIF, netpbm, TGA, QOI, SGI, PCX and PSD readers (data/bmp.py, tiff.py,
-gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py, psd.py), built with g++
-at first use (utils/native.py)."""
+GIF, netpbm, TGA, QOI, SGI, PCX, PSD and ICNS readers (data/bmp.py,
+tiff.py, gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py, psd.py,
+icns.py), built with g++ at first use (utils/native.py)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ _SIGNATURES = {
     "sgi_rle": (_I64, [_PTR, _I64, _I64, _I64, _INT, _INT, _PTR]),
     "pcx_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
     "packbits_rows": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
+    "icns_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
 }
 
 
@@ -207,3 +208,15 @@ def packbits_rows(data, rowbytes: int, rows: int) -> tuple:
     if n < 0:
         raise ValueError("PackBits data truncated (image file is truncated)")
     return out.reshape(rows, rowbytes), n
+
+
+def icns_rle(data, pos: int, count: int) -> np.ndarray:
+    """An ICNS 24-bit entry's RLE from `pos` of `data` (the whole file) ->
+    [3, count] bands; ValueError where Pillow's read_32 fails (a band's
+    packets that do not sum to `count`, or the file ending inside one)."""
+    src, out = _src(data), np.zeros(3 * count, np.uint8)
+    if _lib().icns_rle(src.ctypes.data, src.size, pos, count,
+                       out.ctypes.data) < 0:
+        raise ValueError("ICNS RLE: a band that does not decode to its "
+                         "size (Pillow: Error reading channel)")
+    return out.reshape(3, count)

@@ -18,17 +18,17 @@ at first use, see utils/native.py): Paeth and Average depend on each
 row's own output byte by byte.  Writing uses filter 0 on every row, for
 [H, W] and [H, W, 3|4] uint8 images: every image the package writes.
 
-``read_image`` reads a file by its signature, never through Pillow: a
-PNG with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF,
-GIF, WebP, netpbm, QOI and JPEG 2000 (JP2 files and raw codestreams) with
-data/bmp.py, tiff.py, gif.py, webp.py, netpbm.py, qoi.py and jpeg2000.py;
-then CUR, PCX, DCX, ICO and SGI (data/ico.py, pcx.py, sgi.py) in
-Image.open's order of their plugins, a plugin whose _accept takes the
-prefix but whose _open gives up handing the file on to the next (so an
-uncompressed TGA, which starts as a CUR does, reads as TGA); a file with
-none of those signatures whose header Pillow's TGA plugin would take is
-read by data/tga.py (TGA has no signature, and Pillow tries it late); any
-other format raises NotImplementedError naming ROADMAP A6 (j);
+``read_image`` reads a file without Pillow, trying the port's readers in
+the order Image.open tries Pillow's plugins (``legacy_readers``): a PNG
+with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF, GIF,
+WebP, netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS,
+ICO, IM, MSP, PSD, SGI, SPIDER, TGA and XBM with their modules under
+data/; a plugin whose _accept takes the file but whose _open gives up
+hands it on to the next, so IM and SPIDER, which have no signature, and
+TGA, whose header test is loose, read only what no earlier plugin takes;
+BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files raise
+ValueError as Pillow cannot load them here (data/unloadable.py); any other
+format raises NotImplementedError naming ROADMAP A6 (j);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
 """
@@ -36,10 +36,13 @@ package's, byte for byte) and this codec otherwise.
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import zlib
 
 import numpy as np
+
+from . import imgdec
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}       # PNG color type -> samples
@@ -184,8 +187,7 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def read_png(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        return decode_png(f.read())
+    return decode_png(read_bytes(path))
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -194,93 +196,133 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(data)
 
 
+def read_bytes(path: str) -> bytes:
+    """A file's bytes in four system calls (open, fstat, one read of the
+    file's size, close), each a round trip on a network file system."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        size = os.fstat(fd).st_size
+        data = os.read(fd, size) if size else b""
+        if len(data) < size or not size:     # a short read, or no size
+            chunks = [data]
+            while more := os.read(fd, 1 << 20):
+                chunks.append(more)
+            data = b"".join(chunks)
+    finally:
+        os.close(fd)
+    return data
+
+
 def read_image(path: str) -> np.ndarray:
     """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
-    netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICO, PSD,
-    SGI or TGA file, without Pillow.  Other formats raise
+    netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS, ICO,
+    IM, MSP, PSD, SGI, SPIDER, TGA or XBM file, without Pillow.  BUFR,
+    GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files raise ValueError,
+    as Pillow cannot load them here; other formats raise
     NotImplementedError naming ROADMAP A6 (j)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:2] == b"\xff\xd8":
-        from .jpeg import decode_jpeg
-        return decode_jpeg(data)
-    if data[:8] == _SIGNATURE:
-        return decode_png(data)
-    if data[:2] == b"BM":
-        from .bmp import decode_bmp
-        return decode_bmp(data)
-    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
-        from .tiff import decode_tiff
-        return decode_tiff(data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        from .gif import decode_gif
-        return decode_gif(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        from .webp import decode_webp
-        return decode_webp(data)
-    if data[:1] == b"P" and data[1:2] in (b"0", b"1", b"2", b"3", b"4",
-                                          b"5", b"6", b"7", b"f", b"y"):
-        from .netpbm import decode_netpbm
-        return decode_netpbm(data)
-    if data[:4] == b"qoif":
-        from .qoi import decode_qoi
-        return decode_qoi(data)
-    if data[:4] == b"\xff\x4f\xff\x51" or data[:12] == (
-            b"\x00\x00\x00\x0cjP  \r\n\x87\n"):
-        from .jpeg2000 import decode_jpeg2000
-        return decode_jpeg2000(data)
-    img = _legacy(data)
-    if img is not None:
-        return img
-    from . import tga
-    if tga.is_tga(data):                 # no signature: tried last
-        return tga.decode_tga(data)
-    raise NotImplementedError(
-        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
-        f"2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICO, PSD, SGI and TGA "
-        f"images are read (ROADMAP A6 (j)); the file starts {data[:12]!r}")
-
-
-def legacy_readers(data: bytes) -> tuple:
-    """(Pillow's format name, whether its _accept takes `data`, the port's
-    reader) of the formats without an early signature test, in the order
-    Image.open tries their plugins (preinit's DIB, then Image.OPEN's)."""
-    import struct
-    from . import blp, bmp, dds, ftex, ico, pcx, psd, sgi
-    dib = len(data) >= 4 and struct.unpack_from("<I", data)[0] in \
-        bmp.DIB_HEADERS
-    return (("DIB", dib, bmp.decode_dib),
-            ("BLP", data[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
-            ("CUR", data[:4] == b"\0\0\2\0", ico.decode_cur),
-            ("PCX", pcx.accepts_pcx(data), pcx.decode_pcx),
-            ("DCX", data[:4] == b"\xb1\x68\xde\x3a", pcx.decode_dcx),
-            ("DDS", data[:4] == b"DDS ", dds.decode_dds),
-            ("FTEX", data[:4] == b"FTEX", ftex.decode_ftex),
-            ("ICO", data[:4] == b"\0\0\1\0", ico.decode_ico),
-            ("PSD", data[:4] == b"8BPS", psd.decode_psd),
-            ("SGI", data[:2] == b"\x01\xda", sgi.decode_sgi))
-
-
-def _legacy(data: bytes):
-    """The readers of ``legacy_readers`` in turn; a plugin that accepts the
-    prefix but whose _open fails as Image.open passes over
-    (imgdec.NotThisFormat) gives way to the next, and None when none reads
-    the file."""
-    import struct
-    from . import ico, imgdec
-    for _, accepted, read in legacy_readers(data):
-        if not accepted:
+    data = read_bytes(path)
+    if not _BY_FIRST:
+        _readers()
+    for name, accepts, read in _BY_FIRST[data[0] if data else 256]:
+        if not accepts(data):
             continue
         try:
             return read(data)
         except imgdec.NotThisFormat:
             continue
         except (struct.error, IndexError) as e:
-            if read is ico.decode_ico:       # ICO decodes inside its _open
+            if name == "ICO":                # ICO decodes inside its _open
                 continue
             raise ValueError(f"corrupt image ({type(e).__name__}: {e})") \
                 from e
-    return None
+    from . import unloadable
+    if data[:8] == unloadable.OLE_MAGIC:
+        unloadable.refuse_ole(data)
+    raise NotImplementedError(
+        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
+        f"2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS, ICO, IM, MSP, PSD, "
+        f"SGI, SPIDER, TGA and XBM images are read, and BUFR, GRIB, HDF5, "
+        f"EPS, MPEG, WMF and OLE files refused as Pillow refuses them "
+        f"(ROADMAP A6 (j): SUN, XPM, PIXAR, McIdas, GBR, IMT, XV thumbnails, FITS, "
+        f"FLI, PCD and IPTC are still to port, AVIF is (j) 10); the file "
+        f"starts {data[:12]!r}")
+
+
+_READERS: tuple = ()
+_BY_FIRST: list = []
+
+
+def _readers() -> tuple:
+    """Builds, once, the table of ``legacy_readers``: (name, the first
+    bytes its _accept can take, or None for any, its _accept, its reader),
+    and the entries that can take each first byte (the last for b"")."""
+    global _READERS, _BY_FIRST
+    from . import (blp, bmp, dds, ftex, gif, icns, ico, im, jpeg, jpeg2000,
+                   msp, netpbm, pcx, psd, qoi, sgi, spider, tga, tiff,
+                   unloadable as un, webp, xbm)
+    dib = bmp.DIB_HEADERS
+
+    def avif(data):
+        raise NotImplementedError("AVIF images are not read yet (ROADMAP A6 "
+                                  "(j) 10: the AV1 tables are not here)")
+
+    _READERS = (
+        ("BMP", b"B", lambda d: d[:2] == b"BM", bmp.decode_bmp),
+        ("DIB", bytes(dib), lambda d: len(d) >= 4 and struct.unpack_from(
+            "<I", d)[0] in dib, bmp.decode_dib),
+        ("GIF", b"G", lambda d: d[:6] in (b"GIF87a", b"GIF89a"),
+         gif.decode_gif),
+        ("JPEG", b"\xff", lambda d: d[:2] == b"\xff\xd8", jpeg.decode_jpeg),
+        ("PPM", b"P", lambda d: d[:1] == b"P" and d[1:2] in b"01234567fy"
+         and len(d) > 1, netpbm.decode_netpbm),
+        ("PNG", b"\x89", lambda d: d[:8] == _SIGNATURE, decode_png),
+        ("AVIF", None, lambda d: d[4:8] == b"ftyp" and d[8:12] in (
+            b"avif", b"avis", b"mif1", b"msf1"), avif),
+        ("BLP", b"B", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
+        ("BUFR", b"BZ", un.accepts_bufr, un.refuse_bufr),
+        ("CUR", b"\0", lambda d: d[:4] == b"\0\0\2\0", ico.decode_cur),
+        ("PCX", b"\x0a", pcx.accepts_pcx, pcx.decode_pcx),
+        ("DCX", b"\xb1", lambda d: d[:4] == b"\xb1\x68\xde\x3a",
+         pcx.decode_dcx),
+        ("DDS", b"D", lambda d: d[:4] == b"DDS ", dds.decode_dds),
+        ("EPS", b"%\xc5", un.accepts_eps, un.refuse_eps),
+        ("FTEX", b"F", lambda d: d[:4] == b"FTEX", ftex.decode_ftex),
+        ("GRIB", b"G", un.accepts_grib, un.refuse_grib),
+        ("HDF5", b"\x89", un.accepts_hdf5, un.refuse_hdf5),
+        ("JPEG2000", b"\xff\0", lambda d: d[:4] == jpeg2000.J2K_SIGNATURE or
+         d[:12] == jpeg2000.JP2_SIGNATURE, jpeg2000.decode_jpeg2000),
+        ("ICNS", b"i", icns.accepts_icns, icns.decode_icns),
+        ("ICO", b"\0", lambda d: d[:4] == b"\0\0\1\0", ico.decode_ico),
+        ("IM", None, lambda d: True, im.decode_im),
+        ("MPEG", b"\0", un.accepts_mpeg, un.refuse_mpeg),
+        ("TIFF", b"IM", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0",
+                                            b"MM\0+"), tiff.decode_tiff),
+        ("MSP", b"DL", msp.accepts_msp, msp.decode_msp),
+        ("PSD", b"8", lambda d: d[:4] == b"8BPS", psd.decode_psd),
+        ("QOI", b"q", lambda d: d[:4] == b"qoif", qoi.decode_qoi),
+        ("SGI", b"\x01", lambda d: d[:2] == b"\x01\xda", sgi.decode_sgi),
+        ("SPIDER", None, lambda d: True, spider.decode_spider),
+        ("TGA", None, tga.is_tga, tga.decode_tga),
+        ("WEBP", b"R", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
+         webp.decode_webp),
+        ("WMF", b"\xd7\x01", un.accepts_wmf, un.refuse_wmf),
+        ("XBM", b" \t\n\r\x0b\x0c#", xbm.accepts_xbm, xbm.decode_xbm),
+    )
+    _BY_FIRST = [tuple((n, a, r) for n, first, a, r in _READERS
+                       if first is None or (b < 256 and b in first))
+                 for b in range(257)]
+    return _READERS
+
+
+def legacy_readers(data: bytes) -> tuple:
+    """(Pillow's format name, whether its _accept takes `data`, the port's
+    reader) of every format ``read_image`` tries, in the order Image.open
+    tries their plugins: preinit's BMP, DIB, GIF, JPEG, PPM and PNG, then
+    Image.OPEN's (IM and SPIDER have no _accept, TGA's is the port's header
+    test).  A reader raises imgdec.NotThisFormat where Pillow's _open fails
+    in a way Image.open passes over, and the next is tried."""
+    return tuple((name, accepts(data), read)
+                 for name, _, accepts, read in _READERS or _readers())
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -73,6 +73,14 @@
 //     a row's end is cut there (the rest of it dropped), 128 is a no-op,
 //     a packet is taken only whole; returns the bytes read when the rows
 //     are full, or -1 when the data ends first.
+//   int64_t icns_rle(const uint8_t *src, int64_t n, int64_t pos,
+//                    int64_t count, uint8_t *out)
+//     an ICNS 24-bit entry's three bands of count bytes each as Pillow's
+//     IcnsImagePlugin.read_32 reads them, one band after the other from
+//     src[pos:] (the whole file): a byte with the high bit set is a run of
+//     (byte - 125) copies of the next byte, any other a literal of byte + 1
+//     bytes; -1 when a band's packets do not sum to count (one ends short
+//     or a run crosses its end) or the file ends inside a band.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -1025,4 +1033,35 @@ extern "C" int64_t packbits_rows(const uint8_t *src, int64_t n,
       if (++y >= rows) return pos;
     }
   }
+}
+
+extern "C" int64_t icns_rle(const uint8_t *src, int64_t n, int64_t pos,
+                            int64_t count, uint8_t *out) {
+  for (int band = 0; band < 3; band++) {
+    uint8_t *dst = out + band * count;
+    int64_t left = count, got = 0;
+    while (left > 0 && pos < n) {
+      int b = src[pos++];
+      int64_t len;
+      if (b & 0x80) {
+        len = b - 125;
+        if (pos < n) {
+          int64_t k = len < count - got ? len : count - got;
+          if (k > 0) memset(dst + got, src[pos], k);
+          got += len;
+          pos++;
+        }
+      } else {
+        len = b + 1;
+        int64_t avail = n - pos < len ? n - pos : len;
+        int64_t k = avail < count - got ? avail : count - got;
+        if (k > 0) memcpy(dst + got, src + pos, k);
+        got += avail;
+        pos += avail;
+      }
+      left -= len;
+    }
+    if (left != 0 || got != count) return -1;
+  }
+  return pos;
 }

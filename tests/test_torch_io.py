@@ -132,16 +132,16 @@ def test_png_reader_reads_pillow_files_and_rejects_others(tmp_path):
     # BMP, TIFF, WebP, ICO and DDS read as Pillow reads them (every
     # variant: tests/test_torch_imageio.py, test_torch_legacyforms.py,
     # test_torch_textureforms.py); a format the port does not read still
-    # raises, naming its ROADMAP item
+    # raises, naming its ROADMAP item (AVIF: A6 (j) 10)
     for ext in ("bmp", "tiff", "webp", "ico", "dds"):
         path = tmp_path / f"frame.{ext}"
         Image.fromarray(_images()["rgb"]).save(path)
         with Image.open(path) as im:
             want = np.asarray(im)
         np.testing.assert_array_equal(png.read_image(str(path)), want)
-    path = tmp_path / "frame.im"
-    Image.fromarray(_images()["rgb"]).save(path)
-    with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
+    path = tmp_path / "frame.avif"
+    Image.fromarray(_images()["rgb"]).save(path, "AVIF")
+    with pytest.raises(NotImplementedError, match=r"A6 \(j\) 10"):
         png.read_image(str(path))
 
 

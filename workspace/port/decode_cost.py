@@ -1,6 +1,7 @@
-"""Where a small file's decode time goes on a host: the file's read, the
-decode from bytes, and read_image, for the TGA and small JPEG 2000
-fixtures of the checkout at the given path.
+"""Where a small file's decode time goes on a host: the file's read (as
+that checkout's read_image reads it: png.read_bytes where it exists, else
+a buffered open().read()), the decode from bytes, and read_image, for the
+TGA and small JPEG 2000 fixtures of the checkout at the given path.
 
     python3 workspace/port/decode_cost.py <checkout>
 
@@ -14,7 +15,11 @@ import time
 root = os.path.abspath(sys.argv[1])
 sys.path.insert(0, root)
 from nerf2mesh_tpu_torch.data import jpeg2000, tga  # noqa: E402
+from nerf2mesh_tpu_torch.data import png  # noqa: E402
 from nerf2mesh_tpu_torch.data.png import read_image  # noqa: E402
+
+read_file = getattr(png, "read_bytes", None) or (
+    lambda f: open(f, "rb").read())
 
 fx = os.path.join(root, "nerf2mesh_tpu_torch", "fixtures", "formats")
 sets = {"tga": sorted(glob.glob(fx + "/tga/*")),
@@ -42,7 +47,7 @@ for name, files in sets.items():
     for f in files:
         read_image(f)
     data = {f: open(f, "rb").read() for f in files}
-    rd = best(lambda f: open(f, "rb").read(), files)
+    rd = best(read_file, files)
     dc = best(lambda f: dec[name](data[f]), files)
     ri = best(read_image, files)
     px = sum(read_image(f).shape[0] * read_image(f).shape[1] for f in files)
