@@ -263,15 +263,20 @@ Phases, in order; any failure exits non-zero:
      (j) the same on the committed capture fixtures/colmap_misc (128^2:
      ICNS in each entry kind (PNG RGBA and RGB, JPEG 2000, RLE and raw
      24-bit with masks) and as Pillow writes it (read at 1024^2), IM RGB
-     and RGB;L, SPIDER frames; MSP and XBM masks, read as 0/1); the
-     phase's wall and (e)'s to (j)'s printed.  (c) decodes the JPEG, TIFF,
-     netpbm, TGA, QOI, JPEG 2000, SGI, PCX, DCX, ICO, CUR, DDS, FTEX, BLP,
-     PSD, DIB, ICNS, IM, MSP, SPIDER and XBM variants (fixtures/formats, a
-     512^2 irreversible frame among them; legacy TIFF timed by codec:
-     CCITT, old-style JPEG, ThunderScan, LZMA, zstd; DDS by codec: BC1-BC7,
-     masked RGB, raw) and the (f)-(j) captures' frames and masks too, each
-     format's ms per MP held to 500, and logs each format's read (open and
-     read) and decode (from bytes) apart from the same fastest pass.
+     and RGB;L, SPIDER frames; MSP and XBM masks, read as 0/1); (k) the
+     same on the committed capture fixtures/colmap_rare (128^2: SUN 24-bit
+     raw and RLE, SUN 32-bit, PIXAR, GIMP brush RGBA, XPM RGB and IPTC
+     band-merged frames; McIdas, IM Tools, FITS, XV thumbnail, FLI and XPM
+     masks); the phase's wall and (e)'s to (k)'s printed.  (c) decodes the
+     JPEG, TIFF, netpbm, TGA, QOI, JPEG 2000, SGI, PCX, DCX, ICO, CUR, DDS,
+     FTEX, BLP, PSD, DIB, ICNS, IM, MSP, SPIDER, XBM, SUN, XPM, PIXAR,
+     McIdas, GBR, IMT, XV thumbnail, FITS, FLI, PhotoCD (768 x 512) and
+     IPTC variants (fixtures/formats, a 512^2 irreversible frame among
+     them; legacy TIFF timed by codec: CCITT, old-style JPEG, ThunderScan,
+     LZMA, zstd; DDS by codec: BC1-BC7, masked RGB, raw) and the (f)-(k)
+     captures' frames and masks too, each format's ms per MP held to 500,
+     and logs each format's read (open and read) and decode (from bytes)
+     apart from the same fastest pass.
 The kernels' "max_abs_err" is the largest over phase 3 and the holds at
 phases 8's, 9's, 10's, 11's, 12's, 13's and 14's shapes.
 The line before the last is the kernels' JSON record (launch counts from
@@ -297,7 +302,7 @@ fixture; "ckpt_formats_cli_launches": phase 14 (e)'s training,
 "ckpt_forms_cli_launches": phase 14 (f)'s, "ckpt_jp2_cli_launches":
 phase 14 (g)'s, "ckpt_legacy_cli_launches": phase 14 (h)'s,
 "ckpt_texture_cli_launches": phase 14 (i)'s, "ckpt_misc_cli_launches":
-phase 14 (j)'s),
+phase 14 (j)'s, "ckpt_rare_cli_launches": phase 14 (k)'s),
 the last line the device record.  Imports only
 the port, torch, numpy and the standard library.
 """
@@ -390,18 +395,19 @@ CAP_DECIMATE = 3e4         # its decimate_target: the SDF's outer level is
 #                            1's face budget (87,381 at 256^2)
 CAP_S1_STEPS = 16          # phase 11a's stage 1 (cut from 32)
 CAP_TEXTURE = 512          # phase 11a's texture side
-CAP_SPARSE_STEPS = 48      # phase 11b (the LLFF recipe + sparse depth;
-#                            cut from 64 to pay for phase 14 (h))
+CAP_SPARSE_STEPS = 40      # phase 11b (the LLFF recipe + sparse depth;
+#                            cut from 64 to pay for phase 14 (h), then 48
+#                            to pay for phase 14 (k))
 OPT_SIZE = 512             # phase 11c's blender scene side (--downscale 2)
-OPT_STEPS = 48             # phase 11c (the A6 (d) options; cut from 64 to
-#                            pay for phase 14 (h))
-HARD_STEPS = 40            # phase 12 (a) and (b): the hard scene, merged and
+OPT_STEPS = 40             # phase 11c (the A6 (d) options; cut from 64 to
+#                            pay for phase 14 (h), then 48 for (k))
+HARD_STEPS = 32            # phase 12 (a) and (b): the hard scene, merged and
 #                            separate tables (cut from 256, then 128, for
 #                            the time limit: whole runs took 1272 s, then
 #                            over 1200 s on a slower host; then 64, to pay
-#                            for phase 14 (i))
-HARD_REF_STEPS = 40        # phase 12 (c): separate tables, ref 2^14 table
-#                            (64 until phase 14 (i))
+#                            for phase 14 (i), then 40 for (k))
+HARD_REF_STEPS = 32        # phase 12 (c): separate tables, ref 2^14 table
+#                            (64 until phase 14 (i), 40 until (k))
 HARD_WS_STEPS = 40         # phase 12 (d): separate tables, winsort_fine
 #                            (its val PSNR rose 0.036 dB in 32 steps; 64
 #                            until phase 14 (i))
@@ -410,7 +416,8 @@ HARD_VAL = 1               # phase 12's val views (cut from 4, then 2 in PR
 #                            took about 55 s of a run that passed 1200 s)
 ENTRY_SIZE = 256           # phase 13 (a), (b): the scenes' side
 DTU_VIEWS = 24             # phase 13 (a): every 8th is val (3), 21 train
-DTU_STEPS = 64             # phase 13 (a): stage-0 steps through the CLI
+DTU_STEPS = 48             # phase 13 (a): stage-0 steps through the CLI
+#                            (64 until phase 14 (k))
 DIST_STEPS = 32            # phase 13 (b): stage-0 steps on each of 2 ranks
 DIST_S1_STEPS = 8          # phase 13 (b): stage-1 steps, a refine at half
 DIST_TEXTURE = 512         # phase 13 (b): the stage-1 export's texture side
@@ -419,7 +426,7 @@ VIEWER_FRAMES = 8          # phase 13 (c): stage-0 frames over HTTP
 VIEWER_S1_FRAMES = 2       # phase 13 (c): stage-1 frames
 CKPT_STEPS = 32            # phase 14 (c): stage-0 steps through the CLI on
 #                            the committed progressive capture
-FMT_STEPS = 16             # phase 14 (e)-(j): stage-0 steps through the
+FMT_STEPS = 16             # phase 14 (e)-(k): stage-0 steps through the
 #                            CLI on the committed captures in other formats
 DECODE_PASSES = 3          # phase 14 (c): timed passes over the fixtures
 TOL = {"occ_lookup": (0.0, 0.0), "inwin_fwd": (1e-5, 0.0),
@@ -3771,6 +3778,13 @@ SIGNATURES = ((b"\x89PNG", "png"), (b"\xff\xd8", "jpeg"), (b"BM", "bmp"),
      (b"FTEX", "ftex"), (b"\x00\x00\x01\x00", "ico"), (b"8BPS", "psd"),
      (b"\x01\xda", "sgi"), (b"icns", "icns"), (b"Image type", "im"),
      (b"DanM", "msp"), (b"LinS", "msp"), (b"#define", "xbm"))
+# the (k) capture's formats, tried first ("P7 332" is not netpbm); FLI and
+# GBR are told by fixture_format
+RARE_SIGNATURES = ((b"P7 332", "xvthumb"), (b"/* XPM */", "xpm"),
+                   (b"SIMPLE", "fits"), (b"\0" * 7 + b"\x04", "mcidas"),
+                   (b"\x59\xa6\x6a\x95", "sun"), (b"\x80\xe8\0\0", "pixar"),
+                   (b"\x1c", "iptc"), (b"* IM tools", "imt"),
+                   (b"width ", "imt"))
 # TIFF compressions timed apart in phase 14 (c)
 TIFF_CODECS = {2: "tiff_ccitt", 3: "tiff_ccitt", 4: "tiff_ccitt",
                32771: "tiff_ccitt", 6: "tiff_ojpeg", 32809: "tiff_thunderscan",
@@ -3815,9 +3829,13 @@ def fixture_format(rel: str, data: bytes) -> str:
             fmt = "cur"
     elif rel.endswith(".spi"):                # SPIDER has no signature
         fmt = "spider"
+    elif data[4:6] in (b"\x11\xaf", b"\x12\xaf"):
+        fmt = "fli"
+    elif data[20:24] == b"GIMP":
+        fmt = "gbr"
     else:
-        fmt = next((n for sig, n in SIGNATURES if data.startswith(sig)),
-                   "tga")
+        fmt = next((n for sig, n in RARE_SIGNATURES + SIGNATURES
+                    if data.startswith(sig)), "tga")
     if fmt == "tiff":
         fmt = TIFF_CODECS.get(tiff_compression(data), "tiff")
     elif fmt == "dds":
@@ -4027,11 +4045,13 @@ def ckpt_formats_capture(dev, ref_ms, name="colmap_formats", label="(e)",
 def phase_checkpoints(dev, field, val, ref_ms):
     """Phase 14: (a) the full-width .ocp round trip, (b) the JAX fixtures
     (zarr v2 and v3) and a frame of the zarr3 one, (c) the committed images
-    and the progressive capture through main, (e)-(j) the captures in other
+    and the progressive capture through main, (e)-(k) the captures in other
     formats (g: JPEG 2000, h: the legacy forms, i: the texture and layered
-    forms, j: ICNS, IM, SPIDER, MSP and XBM) through main ((d) runs in
+    forms, j: ICNS, IM, SPIDER, MSP and XBM, k: SUN, PIXAR, GBR, XPM, IPTC,
+    McIdas, IMT, FITS, XV thumbnails and FLI) through main ((d) runs in
     phase 8); returns (b)'s frame launches, (c)'s, (e)'s, (f)'s, (g)'s,
-    (h)'s, (i)'s and (j)'s training launches, and K1-K3's errors."""
+    (h)'s, (i)'s, (j)'s and (k)'s training launches, and K1-K3's
+    errors."""
     t0 = time.perf_counter()
     ckpt_full_width(dev, field, val)
     fixture_launches = ckpt_jax_fixture(dev, val)
@@ -4061,14 +4081,19 @@ def phase_checkpoints(dev, field, val, ref_ms):
     misc_launches, misc_errs = ckpt_formats_capture(
         dev, ref_ms, "colmap_misc", "(j)", "MSP and XBM masks")
     log(f"[ckpt] (j) wall {time.perf_counter() - t_j:.1f} s")
+    t_k = time.perf_counter()
+    rare_launches, rare_errs = ckpt_formats_capture(
+        dev, ref_ms, "colmap_rare", "(k)",
+        "McIdas, IMT, FITS, XV thumbnail, FLI and XPM masks")
+    log(f"[ckpt] (k) wall {time.perf_counter() - t_k:.1f} s")
     log(f"[ckpt] phase 14 wall {time.perf_counter() - t0:.1f} s")
     for e in (fmt_errs, forms_errs, jp2_errs, legacy_errs, texture_errs,
-              misc_errs):
+              misc_errs, rare_errs):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     return (fixture_launches, cap_launches, fmt_launches, forms_launches,
             jp2_launches, legacy_launches, texture_launches, misc_launches,
-            errs)
+            rare_launches, errs)
 
 
 def main() -> int:
@@ -4115,7 +4140,7 @@ def main() -> int:
                     "zstandard"):
         (fix_launches, ckpt_launches, fmt_launches, forms_launches,
          jp2_launches, legacy_launches, texture_launches, misc_launches,
-         ckpt_errs) = phase_checkpoints(
+         rare_launches, ckpt_errs) = phase_checkpoints(
             dev, field, val, {r["name"]: r["ms"] for r in results})
     del field
     lap("phase 14")
@@ -4161,6 +4186,7 @@ def main() -> int:
         r["ckpt_legacy_cli_launches"] = legacy_launches.get(r["name"], 0)
         r["ckpt_texture_cli_launches"] = texture_launches.get(r["name"], 0)
         r["ckpt_misc_cli_launches"] = misc_launches.get(r["name"], 0)
+        r["ckpt_rare_cli_launches"] = rare_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "stage1_launches", "sdf_launches", "sdf_stage1_launches",
             "unbounded_launches", "unbounded_stage1_launches",
@@ -4170,7 +4196,7 @@ def main() -> int:
             "ckpt_formats_cli_launches", "ckpt_forms_cli_launches",
             "ckpt_jp2_cli_launches", "ckpt_legacy_cli_launches",
             "ckpt_texture_cli_launches", "ckpt_misc_cli_launches",
-            "max_abs_err",
+            "ckpt_rare_cli_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,10 @@ path))`` of the files Pillow 12.1's IcnsImagePlugin reads.
   byte each, cut to H * W * 3), any other mode refused (no packer to
   RGBA).  A JPEG 2000 entry goes through data/jpeg2000.py and Pillow's
   convert("RGBA"): grey thrice, "I;16" clipped to 255, CMYK by Pillow's
-  cmyk2rgb, alpha 255 where there is none;
+  cmyk2rgb, alpha 255 where there is none; "P" and "PA" through the
+  palette Pillow builds from the pclr box (jpeg2000.pillow_palette: one
+  slot a distinct colour), its slots past the palette's size opaque black
+  as the core leaves them, with "PA"'s own alpha;
 * an RGB entry (``is32``, ``il32``, ``ih32``, and ``it32`` after four zero
   bytes) is raw when its length is 3 * W * H, else three bands of Pillow's
   RLE (native/imgdec.cpp); with its slot's mask (``s8mk``-``t8mk``) it is
@@ -95,14 +98,30 @@ def _png_entry(data: bytes, start: int):
                      f"mode to RGBA (Pillow)")
 
 
+def _core_palette(palette) -> np.ndarray:
+    """[256, 4] RGBA of Pillow's core palette after putpalette: the
+    palette's whole slots, then opaque black."""
+    mode, pal = palette
+    n = len(mode)
+    size = len(pal) // n
+    if size > 256:
+        raise ValueError("invalid palette size")
+    core = np.zeros((256, 4), np.uint8)
+    core[:, 3] = 255
+    slots = np.frombuffer(pal, np.uint8, size * n).reshape(size, n)
+    core[:size, :n] = slots
+    return core
+
+
 def _j2k_entry(data: bytes) -> np.ndarray:
     """The JPEG 2000 entry through Pillow's convert("RGBA")."""
     from . import jpeg2000 as j2k
     img = j2k.decode_jpeg2000(data)
+    palette = None
     if data[:4] == j2k.J2K_SIGNATURE:
         mode = j2k._codestream_mode(data, 4)[1]
     else:
-        mode = j2k._pillow_jp2_mode(data)[1]
+        _, mode, palette = j2k._pillow_jp2_mode(data)
     H, W = img.shape[:2]
     opaque = np.full((H, W), 255, np.uint8)
     if mode == "RGBA":
@@ -122,9 +141,10 @@ def _j2k_entry(data: bytes) -> np.ndarray:
         t = img[..., :3].astype(np.int32) * nk + 128
         rgb = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
         return np.dstack([rgb, opaque])
-    raise NotImplementedError(
-        f"ICNS JPEG 2000 entry of mode {mode}: Pillow's convert('RGBA') "
-        f"through its palette is not ported (ROADMAP A6 (j) 9)")
+    core = _core_palette(palette)
+    if mode == "P":
+        return core[img]
+    return np.dstack([core[img[..., 0]][..., :3], img[..., 1]])
 
 
 def _rgb_entry(data: bytes, start: int, length: int, px: tuple):

@@ -1,7 +1,8 @@
 """numpy wrappers of native/imgdec.cpp, the inner loops of the BMP, TIFF,
-GIF, netpbm, TGA, QOI, SGI, PCX, PSD and ICNS readers (data/bmp.py,
-tiff.py, gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py, psd.py,
-icns.py), built with g++ at first use (utils/native.py)."""
+GIF, netpbm, TGA, QOI, SGI, PCX, PSD, ICNS, SUN and FLI readers
+(data/bmp.py, tiff.py, gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py,
+psd.py, icns.py, sun.py, fli.py), built with g++ at first use
+(utils/native.py)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ _SIGNATURES = {
     "pcx_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
     "packbits_rows": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
     "icns_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
+    "sun_rle": (_I64, [_PTR, _I64, _I64, _PTR]),
+    "fli_frame": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
 }
 
 
@@ -220,3 +223,35 @@ def icns_rle(data, pos: int, count: int) -> np.ndarray:
         raise ValueError("ICNS RLE: a band that does not decode to its "
                          "size (Pillow: Error reading channel)")
     return out.reshape(3, count)
+
+
+def sun_rle(data, rowbytes: int, rows: int) -> np.ndarray:
+    """Sun raster RLE from the start of `data` -> [rows, rowbytes] bytes (a
+    run goes on across rows); ValueError when the data ends first (Pillow:
+    image file is truncated)."""
+    src, out = _src(data), np.zeros(rows * rowbytes, np.uint8)
+    if _lib().sun_rle(src.ctypes.data, src.size, out.size,
+                      out.ctypes.data) < 0:
+        raise ValueError("SUN RLE data truncated (image file is truncated)")
+    return out.reshape(rows, rowbytes)
+
+
+# fli_frame's failures, as Pillow names them
+FLI_ERRORS = {-2: "buffer overrun when reading image file",
+              -3: "unrecognized data stream contents when reading image "
+                  "file", -4: "broken data stream when reading image file"}
+
+
+def fli_frame(data, out: np.ndarray) -> int:
+    """Applies the FLI frame at the start of `data` to `out` (uint8 [H, W],
+    C-contiguous): -1 when done, else the bytes consumed before it needs
+    more data; ValueError on the errors Pillow's decoder reports."""
+    if not (out.flags.c_contiguous and out.dtype == np.uint8
+            and out.ndim == 2):
+        raise ValueError("fli_frame takes a contiguous uint8 [H, W] array")
+    src = _src(data)
+    r = _lib().fli_frame(src.ctypes.data, src.size, out.shape[1],
+                         out.shape[0], out.ctypes.data)
+    if r < -1:
+        raise ValueError(f"FLI: {FLI_ERRORS[r]}")
+    return r

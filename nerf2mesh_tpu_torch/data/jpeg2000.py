@@ -151,8 +151,52 @@ def _boxes(data: bytes, pos: int, end: int, pillow: bool):
         pos += lbox
 
 
+def pillow_palette(entries, npc: int) -> tuple:
+    """The ImagePalette Jpeg2KImagePlugin builds from a pclr box's entries
+    ([n] tuples of npc bytes) through ImagePalette.getcolor, one entry at a
+    time: (its mode, "RGBA" for four components else "RGB", its bytes).
+    getcolor keeps one slot a distinct colour and puts a new one at slot
+    len(palette) // len(mode), so entries of one or two components (bytes
+    of their own length in an RGB palette) overwrite each other's bytes;
+    ValueError as getcolor raises it (a 257th slot, a non-opaque colour of
+    four bytes in an RGB palette)."""
+    mode = "RGBA" if npc == 4 else "RGB"
+    n = len(mode)
+    pal, colours = bytearray(), {}
+    for colour in entries:
+        colour = tuple(colour)
+        if mode == "RGB" and len(colour) == 4:
+            if colour[3] != 255:
+                raise ValueError("cannot add non-opaque RGBA color to RGB "
+                                 "palette")
+            colour = colour[:3]
+        if colour in colours:
+            continue
+        index = len(pal) // n
+        if index >= 256:
+            raise ValueError("cannot allocate more than 256 colors")
+        colours[colour] = index
+        if index * n < len(pal):
+            pal = pal[:index * n] + bytes(colour) + pal[index * n + n:]
+        else:
+            pal += bytes(colour)
+    return mode, bytes(pal)
+
+
+def _pclr_entries(body: bytes):
+    """(entries, components) of a pclr box Pillow builds a palette from,
+    or None when an entry is deeper than 8 bits (the mode stays)."""
+    ne, npc = struct.unpack_from(">HB", body)
+    depths = struct.unpack_from(f">{npc}B", body, 3)
+    if max(depths, default=0) > 8:
+        return None
+    flat = struct.unpack_from(f">{ne * npc}B", body, 3 + npc)
+    return [flat[i * npc:(i + 1) * npc] for i in range(ne)], npc
+
+
 def _pillow_jp2_mode(data: bytes):
-    """Jpeg2KImagePlugin._parse_jp2_header: (size, mode)."""
+    """Jpeg2KImagePlugin._parse_jp2_header: (size, mode, the palette:
+    pillow_palette's pair for "P" and "PA", else None)."""
     header = None
     for tbox, b0, b1 in _boxes(data, 12, len(data), pillow=True):
         if tbox == b"jp2h":
@@ -160,7 +204,7 @@ def _pillow_jp2_mode(data: bytes):
             break
     if header is None:
         raise ValueError("JPEG 2000 file without a jp2h box")
-    size = mode = nc = None
+    size = mode = nc = palette = None
     for tbox, b0, b1 in _boxes(data, header[0], header[1], pillow=True):
         body = data[b0:b1]
         try:
@@ -174,22 +218,15 @@ def _pillow_jp2_mode(data: bytes):
                 if meth == 1 and enumcs == 12:
                     mode = "CMYK"
             elif tbox == b"pclr" and mode in ("L", "LA"):
-                ne, npc = struct.unpack_from(">HB", body)
-                depths = struct.unpack_from(f">{npc}B", body, 3)
-                if max(depths, default=0) <= 8:
-                    entries = struct.unpack_from(f">{ne * npc}B", body,
-                                                 3 + npc)
-                    colours = {entries[i * npc:(i + 1) * npc]
-                               for i in range(ne)}
-                    if len(colours) > 256:   # ImagePalette.getcolor
-                        raise ValueError("cannot allocate more than 256 "
-                                         "colors")
+                pclr = _pclr_entries(body)
+                if pclr is not None:
+                    palette = pillow_palette(*pclr)
                     mode = "P" if mode == "L" else "PA"
         except struct.error as e:
             raise ValueError(f"Not enough data in JPEG 2000 header: {e}")
     if size is None or mode is None:
         raise ValueError("Malformed JP2 header")
-    return size, mode
+    return size, mode, palette
 
 
 def _openjpeg_jp2(data: bytes):
@@ -300,7 +337,7 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
         size, mode = _codestream_mode(data, 4)
         space, cs = UNSPECIFIED, data
     elif data[:12] == JP2_SIGNATURE:
-        size, mode = _pillow_jp2_mode(data)
+        size, mode, _ = _pillow_jp2_mode(data)
         space, cs = _openjpeg_jp2(data)
     else:
         raise ValueError("not a JPEG 2000 file")

@@ -15,8 +15,11 @@ files Pillow's PpmImagePlugin reads.
   to the end of its line, and a token may go on after it; at most 10
   characters.
 
-P7 (PAM) and anything else Pillow's _accept or MODES refuse raise
-ValueError.  The plain samples are parsed by native/imgdec.cpp.
+A magic Pillow's MODES lacks, P7 (PAM) among them, hands the file on
+(imgdec.NotThisFormat: Pillow's _open raises SyntaxError and Image.open
+tries the next plugin; its _accept does not take "P7" at all, so an XV
+thumbnail's "P7 332" reaches the XVThumb reader).  The plain samples are
+parsed by native/imgdec.cpp.
 """
 
 from __future__ import annotations
@@ -72,12 +75,10 @@ class _Header:
 
 
 def decode_netpbm(data: bytes) -> np.ndarray:
-    if data[:2] == b"P7":
-        raise ValueError("PAM (P7) file: Pillow reads none")
     head = _Header(data)
     magic = head.magic()
     if magic not in _MODES:
-        raise ValueError(f"not a netpbm file Pillow reads (magic {magic!r})")
+        raise imgdec.NotThisFormat(f"not a PPM file (magic {magic!r})")
     mode = _MODES[magic]
     W, H = int(head.token()), int(head.token())
     if W <= 0 or H <= 0:

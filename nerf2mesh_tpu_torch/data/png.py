@@ -21,14 +21,17 @@ row's own output byte by byte.  Writing uses filter 0 on every row, for
 ``read_image`` reads a file without Pillow, trying the port's readers in
 the order Image.open tries Pillow's plugins (``legacy_readers``): a PNG
 with this codec, a JPEG with data/jpeg.py's decoder, and BMP, TIFF, GIF,
-WebP, netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS,
-ICO, IM, MSP, PSD, SGI, SPIDER, TGA and XBM with their modules under
+WebP, netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FITS, FLI,
+FTEX, GBR, ICNS, ICO, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, PSD, SGI,
+SPIDER, SUN, TGA, XBM, XPM and XV thumbnails with their modules under
 data/; a plugin whose _accept takes the file but whose _open gives up
-hands it on to the next, so IM and SPIDER, which have no signature, and
-TGA, whose header test is loose, read only what no earlier plugin takes;
-BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files raise
-ValueError as Pillow cannot load them here (data/unloadable.py); any other
-format raises NotImplementedError naming ROADMAP A6 (j);
+hands it on to the next, so IM, IMT, IPTC, PCD and SPIDER, which have no
+signature, and TGA, whose header test is loose, read only what no earlier
+plugin takes; BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files
+raise ValueError as Pillow cannot load them here (data/unloadable.py), and
+so does a file no reader takes (Pillow: UnidentifiedImageError); AVIF
+alone raises NotImplementedError (ROADMAP A6 (j) 10).  ``decode_image`` is
+the same on bytes (IPTC reads its payload through it);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
 """
@@ -214,16 +217,17 @@ def read_bytes(path: str) -> bytes:
 
 
 def read_image(path: str) -> np.ndarray:
-    """np.asarray(Image.open(path)) for a PNG, JPEG, BMP, TIFF, GIF, WebP,
-    netpbm, QOI, JPEG 2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS, ICO,
-    IM, MSP, PSD, SGI, SPIDER, TGA or XBM file, without Pillow.  BUFR,
-    GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files raise ValueError,
-    as Pillow cannot load them here; other formats raise
-    NotImplementedError naming ROADMAP A6 (j)."""
-    data = read_bytes(path)
+    """np.asarray(Image.open(path)) of any image Pillow reads here but AVIF
+    (ROADMAP A6 (j) 10), without Pillow; ValueError for what Pillow refuses
+    or does not identify."""
+    return decode_image(read_bytes(path), path)
+
+
+def decode_image(data: bytes, name: str = "image") -> np.ndarray:
+    """read_image on a file's bytes (`name` for the message)."""
     if not _BY_FIRST:
         _readers()
-    for name, accepts, read in _BY_FIRST[data[0] if data else 256]:
+    for reader, accepts, read in _BY_FIRST[data[0] if data else 256]:
         if not accepts(data):
             continue
         try:
@@ -231,21 +235,16 @@ def read_image(path: str) -> np.ndarray:
         except imgdec.NotThisFormat:
             continue
         except (struct.error, IndexError) as e:
-            if name == "ICO":                # ICO decodes inside its _open
+            if reader == "ICO":              # ICO decodes inside its _open
                 continue
             raise ValueError(f"corrupt image ({type(e).__name__}: {e})") \
                 from e
     from . import unloadable
     if data[:8] == unloadable.OLE_MAGIC:
         unloadable.refuse_ole(data)
-    raise NotImplementedError(
-        f"{path}: only PNG, JPEG, BMP, TIFF, GIF, WebP, netpbm, QOI, JPEG "
-        f"2000, BLP, DIB, CUR, PCX, DCX, DDS, FTEX, ICNS, ICO, IM, MSP, PSD, "
-        f"SGI, SPIDER, TGA and XBM images are read, and BUFR, GRIB, HDF5, "
-        f"EPS, MPEG, WMF and OLE files refused as Pillow refuses them "
-        f"(ROADMAP A6 (j): SUN, XPM, PIXAR, McIdas, GBR, IMT, XV thumbnails, FITS, "
-        f"FLI, PCD and IPTC are still to port, AVIF is (j) 10); the file "
-        f"starts {data[:12]!r}")
+    raise ValueError(f"{name}: no reader takes this file, as no Pillow "
+                     f"plugin does (cannot identify image file); it starts "
+                     f"{data[:12]!r}")
 
 
 _READERS: tuple = ()
@@ -257,9 +256,10 @@ def _readers() -> tuple:
     bytes its _accept can take, or None for any, its _accept, its reader),
     and the entries that can take each first byte (the last for b"")."""
     global _READERS, _BY_FIRST
-    from . import (blp, bmp, dds, ftex, gif, icns, ico, im, jpeg, jpeg2000,
-                   msp, netpbm, pcx, psd, qoi, sgi, spider, tga, tiff,
-                   unloadable as un, webp, xbm)
+    from . import (blp, bmp, dds, fits, fli, ftex, gbr, gif, icns, ico, im,
+                   imt, iptc, jpeg, jpeg2000, mcidas, msp, netpbm, pcd, pcx,
+                   pixar, psd, qoi, sgi, spider, sun, tga, tiff,
+                   unloadable as un, webp, xbm, xpm, xvthumb)
     dib = bmp.DIB_HEADERS
 
     def avif(data):
@@ -273,7 +273,7 @@ def _readers() -> tuple:
         ("GIF", b"G", lambda d: d[:6] in (b"GIF87a", b"GIF89a"),
          gif.decode_gif),
         ("JPEG", b"\xff", lambda d: d[:2] == b"\xff\xd8", jpeg.decode_jpeg),
-        ("PPM", b"P", lambda d: d[:1] == b"P" and d[1:2] in b"01234567fy"
+        ("PPM", b"P", lambda d: d[:1] == b"P" and d[1:2] in b"0123456fy"
          and len(d) > 1, netpbm.decode_netpbm),
         ("PNG", b"\x89", lambda d: d[:8] == _SIGNATURE, decode_png),
         ("AVIF", None, lambda d: d[4:8] == b"ftyp" and d[8:12] in (
@@ -286,7 +286,10 @@ def _readers() -> tuple:
          pcx.decode_dcx),
         ("DDS", b"D", lambda d: d[:4] == b"DDS ", dds.decode_dds),
         ("EPS", b"%\xc5", un.accepts_eps, un.refuse_eps),
+        ("FITS", b"S", fits.accepts_fits, fits.decode_fits),
+        ("FLI", None, fli.accepts_fli, fli.decode_fli),
         ("FTEX", b"F", lambda d: d[:4] == b"FTEX", ftex.decode_ftex),
+        ("GBR", None, gbr.accepts_gbr, gbr.decode_gbr),
         ("GRIB", b"G", un.accepts_grib, un.refuse_grib),
         ("HDF5", b"\x89", un.accepts_hdf5, un.refuse_hdf5),
         ("JPEG2000", b"\xff\0", lambda d: d[:4] == jpeg2000.J2K_SIGNATURE or
@@ -294,19 +297,27 @@ def _readers() -> tuple:
         ("ICNS", b"i", icns.accepts_icns, icns.decode_icns),
         ("ICO", b"\0", lambda d: d[:4] == b"\0\0\1\0", ico.decode_ico),
         ("IM", None, lambda d: True, im.decode_im),
+        ("IMT", None, lambda d: True, imt.decode_imt),
+        ("IPTC", None, lambda d: True, iptc.decode_iptc),
+        ("MCIDAS", b"\0", mcidas.accepts_mcidas, mcidas.decode_mcidas),
         ("MPEG", b"\0", un.accepts_mpeg, un.refuse_mpeg),
         ("TIFF", b"IM", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0",
                                             b"MM\0+"), tiff.decode_tiff),
         ("MSP", b"DL", msp.accepts_msp, msp.decode_msp),
+        ("PCD", None, lambda d: True, pcd.decode_pcd),
+        ("PIXAR", b"\x80", pixar.accepts_pixar, pixar.decode_pixar),
         ("PSD", b"8", lambda d: d[:4] == b"8BPS", psd.decode_psd),
         ("QOI", b"q", lambda d: d[:4] == b"qoif", qoi.decode_qoi),
         ("SGI", b"\x01", lambda d: d[:2] == b"\x01\xda", sgi.decode_sgi),
         ("SPIDER", None, lambda d: True, spider.decode_spider),
+        ("SUN", b"\x59", sun.accepts_sun, sun.decode_sun),
         ("TGA", None, tga.is_tga, tga.decode_tga),
         ("WEBP", b"R", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
          webp.decode_webp),
         ("WMF", b"\xd7\x01", un.accepts_wmf, un.refuse_wmf),
         ("XBM", b" \t\n\r\x0b\x0c#", xbm.accepts_xbm, xbm.decode_xbm),
+        ("XPM", b"/", xpm.accepts_xpm, xpm.decode_xpm),
+        ("XVTHUMB", b"P", xvthumb.accepts_xvthumb, xvthumb.decode_xvthumb),
     )
     _BY_FIRST = [tuple((n, a, r) for n, first, a, r in _READERS
                        if first is None or (b < 256 and b in first))
@@ -318,8 +329,8 @@ def legacy_readers(data: bytes) -> tuple:
     """(Pillow's format name, whether its _accept takes `data`, the port's
     reader) of every format ``read_image`` tries, in the order Image.open
     tries their plugins: preinit's BMP, DIB, GIF, JPEG, PPM and PNG, then
-    Image.OPEN's (IM and SPIDER have no _accept, TGA's is the port's header
-    test).  A reader raises imgdec.NotThisFormat where Pillow's _open fails
+    Image.OPEN's (IM, IMT, IPTC, PCD and SPIDER have no _accept, TGA's is
+    the port's header test).  A reader raises imgdec.NotThisFormat where Pillow's _open fails
     in a way Image.open passes over, and the next is tried."""
     return tuple((name, accepts(data), read)
                  for name, _, accepts, read in _READERS or _readers())

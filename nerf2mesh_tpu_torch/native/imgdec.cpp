@@ -4,9 +4,9 @@
 // predictor, the CCITT fax and ThunderScan codecs as libtiff decodes them,
 // the BMP RLE8/RLE4 decoder as Pillow's BmpRleDecoder reads it (the array
 // JAX's providers see), the plain (ASCII) netpbm samples, TGA's RLE
-// packets, the QOI operations, the SGI and PCX run-length codes and
-// PackBits in rows (PSD's channels, data/psd.py) as Pillow's decoders read
-// them.
+// packets, the QOI operations, the SGI and PCX run-length codes,
+// PackBits in rows (PSD's channels, data/psd.py), ICNS's RLE, the Sun
+// raster RLE and the FLI/FLC frame chunks as Pillow's decoders read them.
 //
 // C interface (ctypes); each returns the bytes written or -1 on a code
 // the stream cannot hold:
@@ -81,6 +81,22 @@
 //     (byte - 125) copies of the next byte, any other a literal of byte + 1
 //     bytes; -1 when a band's packets do not sum to count (one ends short
 //     or a run crosses its end) or the file ends inside a band.
+//   int64_t sun_rle(const uint8_t *src, int64_t n, int64_t total,
+//                   uint8_t *out)
+//     Sun raster type 2 (SunRleDecode.c) into total bytes of rows: 0x80 0
+//     is a literal 0x80, 0x80 c v a run of c + 1 bytes v (going on across
+//     rows, cut at the image's end), any other byte a literal; returns the
+//     bytes read, or -1 when the data ends before the image is full.
+//   int64_t fli_frame(const uint8_t *src, int64_t n, int64_t width,
+//                     int64_t height, uint8_t *out)
+//     one FLI/FLC frame (FliDecode.c) from its 16-byte header, applied to
+//     out (height rows of width indices): COLOR256 (4), COLOR64 (11) and
+//     PSTAMP (18) skipped, SS2 (7) word deltas, LC (12) byte deltas, BLACK
+//     (13), BRUN (15) and COPY (16).  Returns -1 when the frame is done,
+//     the bytes consumed (>= 0) when n is too short for it (Pillow reads
+//     more), -2 on a chunk past the data or a line it cannot finish, -3 on
+//     a header that is not a frame's or an unknown chunk, -4 on a chunk of
+//     size 0.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -1064,4 +1080,183 @@ extern "C" int64_t icns_rle(const uint8_t *src, int64_t n, int64_t pos,
     if (left != 0 || got != count) return -1;
   }
   return pos;
+}
+
+extern "C" int64_t sun_rle(const uint8_t *src, int64_t n, int64_t total,
+                           uint8_t *out) {
+  int64_t pos = 0, x = 0;
+  while (x < total) {
+    if (pos >= n) return -1;
+    if (src[pos] != 0x80) {
+      out[x++] = src[pos++];
+      continue;
+    }
+    if (pos + 2 > n) return -1;
+    int c = src[pos + 1];
+    if (c == 0) {
+      out[x++] = 0x80;
+      pos += 2;
+      continue;
+    }
+    if (pos + 3 > n) return -1;
+    int64_t k = c + 1 < total - x ? c + 1 : total - x;
+    memset(out + x, src[pos + 2], k);
+    x += k;
+    pos += 3;
+  }
+  return pos;
+}
+
+namespace {
+
+inline int fli16(const uint8_t *p) { return p[0] | (p[1] << 8); }
+inline int64_t fli32(const uint8_t *p) {
+  return (int64_t)(p[0] | (p[1] << 8) | (p[2] << 16) | ((uint32_t)p[3] << 24));
+}
+
+}  // namespace
+
+extern "C" int64_t fli_frame(const uint8_t *src, int64_t n, int64_t width,
+                             int64_t height, uint8_t *out) {
+  const int64_t kOverrun = -2, kUnknown = -3, kBroken = -4;
+  if (n < 4) return 0;
+  const uint8_t *ptr = src;
+  int64_t bytes = n;
+  int64_t framesize = (int32_t)fli32(ptr);
+  if (bytes + (bytes % 2) < framesize) return 0;
+  if (bytes < 8) return kOverrun;
+  if (fli16(ptr + 4) != 0xF1FA) return kUnknown;
+  int chunks = fli16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) return kOverrun;
+    const uint8_t *data = ptr + 6;
+    const uint8_t *lim = ptr + bytes;
+    switch (fli16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2: word deltas
+        int lines = fli16(data);
+        data += 2;
+        int64_t l = 0, y = 0;
+        for (; l < lines && y < height; l++, y++) {
+          uint8_t *row = out + y * width;
+          if (data + 2 > lim) return kOverrun;
+          int packets = fli16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= height) return kOverrun;
+              row = out + y * width;
+            } else {
+              row[width - 1] = (uint8_t)packets;
+            }
+            if (data + 2 > lim) return kOverrun;
+            packets = fli16(data);
+            data += 2;
+          }
+          int p = 0;
+          int64_t x = 0;
+          for (; p < packets; p++) {
+            if (data + 2 > lim) return kOverrun;
+            x += data[0];
+            if (data[1] >= 128) {
+              if (data + 4 > lim) return kOverrun;
+              int64_t i = 256 - data[1];
+              if (x + i + i > width) break;
+              for (int64_t j = 0; j < i; j++) {
+                row[x++] = data[2];
+                row[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              int64_t i = 2 * (int64_t)data[1];
+              if (x + i > width) break;
+              if (data + 2 + i > lim) return kOverrun;
+              memcpy(row + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return kOverrun;
+        break;
+      }
+      case 12: {  // LC: byte deltas
+        int64_t y = fli16(data);
+        int64_t ymax = y + fli16(data + 2);
+        data += 4;
+        for (; y < ymax && y < height; y++) {
+          uint8_t *row = out + y * width;
+          if (data + 1 > lim) return kOverrun;
+          int packets = *data++;
+          int p = 0;
+          int64_t x = 0, i = 0;
+          for (; p < packets; p++, x += i) {
+            if (data + 2 > lim) return kOverrun;
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > width) break;
+              if (data + 3 > lim) return kOverrun;
+              memset(row + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > width) break;
+              if (data + 2 + i > lim) return kOverrun;
+              memcpy(row + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return kOverrun;
+        break;
+      }
+      case 13:  // BLACK
+        memset(out, 0, width * height);
+        break;
+      case 15:  // BRUN
+        for (int64_t y = 0; y < height; y++) {
+          uint8_t *row = out + y * width;
+          int64_t x = 0, i = 0;
+          data += 1;
+          for (; x < width; x += i) {
+            if (data + 2 > lim) return kOverrun;
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > width) break;
+              if (data + i + 1 > lim) return kOverrun;
+              memcpy(row + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > width) break;
+              memset(row + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != width) return kOverrun;
+        }
+        break;
+      case 16:  // COPY
+        if (data + width * height > lim) return ptr - src;
+        memcpy(out, data, width * height);
+        break;
+      default:
+        return kUnknown;
+    }
+    int64_t advance = (int32_t)fli32(ptr);
+    if (advance == 0) return kBroken;
+    if (advance < 0 || advance > bytes) return kOverrun;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return -1;
 }

@@ -437,7 +437,7 @@ UNIDENTIFIED = {"ole_compound_file"}
 def not_read_cases() -> dict:
     """{name: bytes} whose prefix a plugin accepts but whose _open
     Image.open passes over, and no other plugin reads (Pillow:
-    UnidentifiedImageError, the port: NotImplementedError)."""
+    UnidentifiedImageError, the port: ValueError)."""
     return {
         "icns_no_known_slot": icf.icns([(b"TOC ", b""), (b"abcd", b"1234")]),
         "icns_block_size_0": b"icns" + struct.pack(">I", 64) + b"is32" +
@@ -503,7 +503,7 @@ def test_prefix_nothing_reads(name, tmp_path):
     from PIL import UnidentifiedImageError
     with pytest.raises(UnidentifiedImageError):
         pillow_array(NOT_READ[name], tmp_path, name)
-    with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
+    with pytest.raises(ValueError, match="no reader takes this file"):
         port_array(NOT_READ[name], tmp_path, name)
 
 

@@ -464,7 +464,7 @@ REFUSED = refused_cases()
 def not_read_cases() -> dict:
     """{name: bytes} whose prefix a new plugin accepts but which no plugin
     of the port reads (Pillow: UnidentifiedImageError, the port:
-    NotImplementedError)."""
+    ValueError)."""
     return {
         "cur_prefix_no_entries_not_tga": b"\0\0\2\0\0\0" + b"\xff" * 40,
         "ico_prefix_no_entries": b"\0\0\1\0\0\0" + b"\xff" * 40,
@@ -519,7 +519,7 @@ def test_prefix_nothing_reads(name, tmp_path):
     from PIL import UnidentifiedImageError
     with pytest.raises(UnidentifiedImageError):
         pillow_array(NOT_READ[name], tmp_path, name)
-    with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
+    with pytest.raises(ValueError, match="no reader takes this file"):
         port_array(NOT_READ[name], tmp_path, name)
 
 

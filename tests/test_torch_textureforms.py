@@ -381,7 +381,7 @@ REFUSED = refused_cases()
 def not_read_cases() -> dict:
     """{name: bytes} whose prefix a new plugin accepts but whose _open
     Image.open passes over, and no other plugin reads (Pillow:
-    UnidentifiedImageError, the port: NotImplementedError)."""
+    UnidentifiedImageError, the port: ValueError)."""
     dxt = tf.dds(8, 8, DDPF_FOURCC, b"DXT1", body=b"\0" * 32)
     ftex = bytearray(tf.ftex(8, 8, 0, [b"\0" * 32]))
     struct.pack_into("<i", ftex, 28, 4000)        # data past the end
@@ -446,7 +446,7 @@ def test_prefix_nothing_reads(name, tmp_path):
     from PIL import UnidentifiedImageError
     with pytest.raises(UnidentifiedImageError):
         pillow_array(NOT_READ[name], tmp_path, name)
-    with pytest.raises(NotImplementedError, match=r"A6 \(j\)"):
+    with pytest.raises(ValueError, match="no reader takes this file"):
         port_array(NOT_READ[name], tmp_path, name)
 
 
