@@ -250,8 +250,12 @@ Phases, in order; any failure exits non-zero:
      4:4:0, 4:1:1 and lossless JPEG, YCbCr JPEG-in-TIFF, BigTIFF, PPM,
      RLE TGA and QOI frames, PGM and QOI masks); (g) the same on the
      committed capture fixtures/colmap_jp2 (JPEG 2000 frames: JP2 and raw
-     codestreams, reversible and irreversible, sYCC, tiles, layers,
-     precincts, progression orders; grey .j2k masks); (h) the same on the
+     codestreams, reversible and irreversible, sYCC, layers; the odd views
+     in the coding modes Pillow's writer cannot set: 4:2:0 and 4:2:2 sYCC,
+     4:2:0 at an odd offset, bypass with RPCL and precincts, termination
+     on each pass with context reset, vertically causal contexts with
+     segmentation symbols and predictable termination, ROI, all six styles
+     on tiles; grey .j2k masks); (h) the same on the
      committed capture fixtures/colmap_legacy (old-style JPEG TIFF in both
      forms, LZMA and zstd TIFF, planar YCbCr TIFF, SGI RLE at 8 and 16
      bits, PCX, DCX, ICO of a 32-bit BMP entry and CUR frames; SGI, PCX,
@@ -273,7 +277,10 @@ Phases, in order; any failure exits non-zero:
      McIdas, GBR, IMT, XV thumbnail, FITS, FLI, PhotoCD (768 x 512) and
      IPTC variants (fixtures/formats, a 512^2 irreversible frame among
      them; legacy TIFF timed by codec: CCITT, old-style JPEG, ThunderScan,
-     LZMA, zstd; DDS by codec: BC1-BC7, masked RGB, raw) and the (f)-(k)
+     LZMA, zstd; DDS by codec: BC1-BC7, masked RGB, raw; JPEG 2000's coding
+     modes, fixtures/formats/jpeg2000_modes with a 512^2 archival frame
+     and (g)'s odd views, as a row of their own, "jpeg2000_modes") and the
+     (f)-(k)
      captures' frames and masks too, each format's ms per MP held to 500,
      and logs each format's read (open and read) and decode (from bytes)
      apart from the same fastest pass.
@@ -3818,10 +3825,14 @@ def dds_codec(data: bytes) -> str:
 def fixture_format(rel: str, data: bytes) -> str:
     """A committed image's format for phase 14 (c)'s rates: a variant's
     directory under formats/ (uncompressed TGA shares CUR's first bytes),
-    else its signature (a .spi frame is SPIDER); TIFF by its codec, DDS by
-    its BCn codec."""
+    and an odd view of the (g) capture JPEG 2000's coding modes, else its
+    signature (a .spi frame is SPIDER); TIFF by its codec, DDS by its BCn
+    codec."""
     parts = rel.split("/")
-    if parts[0] == "formats" and len(parts) > 2:
+    if parts[:2] == ["colmap_jp2", "images"] and int(
+            parts[2].split("_")[1].split(".")[0]) % 2:
+        fmt = "jpeg2000_modes"
+    elif parts[0] == "formats" and len(parts) > 2:
         fmt = parts[1]
         if fmt == "pcx" and data[:4] == b"\xb1\x68\xde\x3a":
             fmt = "dcx"

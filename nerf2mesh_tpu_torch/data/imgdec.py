@@ -1,7 +1,8 @@
 """numpy wrappers of native/imgdec.cpp, the inner loops of the BMP, TIFF,
 GIF, netpbm, TGA, QOI, SGI, PCX, PSD, ICNS, SUN and FLI readers
 (data/bmp.py, tiff.py, gif.py, netpbm.py, tga.py, qoi.py, sgi.py, pcx.py,
-psd.py, icns.py, sun.py, fli.py), built with g++ at first use
+psd.py, icns.py, sun.py, fli.py) and of Pillow's unpacking of sub-sampled
+JPEG 2000 components (data/jpeg2000.py), built with g++ at first use
 (utils/native.py)."""
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ _SIGNATURES = {
     "icns_rle": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
     "sun_rle": (_I64, [_PTR, _I64, _I64, _PTR]),
     "fli_frame": (_I64, [_PTR, _I64, _I64, _I64, _PTR]),
+    "j2k_subsampled": (None, [_PTR, _I64, _PTR, _PTR, _I64, _I64, _I64, _I64,
+                              _I64, _PTR]),
 }
 
 
@@ -255,3 +258,23 @@ def fli_frame(data, out: np.ndarray) -> int:
     if r < -1:
         raise ValueError(f"FLI: {FLI_ERRORS[r]}")
     return r
+
+
+def j2k_subsampled(planes: list, comps, tiles: list, box: tuple,
+                   nread: int) -> np.ndarray:
+    """Pillow's reading of JPEG 2000 tiles whose components are
+    sub-sampled (native/imgdec.cpp's j2k_subsampled): [H, W, nread] bytes
+    from each component's decoded int32 plane, its [prec, signed, dx, dy]
+    and the tiles' (x0, y0, x1, y1) on the reference grid."""
+    x0, y0, x1, y1 = box
+    flat = np.ascontiguousarray(np.concatenate([p.ravel() for p in planes]),
+                                np.int32)
+    comp = np.array([[*(int(v) for v in c), p.shape[1], p.shape[0],
+                      -(-x0 // int(c[2])), -(-y0 // int(c[3]))]
+                     for c, p in zip(comps, planes)], np.int64)
+    tl = np.array(tiles, np.int64).reshape(-1, 4)
+    out = np.zeros((y1 - y0, x1 - x0, nread), np.uint8)
+    _lib().j2k_subsampled(flat.ctypes.data, len(planes), comp.ctypes.data,
+                          tl.ctypes.data, len(tl), x0, y0, x1 - x0, nread,
+                          out.ctypes.data)
+    return out

@@ -18,21 +18,35 @@ Three layers, each Pillow's or OpenJPEG's rule:
   ``pclr``, ``cmap`` or ``cdef`` box: a palette image reads as its
   indices;
 * the samples: ``native/j2kdec.cpp`` decodes the codestream (the jp2c
-  box's payload) to int32 planes after the DC shift and clamp; each is
-  then kept to 1, 2 or 4 bytes by its precision, as OpenJPEG hands tiles
-  over, and unpacked as Pillow's Jpeg2KDecode.c does: the unpacker chosen
-  by (mode, colour space, component count), its shift to 8 bits (16 for
-  "I;16"), the offset 2^(prec-1) that makes signed samples unsigned, and
-  for sYCC Pillow's fixed-point YCbCr -> RGB (ConvertYCbCr.c's tables).
+  box's payload) to int32 planes after the DC shift and clamp, each
+  component at its own size when sub-sampled; each is then kept to 1, 2
+  or 4 bytes by its precision, as OpenJPEG hands tiles over, and unpacked
+  as Pillow's Jpeg2KDecode.c does: the unpacker chosen by (mode, colour
+  space, component count), its shift to 8 bits (16 for "I;16"), the offset
+  2^(prec-1) that makes signed samples unsigned, and for sYCC Pillow's
+  fixed-point YCbCr -> RGB (ConvertYCbCr.c's tables).
 
-What Pillow or OpenJPEG refuses raises ValueError; a codestream feature
-that Pillow's writer cannot make (and so no test can hold to Pillow)
-raises NotImplementedError naming ROADMAP A6 (j) 1.
+Sub-sampled components, read from Pillow's outputs (its C source is not
+at hand): a codestream of unspecified colour space whose first component
+is full-size and whose second or third is sub-sampled is sYCC; only the
+sRGB and sYCC unpackers (RGB, RGBA, CMYK) take sub-sampled components,
+the others refuse them; and they replicate a sample over dx by dy pixels
+of each tile as if a component's tile held floor(w / dx) by floor(h / dy)
+samples from the tile's corner, stepping through the tile buffer OpenJPEG
+filled with the real ceil(x1 / dx) - ceil(x0 / dx) wide planes: odd sizes
+and offsets shear the rows and shift the later components, and a read
+past the data finds zeros (ROADMAP C's "known defects of the
+reference").
+
+What Pillow or OpenJPEG refuses raises ValueError; HT (Part 15)
+code-blocks, which no writer here makes, raise NotImplementedError naming
+ROADMAP A6 (j) 1.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 
 import numpy as np
@@ -45,7 +59,7 @@ J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 _I64, _PTR = ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
     "j2k_info": (_I64, [_PTR, _I64, _PTR, _I64, _PTR, _I64]),
-    "j2k_decode": (_I64, [_PTR, _I64, _PTR, _PTR, _I64]),
+    "j2k_decode_tiles": (_I64, [_PTR, _I64, _PTR, _PTR, _PTR, _I64]),
 }
 
 # OpenJPEG's colour spaces; a JP2 file's other enumerated spaces, an ICC
@@ -67,6 +81,8 @@ _UNPACKERS = {
     ("RGBA", GRAY, 4): "srgba",
     ("CMYK", CMYK, 4): "srgba",
 }
+# the unpackers that take sub-sampled components
+_SUBSAMPLING = {"srgb", "srgba", "sycc", "sycca"}
 
 
 def _lib():
@@ -83,8 +99,9 @@ def _raise(code: int, err: ctypes.Array) -> None:
 
 def decode_codestream(cs: bytes):
     """((X0, Y0, X1, Y1), per component [prec, signed, dx, dy], the decoded
-    int32 planes [ncomp, Y1 - Y0, X1 - X0]) of a codestream of at most four
-    components (Pillow's decoder refuses more)."""
+    int32 planes, one a component at its own size, [(x0, y0, x1, y1)] of
+    the tiles in the order of their last tile-part) of a codestream of at
+    most four components (Pillow's decoder refuses more)."""
     lib = _lib()
     src = np.frombuffer(cs, np.uint8)
     err = ctypes.create_string_buffer(512)
@@ -99,12 +116,26 @@ def decode_codestream(cs: bytes):
     x0, y0, x1, y1 = (int(v) for v in info[:4])
     comps = info[5:5 + 4 * nc].reshape(nc, 4)
     imgdec.check_size(x1 - x0, y1 - y0, "JPEG 2000")
-    planes = np.zeros((nc, y1 - y0, x1 - x0), np.int32)
-    code = lib.j2k_decode(src.ctypes.data, src.size, planes.ctypes.data, err,
-                          len(err))
+    shapes = [(-(-y1 // int(dy)) - -(-y0 // int(dy)),
+               -(-x1 // int(dx)) - -(-x0 // int(dx)))
+              for _, _, dx, dy in comps]
+    flat = np.zeros(sum(h * w for h, w in shapes), np.int32)
+    tw, th, tx0, ty0 = struct.unpack_from(">IIII", cs, 24)
+    ntx, nty = -(-(x1 - tx0) // tw), -(-(y1 - ty0) // th)
+    order = np.full(ntx * nty, -1, np.int32)
+    code = lib.j2k_decode_tiles(src.ctypes.data, src.size, flat.ctypes.data,
+                                order.ctypes.data, err, len(err))
     if code < 0:
         _raise(code, err)
-    return (x0, y0, x1, y1), comps, planes
+    planes, at = [], 0
+    for h, w in shapes:
+        planes.append(flat[at:at + h * w].reshape(h, w))
+        at += h * w
+    tiles = [(max(tx0 + t % ntx * tw, x0), max(ty0 + t // ntx * th, y0),
+              min(tx0 + (t % ntx + 1) * tw, x1),
+              min(ty0 + (t // ntx + 1) * th, y1))
+             for t in order.tolist() if t >= 0]
+    return (x0, y0, x1, y1), comps, planes, tiles
 
 
 # ------------------------------------------------------------ Pillow's mode
@@ -290,12 +321,16 @@ def _sample(plane: np.ndarray, prec: int, sgnd: int, bits: int
     return (x & ((1 << bits) - 1)).astype(dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _ycc_tables():
     """ConvertYCbCr.c's R_Cr, G_Cb, G_Cr and B_Cb: (int)(k * 64 * (i - 128)
     + 0.5) (SCALE 6)."""
     i = np.arange(256) - 128
-    return [np.trunc(i * k * 64 + 0.5).astype(np.int32)
-            for k in (1.40200, -0.34414, -0.71414, 1.77200)]
+    tables = [np.trunc(i * k * 64 + 0.5).astype(np.int32)
+              for k in (1.40200, -0.34414, -0.71414, 1.77200)]
+    for t in tables:        # shared by every call
+        t.setflags(write=False)
+    return tables
 
 
 def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
@@ -332,6 +367,26 @@ def _unpack(kind: str, mode: str, comps, planes) -> np.ndarray:
     return px
 
 
+def _unpack_tiles(kind: str, mode: str, comps, planes, box, tiles
+                  ) -> np.ndarray:
+    """The sRGB or sYCC unpacker of Jpeg2KDecode.c tile by tile, when a
+    component is sub-sampled (imgdec.j2k_subsampled: each tile's samples
+    in a zeroed buffer as OpenJPEG's opj_decode_tile_data writes them, read
+    back at Pillow's offsets); a tile the codestream lacks stays black."""
+    x0, y0, x1, y1 = box
+    n = 4 if kind in ("srgba", "sycca") else 3
+    out = imgdec.j2k_subsampled(planes, comps, tiles, box, n)
+    if kind in ("sycc", "sycca"):
+        out[..., :3] = ycbcr_to_rgb(out[..., :3])
+    if mode == "RGBA" and n == 3:
+        out = np.concatenate([out, np.full_like(out[..., :1], 255)], -1)
+    done = np.zeros(out.shape[:2], bool)
+    for tx0, ty0, tx1, ty1 in tiles:
+        done[ty0 - y0:ty1 - y0, tx0 - x0:tx1 - x0] = True
+    out[~done] = 0
+    return out
+
+
 def decode_jpeg2000(data: bytes) -> np.ndarray:
     if data[:4] == J2K_SIGNATURE:
         size, mode = _codestream_mode(data, 4)
@@ -342,16 +397,26 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
     else:
         raise ValueError("not a JPEG 2000 file")
     imgdec.check_size(size[0], size[1], "JPEG 2000")
-    (x0, y0, x1, y1), comps, planes = decode_codestream(cs)
+    box, comps, planes, tiles = decode_codestream(cs)
     nc = len(comps)
+    sub = [bool(c[2] != 1 or c[3] != 1) for c in comps]
     if space == UNSPECIFIED:
-        space = GRAY if nc <= 2 else SRGB
+        if nc >= 3 and not sub[0] and (sub[1] or sub[2]):
+            space = SYCC      # Pillow's guess: chroma sub-sampled
+        else:
+            space = GRAY if nc <= 2 else SRGB
     kind = _UNPACKERS.get((mode, space, nc))
     if kind is None:
         raise ValueError(f"JPEG 2000 mode {mode} with {nc} components in "
                          f"colour space {space}: Pillow has no unpacker")
+    if any(sub) and kind not in _SUBSAMPLING:
+        raise ValueError(f"JPEG 2000 sub-sampled components in mode {mode}: "
+                         f"Pillow's unpacker for it takes none")
+    x0, y0, x1, y1 = box
     if (x1 - x0, y1 - y0) != tuple(size):
         raise ValueError(f"JPEG 2000 codestream of {x1 - x0}x{y1 - y0} in a "
                          f"file whose header says {size[0]}x{size[1]} "
                          f"(Pillow reads none)")
+    if any(sub):
+        return _unpack_tiles(kind, mode, comps, planes, box, tiles)
     return np.ascontiguousarray(_unpack(kind, mode, comps, planes))

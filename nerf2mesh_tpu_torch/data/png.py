@@ -29,8 +29,9 @@ hands it on to the next, so IM, IMT, IPTC, PCD and SPIDER, which have no
 signature, and TGA, whose header test is loose, read only what no earlier
 plugin takes; BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF and OLE compound files
 raise ValueError as Pillow cannot load them here (data/unloadable.py), and
-so does a file no reader takes (Pillow: UnidentifiedImageError); AVIF
-alone raises NotImplementedError (ROADMAP A6 (j) 10).  ``decode_image`` is
+so does a file no reader takes (Pillow: UnidentifiedImageError); only
+AVIF (ROADMAP A6 (j), item 10) and JPEG 2000's HT code-blocks (item 1)
+still end in NotImplementedError.  ``decode_image`` is
 the same on bytes (IPTC reads its payload through it);
 ``write_image`` uses Pillow where it is importable (its files are the JAX
 package's, byte for byte) and this codec otherwise.
@@ -218,8 +219,8 @@ def read_bytes(path: str) -> bytes:
 
 def read_image(path: str) -> np.ndarray:
     """np.asarray(Image.open(path)) of any image Pillow reads here but AVIF
-    (ROADMAP A6 (j) 10), without Pillow; ValueError for what Pillow refuses
-    or does not identify."""
+    and JPEG 2000's HT code-blocks (ROADMAP A6 (j), items 10 and 1), without
+    Pillow; ValueError for what Pillow refuses or does not identify."""
     return decode_image(read_bytes(path), path)
 
 

@@ -1260,3 +1260,74 @@ extern "C" int64_t fli_frame(const uint8_t *src, int64_t n, int64_t width,
   }
   return -1;
 }
+
+// JPEG 2000 (data/jpeg2000.py): Pillow's Jpeg2KDecode.c sRGB and sYCC
+// unpackers when a component is sub-sampled, tile by tile.  planes: the
+// components' decoded int32 planes one after another; comp: per component
+// [prec, signed, dx, dy, plane width, plane height, plane x0 = ceil(X0 /
+// dx), plane y0]; tiles: [x0, y0, x1, y1] a tile; out: the image's H x W x
+// nread bytes.  A tile's samples go into a zeroed buffer of w * h *
+// sum(csiz) bytes as OpenJPEG's opj_decode_tile_data writes them (a
+// component's tile plane after another, little-endian words of csiz = 1, 2
+// or 4 bytes by precision) and are read back as Pillow reads them: channel
+// n's pixel (x, y) of the w x h tile at byte sum_{m<n} csiz_m (w / dx_m)
+// (h / dy_m) + csiz_n ((y / dy_n) (w / dx_n) + x / dx_n), then j2ku_shift
+// to 8 bits.
+extern "C" void j2k_subsampled(const int32_t *planes, int64_t ncomp, const int64_t *comp,
+                               const int64_t *tiles, int64_t ntiles, int64_t X0, int64_t Y0,
+                               int64_t W, int64_t nread, uint8_t *out) {
+    std::vector<const int32_t *> plane(ncomp);
+    std::vector<int64_t> csiz(ncomp);
+    int64_t total = 0;
+    const int32_t *at = planes;
+    for (int64_t c = 0; c < ncomp; ++c) {
+        const int64_t *k = comp + 8 * c;
+        plane[c] = at;
+        at += k[4] * k[5];
+        csiz[c] = (k[0] + 7) >> 3;
+        if (csiz[c] == 3) csiz[c] = 4;
+        total += csiz[c];
+    }
+    std::vector<uint8_t> buf;
+    for (int64_t t = 0; t < ntiles; ++t) {
+        const int64_t tx0 = tiles[4 * t], ty0 = tiles[4 * t + 1];
+        const int64_t tx1 = tiles[4 * t + 2], ty1 = tiles[4 * t + 3];
+        const int64_t w = tx1 - tx0, h = ty1 - ty0;
+        buf.assign(size_t(w * h * total), 0);
+        size_t pos = 0;
+        for (int64_t c = 0; c < ncomp; ++c) {
+            const int64_t *k = comp + 8 * c;
+            const int64_t dx = k[2], dy = k[3], pw = k[4], px0 = k[6], py0 = k[7];
+            const int64_t cx0 = (tx0 + dx - 1) / dx, cx1 = (tx1 + dx - 1) / dx;
+            const int64_t cy0 = (ty0 + dy - 1) / dy, cy1 = (ty1 + dy - 1) / dy;
+            for (int64_t y = cy0; y < cy1; ++y)
+                for (int64_t x = cx0; x < cx1; ++x) {
+                    uint32_t v = uint32_t(plane[c][(y - py0) * pw + (x - px0)]);
+                    for (int64_t b = 0; b < csiz[c]; ++b) buf[pos++] = uint8_t(v >> (8 * b));
+                }
+        }
+        int64_t off = 0;
+        for (int64_t n = 0; n < nread; ++n) {
+            const int64_t *k = comp + 8 * n;
+            const int prec = int(k[0]);
+            const int64_t dx = k[2], dy = k[3], stride = w / dx;
+            const int shift = 8 - prec;
+            uint32_t offset = k[1] ? 1u << (prec - 1) : 0;
+            if (shift < 0) offset += 1u << (-shift - 1);
+            for (int64_t y = 0; y < h; ++y) {
+                uint8_t *row = out + ((ty0 - Y0 + y) * W + (tx0 - X0)) * nread + n;
+                const uint8_t *src = buf.data() + off + csiz[n] * ((y / dy) * stride);
+                for (int64_t x = 0; x < w; ++x) {
+                    const uint8_t *p = src + csiz[n] * (x / dx);
+                    uint32_t word = p[0];
+                    if (csiz[n] >= 2) word |= uint32_t(p[1]) << 8;
+                    if (csiz[n] == 4) word |= uint32_t(p[2]) << 16 | uint32_t(p[3]) << 24;
+                    uint32_t v = offset + word;
+                    v = shift < 0 ? v >> -shift : v << shift;
+                    row[x * nread] = uint8_t(v);
+                }
+            }
+            off += csiz[n] * stride * (h / dy);
+        }
+    }
+}

@@ -1,16 +1,22 @@
 // A JPEG 2000 (ITU-T T.800 | ISO/IEC 15444-1) codestream decoder: the
 // samples OpenJPEG 2.5.4 gives Pillow's JPEG 2000 plugin, tile by tile,
-// before Pillow's unpacking (data/jpeg2000.py does that in numpy).
+// before Pillow's unpacking (data/jpeg2000.py does that in numpy, and
+// native/imgdec.cpp's j2k_subsampled for sub-sampled components).
 //
-// Covered: the main and tile-part headers (SIZ, COD/COC, QCD/QCC, POC,
-// COM, TLM, PLM, PLT, CRG, PPM/PPT, SOT/SOD, SOP/EPH, EOC; unknown markers
-// skipped two bytes at a time, as OpenJPEG does), image and tile offsets, any
-// number of tiles and tile-parts, the five progression orders and POC
-// changes, precincts, quality layers, tag-tree packet headers, the MQ
-// decoder with the significance, refinement and cleanup passes of EBCOT
-// tier 1 at any code-block size, no / scalar derived / scalar expounded
-// quantization, the integer 5/3 and the float 9/7 inverse wavelets, RCT
-// and ICT, the DC level shift and clamping.
+// Covered: the main and tile-part headers (SIZ, COD/COC, QCD/QCC, RGN,
+// POC, COM, TLM, PLM, PLT, CRG, PPM/PPT, SOP/EPH, CAP and CPF, Part 2's
+// MCT, MCC, MCO and CBD, SOT/SOD, EOC; unknown markers skipped two bytes
+// at a time, as OpenJPEG does), image and tile offsets, sub-sampled
+// components, any number of tiles and tile-parts, the five progression
+// orders and POC changes, precincts, quality layers, tag-tree packet
+// headers with a codeword segment list a code-block, the MQ and raw
+// (bypass) decoders with the significance, refinement and cleanup passes of
+// EBCOT tier 1 at any code-block size and under every code-block style but
+// HT (bypass, context reset, termination on each pass, vertically causal
+// contexts, predictable termination, segmentation symbols), ROI max-shift,
+// no / scalar derived / scalar expounded quantization, the integer 5/3 and
+// the float 9/7 inverse wavelets, RCT and ICT, the DC level shift and
+// clamping.
 //
 // Where OpenJPEG's arithmetic sets bits, it is followed:
 // * tier 1 keeps one fractional bit: a coefficient that becomes
@@ -27,29 +33,45 @@
 //   mirrored at the ends; a one-sample signal is left as it is; rows
 //   first, then columns, one resolution at a time;
 // * the ICT is opj_mct_decode_real's (1.402f, 0.34413f, 0.71414f,
-//   1.772f), the DC shift rounds floats with lrintf and clamps in 64 bits.
+//   1.772f), the DC shift rounds floats with lrintf and clamps in 64 bits;
+// * each codeword segment is decoded on its own bytes followed by two
+//   0xFF bytes (opj_mqc_init_dec's artificial marker), so a segment that
+//   runs dry reads 1 bits; a bypass segment is raw when its first pass is a
+//   significance or refinement pass and bpno_plus_one <= numbps - 4, with
+//   numbps the bit-planes below the ROI shift; the segmentation symbols are
+//   decoded and not checked; an ROI coefficient is one whose magnitude,
+//   with the fractional bit, is at least 2^SPrgn, and is shifted down before
+//   the dequantization;
+// * the DC level shift is SIZ's 2^(prec - 1) unless an MCO segment set it
+//   (zero, or an MCC offset array's values); a CBD segment changes the
+//   precision and sign the clamp and the 9/7 steps use, not the shift; the
+//   colour transform of components with different wavelets reads each
+//   one's words as component 0's type, as OpenJPEG's single buffer does.
 // Build with -ffp-contract=off (utils/native.py does) so that no FMA joins
 // a multiply and an add, and -pthread: tiles, or else a tile's code-blocks
 // and components, decode on a pool of threads kept for the process; each
 // job writes its own samples, so the bits do not depend on the threads.
 //
-// Not ported (they raise "not ported"): code-block styles other than the
-// default (bypass, reset, termall, vertically causal, predictable
-// termination, segmentation symbols, HT), ROI (RGN), subsampled
-// components, Part 2 and Part 15 markers and the Part 2 multiple component
-// transform.
+// Not ported (it raises "not ported"): HT (Part 15) code-blocks, for want
+// of Part 15's VLC tables.
 //
 // C interface (ctypes):
 //   int64_t j2k_info(const uint8_t *cs, int64_t n, int64_t *info,
 //                    int64_t cap, char *err, int64_t errlen)
 //     reads the main header; info = [X0, Y0, X1, Y1, ncomp, then per
-//     component prec, signed, dx, dy, as many as cap holds]; returns
-//     ncomp, or -1 (malformed: OpenJPEG refuses it) / -2 (not ported)
-//     with a message in err.
+//     component prec, signed, dx, dy (after CBD), as many as cap holds];
+//     returns ncomp, or -1 (malformed: OpenJPEG refuses it) / -2 (not
+//     ported) with a message in err.
+//   int64_t j2k_decode_tiles(const uint8_t *cs, int64_t n, int32_t *out,
+//                            int32_t *order, char *err, int64_t errlen)
+//     decodes every tile into out: per component, in order, a plane of
+//     (ceil(Y1 / dy) - ceil(Y0 / dy)) x (ceil(X1 / dx) - ceil(X0 / dx))
+//     int32 samples (after the DC shift and clamp); order (one int32 a
+//     tile of the grid) gets the tiles' indices in the order of their last
+//     tile-part, then -1s; 0, -1 or -2 as above.
 //   int64_t j2k_decode(const uint8_t *cs, int64_t n, int32_t *out,
 //                      char *err, int64_t errlen)
-//     decodes every tile into out, ncomp planes of (Y1 - Y0) x (X1 - X0)
-//     int32 samples (after the DC shift and clamp); 0, -1 or -2 as above.
+//     j2k_decode_tiles without the order.
 
 #include <algorithm>
 #include <atomic>
@@ -117,17 +139,32 @@ struct Poc {
     int rs, cs, lye, re, ce, prg;
 };
 
+// Part 2's MCT records (Imct, element type, payload) and MCC records
+// (opj_simple_mcc_decorrelation_data_t: the decorrelation and offset
+// arrays as indices into the MCT records, or -1)
+struct MctRecord {
+    int index, etype;
+    std::vector<uint8_t> data;
+};
+struct MccRecord {
+    int index = 0, ncomp = 0, deco = -1, offset = -1;
+};
+
 struct Params {
     int prog = 0, layers = 1, mct = 0, csty = 0;
     std::vector<Coding> cod;
     std::vector<Quant> q;
     std::vector<Poc> poc;
+    std::vector<int> roi;          // RGN's SPrgn a component
+    std::vector<int64_t> dc;       // the DC level shift a component
+    std::vector<MctRecord> mcts;
+    std::vector<MccRecord> mccs;
 };
 
 struct Header {
     int64_t X1, Y1, X0, Y0, TW, TH, TX0, TY0;
     int nc;
-    std::vector<int> prec, sgnd, dx, dy;
+    std::vector<int> prec, sgnd, dx, dy;  // after CBD
     int ntx, nty;
     Params main;
     bool has_cod = false, has_qcd = false;
@@ -145,8 +182,9 @@ void read_spcod(Reader &r, Coding &c, bool precincts) {
     if (c.xcb > 10 || c.ycb > 10 || c.xcb + c.ycb > 12)
         bad("JPEG 2000 COD/COC: code-block size out of range");
     c.style = r.u8();
+    if (c.style & 0x80) bad("JPEG 2000 COD/COC: mixed HT code-block style");
     c.qmfbid = r.u8();
-    if (c.qmfbid > 1) todo(std::string("JPEG 2000 wavelet kernel other than 9/7 and 5/3") + kNotPorted);
+    if (c.qmfbid > 1) bad("JPEG 2000 COD/COC: wavelet kernel other than 9/7 and 5/3");
     for (int i = 0; i <= c.levels; ++i) {
         if (precincts) {
             int v = r.u8();
@@ -157,15 +195,9 @@ void read_spcod(Reader &r, Coding &c, bool precincts) {
             c.ppx[i] = c.ppy[i] = 15;
         }
     }
-    if (c.style) {
-        std::string what = (c.style & 0x40) ? "HT (Part 15) code-blocks" :
-            (c.style & 1) ? "selective arithmetic coding bypass" :
-            (c.style & 2) ? "context reset on each pass" :
-            (c.style & 4) ? "termination on each pass" :
-            (c.style & 8) ? "vertically causal context" :
-            (c.style & 16) ? "predictable termination" : "segmentation symbols";
-        todo("JPEG 2000 code-block style " + what + kNotPorted);
-    }
+    if (c.style & 0x40)
+        todo(std::string("JPEG 2000 HT (Part 15) code-blocks: this decoder has no Part 15 "
+                         "VLC tables") + kNotPorted);
 }
 
 void read_sqcd(Reader &r, int64_t len, Quant &q) {
@@ -229,6 +261,133 @@ bool known_marker(uint32_t m) {
     return false;
 }
 
+// ------------------------------------------------------ Part 2 markers
+// OpenJPEG's readers (opj_j2k_read_mct/mcc/mco/cbd): what they refuse is
+// malformed, what they "cannot take in charge" they skip; the one effect
+// on a codestream whose COD allows no Part 2 transform is on the DC level
+// shift (MCO) and on the components' precision and sign (CBD).
+const int kMctElementSize[4] = {2, 4, 4, 8};
+
+void read_mct(Reader &r, int64_t len, Params &p) {
+    if (len < 2) bad("JPEG 2000 MCT: too short");
+    if (r.u16() != 0) return;  // Zmct: multiple MCT records
+    if (len <= 6) bad("JPEG 2000 MCT: too short");
+    uint32_t imct = r.u16();
+    int index = int(imct & 0xff);
+    MctRecord *rec = nullptr;
+    for (auto &m : p.mcts)
+        if (m.index == index) { rec = &m; break; }
+    if (!rec) { p.mcts.push_back(MctRecord{index, 0, {}}); rec = &p.mcts.back(); }
+    rec->etype = int((imct >> 10) & 3);
+    rec->data.clear();
+    if (r.u16() != 0) return;  // Ymct: multiple MCT markers
+    rec->data.assign(r.d + r.pos, r.d + r.pos + (len - 6));
+}
+
+void read_mcc(Reader &r, int64_t len, Params &p) {
+    if (len < 2) bad("JPEG 2000 MCC: too short");
+    if (r.u16() != 0) return;  // Zmcc: data spanning several MCC
+    if (len < 7) bad("JPEG 2000 MCC: too short");
+    int index = int(r.u8());
+    size_t at = p.mccs.size();
+    for (size_t i = 0; i < p.mccs.size(); ++i)
+        if (p.mccs[i].index == index) { at = i; break; }
+    bool fresh = at == p.mccs.size();
+    MccRecord rec = fresh ? MccRecord() : p.mccs[at];
+    rec.index = index;
+    auto keep = [&]() {  // the record as OpenJPEG leaves it on a warning
+        if (!fresh) p.mccs[at] = rec;
+    };
+    if (r.u16() != 0) { keep(); return; }  // Ymcc
+    uint32_t ncoll = r.u16();
+    if (ncoll > 1) { keep(); return; }
+    int64_t left = len - 7;
+    for (uint32_t k = 0; k < ncoll; ++k) {
+        if (left < 3) bad("JPEG 2000 MCC: too short");
+        if (r.u8() != 1) { keep(); return; }  // not an array decorrelation
+        uint32_t n = r.u16();
+        left -= 3;
+        int nb = 1 + int(n >> 15);
+        rec.ncomp = int(n & 0x7fff);
+        if (left < int64_t(nb) * rec.ncomp + 2) bad("JPEG 2000 MCC: too short");
+        left -= int64_t(nb) * rec.ncomp + 2;
+        for (int j = 0; j < rec.ncomp; ++j)
+            if ((nb == 1 ? r.u8() : r.u16()) != uint32_t(j)) { keep(); return; }
+        uint32_t n2 = r.u16();
+        nb = 1 + int(n2 >> 15);
+        if (int(n2 & 0x7fff) != rec.ncomp) { keep(); return; }
+        if (left < int64_t(nb) * rec.ncomp + 3) bad("JPEG 2000 MCC: too short");
+        left -= int64_t(nb) * rec.ncomp + 3;
+        for (int j = 0; j < rec.ncomp; ++j)
+            if ((nb == 1 ? r.u8() : r.u16()) != uint32_t(j)) { keep(); return; }
+        uint32_t t = r.u8() << 16;
+        t |= r.u16();
+        rec.deco = rec.offset = -1;
+        auto find = [&](int idx) {
+            for (size_t i = 0; i < p.mcts.size(); ++i)
+                if (p.mcts[i].index == idx) return int(i);
+            bad("JPEG 2000 MCC: no MCT record of its index");
+        };
+        if (t & 0xff) rec.deco = find(int(t & 0xff));
+        if ((t >> 8) & 0xff) rec.offset = find(int((t >> 8) & 0xff));
+    }
+    if (left != 0) bad("JPEG 2000 MCC: bad length");
+    if (fresh) p.mccs.push_back(rec);
+    else p.mccs[at] = rec;
+}
+
+// an MCT record's elements as int32 (j2k_mct_read_functions_to_int32:
+// int16 read unsigned, floats truncated as x86's cvttss2si)
+int32_t mct_element(const MctRecord &m, size_t i) {
+    const uint8_t *b = m.data.data() + i * kMctElementSize[m.etype];
+    uint64_t v = 0;
+    for (int k = 0; k < kMctElementSize[m.etype]; ++k) v = (v << 8) | b[k];
+    auto trunc = [](double x) -> int32_t {
+        if (!(x > -2147483649.0 && x < 2147483648.0)) return INT32_MIN;
+        return int32_t(x);
+    };
+    switch (m.etype) {
+    case 0: return int32_t(v);
+    case 1: return int32_t(uint32_t(v));
+    case 2: { uint32_t u = uint32_t(v); float f; memcpy(&f, &u, 4); return trunc(f); }
+    default: { double d; memcpy(&d, &v, 8); return trunc(d); }
+    }
+}
+
+void read_mco(Reader &r, int64_t len, const Header &h, Params &p) {
+    if (len < 1) bad("JPEG 2000 MCO: too short");
+    int stages = int(r.u8());
+    if (stages > 1) return;
+    if (len != stages + 1) bad("JPEG 2000 MCO: bad length");
+    std::fill(p.dc.begin(), p.dc.end(), 0);
+    for (int i = 0; i < stages; ++i) {
+        int index = int(r.u8());
+        // opj_j2k_add_mct compares the first MCC record's index only
+        if (p.mccs.empty() || p.mccs[0].index != index) continue;
+        const MccRecord &rec = p.mccs[0];
+        if (rec.ncomp != h.nc) continue;
+        if (rec.deco >= 0 && p.mcts[rec.deco].data.size() !=
+                                 size_t(kMctElementSize[p.mcts[rec.deco].etype]) * h.nc * h.nc)
+            bad("JPEG 2000 MCO: decorrelation array of the wrong size");
+        if (rec.offset >= 0) {
+            const MctRecord &m = p.mcts[rec.offset];
+            if (m.data.size() != size_t(kMctElementSize[m.etype]) * h.nc)
+                bad("JPEG 2000 MCO: offset array of the wrong size");
+            for (int c = 0; c < h.nc; ++c) p.dc[c] = mct_element(m, c);
+        }
+    }
+}
+
+void read_cbd(Reader &r, int64_t len, Header &h) {
+    if (len != h.nc + 2 || int(r.u16()) != h.nc) bad("JPEG 2000 CBD: bad length or count");
+    for (int c = 0; c < h.nc; ++c) {
+        int v = r.u8();
+        h.sgnd[c] = v >> 7;
+        h.prec[c] = (v & 0x7f) + 1;
+        if (h.prec[c] > 31) bad("JPEG 2000 CBD: precision above 31 bits");
+    }
+}
+
 // Marker segments allowed in a main or a tile-part header. `first`: the
 // tile's first tile-part (COD, COC, QCD, QCC, RGN only there).
 void header_segment(Reader &r, uint32_t m, Header &h, Params &p, bool tile,
@@ -248,7 +407,7 @@ void header_segment(Reader &r, uint32_t m, Header &h, Params &p, bool tile,
         p.layers = r.u16();
         if (p.layers == 0) bad("JPEG 2000 COD: no quality layers");
         p.mct = r.u8();
-        if (p.mct > 1) todo(std::string("JPEG 2000 Part 2 multiple component transform") + kNotPorted);
+        if (p.mct > 1) bad("JPEG 2000 COD: invalid multiple component transformation");
         p.csty = scod & 6;  // SOP, EPH
         Coding c;
         read_spcod(r, c, scod & 1);
@@ -284,18 +443,35 @@ void header_segment(Reader &r, uint32_t m, Header &h, Params &p, bool tile,
         poc_seen = true;
         read_poc(r, len - 2, h.nc, p.poc);
         break;
-    case 0xff5e:
-        todo(std::string("JPEG 2000 region of interest (RGN)") + kNotPorted);
+    case 0xff5e: {  // RGN: Crgn, Srgn, SPrgn
+        if (len - 2 != (h.nc < 257 ? 3 : 4)) bad("JPEG 2000 RGN: bad length");
+        int ci = comp_index(r, h.nc);
+        r.u8();
+        p.roi[ci] = r.u8();
+        break;
+    }
     case 0xff60:  // PPM: Zppm, then (Nppm, the headers) a tile-part
         if (tile) bad("JPEG 2000 PPM in a tile-part header");
         r.u8();
         h.ppm.insert(h.ppm.end(), r.d + r.pos, r.d + end);
         h.has_ppm = true;
         break;
-    case 0xff50: case 0xff59:
-        todo(std::string("JPEG 2000 Part 15 (HTJ2K) capabilities") + kNotPorted);
-    case 0xff74: case 0xff75: case 0xff77: case 0xff78:
-        todo(std::string("JPEG 2000 Part 2 component transform markers") + kNotPorted);
+    case 0xff50: case 0xff59:  // CAP, CPF: read and not used
+        if (tile) bad("JPEG 2000 CAP/CPF in a tile-part header");
+        break;
+    case 0xff74:
+        read_mct(r, len - 2, p);
+        break;
+    case 0xff75:
+        read_mcc(r, len - 2, p);
+        break;
+    case 0xff77:
+        read_mco(r, len - 2, h, p);
+        break;
+    case 0xff78:
+        if (tile) bad("JPEG 2000 CBD in a tile-part header");
+        read_cbd(r, len - 2, h);
+        break;
     default:  // TLM, PLM, PLT, CRG, COM: informative
         break;
     }
@@ -338,6 +514,9 @@ void read_main_header(const uint8_t *d, int64_t n, Header &h, int64_t &pos) {
     if (int64_t(h.ntx) * h.nty > 65535) bad("JPEG 2000 SIZ: more than 65535 tiles");
     h.main.cod.assign(h.nc, Coding());
     h.main.q.assign(h.nc, Quant());
+    h.main.roi.assign(h.nc, 0);
+    for (int i = 0; i < h.nc; ++i)  // SIZ's shift: a CBD after it leaves it
+        h.main.dc.push_back(h.sgnd[i] ? 0 : int64_t(1) << (h.prec[i] - 1));
     std::vector<char> coc(h.nc, 0), qcc(h.nc, 0);
     bool poc_seen = false;
     uint32_t m = r.u16();
@@ -352,9 +531,6 @@ void read_main_header(const uint8_t *d, int64_t n, Header &h, int64_t &pos) {
     }
     if (!h.has_cod) bad("JPEG 2000: no COD marker in the main header");
     if (!h.has_qcd) bad("JPEG 2000: no QCD marker in the main header");
-    for (int i = 0; i < h.nc; ++i)
-        if (h.dx[i] != 1 || h.dy[i] != 1)
-            todo(std::string("JPEG 2000 sub-sampled components") + kNotPorted);
     pos = r.pos - 2;  // at the first SOT
 }
 
@@ -428,13 +604,31 @@ int tgt_decode(Bio &bio, TagTree &t, int leaf, int threshold) {
     return t.val[node] < threshold;
 }
 
+// a codeword segment: passes at most (opj_t2_init_seg), and so far
+struct Seg {
+    int maxpasses = 0, numpasses = 0, newpasses = 0;
+    uint32_t len = 0, newlen = 0;
+};
+
 struct Cblk {
     int64_t x0, y0, x1, y1;
     int numbps = 0, lblock = 3, npasses = 0, newpasses = 0;
-    uint32_t newlen = 0;
     bool seen = false;
+    std::vector<Seg> segs;   // segs.size() is OpenJPEG's numsegs
+    std::vector<Seg> head;   // the segments this packet's header opened
+    int headseg = 0;         // the index of head[0]
     std::vector<std::pair<int64_t, uint32_t>> chunks;
 };
+
+// opj_t2_init_seg: one pass a segment under termall; under bypass 10,
+// then 2 and 1 by turns; else 109
+Seg new_seg(int style, const Seg *prev) {
+    Seg s;
+    if (style & 4) s.maxpasses = 1;
+    else if (style & 1) s.maxpasses = !prev ? 10 : (prev->maxpasses == 1 || prev->maxpasses == 10) ? 2 : 1;
+    else s.maxpasses = 109;
+    return s;
+}
 
 struct Precinct {
     int cw = 0, ch = 0;
@@ -603,8 +797,42 @@ J2K_INLINE int mq_decode(MqRegs &m, uint8_t &sx) {
     return d;
 }
 
+// The raw (bypass) decoder's registers: opj_mqc_raw_decode, whose
+// segment is also followed by two 0xFF bytes
+struct RawRegs {
+    const uint8_t *bp;
+    uint32_t c;
+    int ct;
+};
+
+J2K_INLINE uint32_t raw_decode(RawRegs &m) {
+    if (m.ct == 0) {
+        if (m.c == 0xff) {
+            if (*m.bp > 0x8f) {
+                m.c = 0xff;
+                m.ct = 8;
+            } else {
+                m.c = *m.bp++;
+                m.ct = 7;
+            }
+        } else {
+            m.c = *m.bp++;
+            m.ct = 8;
+        }
+    }
+    --m.ct;
+    return (m.c >> m.ct) & 1;
+}
+
+// a code-block's codeword segments: their bytes one after another
+struct SegSpan {
+    uint32_t len;
+    int passes;
+};
+
 struct T1 {
     int w, h, stride;  // the flags' and the columns' rows: w and a border
+    bool vsc = false;  // vertically causal: a stripe's last row sees no row below
     std::vector<uint32_t> flags;
     std::vector<int32_t> data;
     // per stripe column (with a border all round): bit 0 when one of its
@@ -613,30 +841,47 @@ struct T1 {
     std::vector<uint8_t> cols;
     uint8_t ctx[19];  // 2 * state + MPS, an index into kMq
     MqRegs mq;
+    RawRegs raw;
 
     uint32_t *flag(int x, int y) { return &flags[size_t(y + 1) * stride + x + 1]; }
     uint8_t *col(int x, int y) { return &cols[size_t((y >> 2) + 1) * stride + x + 1]; }
 
-    // decodes the sign of the coefficient at (x, y) and makes it
-    // significant with magnitude oph
-    J2K_INLINE void sign(MqRegs &m, int x, int y, uint32_t *p, int32_t *d, int32_t oph) {
+    void reset_contexts() {
+        memset(ctx, 0, sizeof ctx);
+        ctx[18] = 2 * 46;  // uniform
+        ctx[17] = 2 * 3;   // run length
+        ctx[0] = 2 * 4;    // zero coding, no significant neighbour
+    }
+
+    // makes the coefficient at (x, y) significant with magnitude oph and
+    // sign neg; under vsc the first row of a stripe leaves the row above
+    // (the previous stripe's last) unaware of it
+    J2K_INLINE void set_sig(int x, int y, uint32_t *p, int32_t *d, int32_t oph, int neg) {
         const int st = stride;
-        int lu = kSc[sc_index(*p)];
-        int neg = mq_decode(m, ctx[lu & 31]) ^ (lu >> 7);
         *d = neg ? -oph : oph;
         *p |= F_SIG;
-        p[-st - 1] |= F_SE;
-        p[-st] |= F_S | (neg ? F_SSGN : 0);
-        p[-st + 1] |= F_SW;
         p[-1] |= F_E | (neg ? F_ESGN : 0);
         p[1] |= F_W | (neg ? F_WSGN : 0);
         p[st - 1] |= F_NE;
         p[st] |= F_N | (neg ? F_NSGN : 0);
         p[st + 1] |= F_NW;
-        uint8_t *c0 = col(x, y - 1), *c1 = col(x, y + 1);
-        c0[-1] |= 1; c0[0] |= 1; c0[1] |= 1;
+        uint8_t *c1 = col(x, y + 1);
         c1[-1] |= 1; c1[0] |= 1; c1[1] |= 1;
+        if (!(vsc && (y & 3) == 0)) {
+            p[-st - 1] |= F_SE;
+            p[-st] |= F_S | (neg ? F_SSGN : 0);
+            p[-st + 1] |= F_SW;
+            uint8_t *c0 = col(x, y - 1);
+            c0[-1] |= 1; c0[0] |= 1; c0[1] |= 1;
+        }
         *col(x, y) |= 3;
+    }
+
+    // decodes the sign of the coefficient at (x, y) and makes it
+    // significant with magnitude oph
+    J2K_INLINE void sign(MqRegs &m, int x, int y, uint32_t *p, int32_t *d, int32_t oph) {
+        int lu = kSc[sc_index(*p)];
+        set_sig(x, y, p, d, oph, mq_decode(m, ctx[lu & 31]) ^ (lu >> 7));
     }
 
     void sigpass(int bp1, const uint8_t *zc) {
@@ -659,6 +904,25 @@ struct T1 {
         mq = m;
     }
 
+    void sigpass_raw(int bp1) {
+        const int32_t oph = (1 << bp1) | ((1 << bp1) >> 1);
+        for (int y0 = 0; y0 < h; y0 += 4) {
+            const int y1 = std::min(y0 + 4, h);
+            const uint8_t *crow = col(0, y0);
+            for (int x = 0; x < w; ++x) {
+                if (!(crow[x] & 1)) continue;
+                uint32_t *p = flag(x, y0);
+                int32_t *d = &data[size_t(y0) * w + x];
+                for (int y = y0; y < y1; ++y, p += stride, d += w) {
+                    if ((*p & F_SIG) || !(*p & 0xff)) continue;
+                    if (raw_decode(raw)) set_sig(x, y, p, d, oph, int(raw_decode(raw)));
+                    *p |= F_VISIT;
+                }
+            }
+        }
+    }
+
+    template <bool Raw>
     void refpass(int bp1) {
         MqRegs m = mq;
         const int32_t half = (1 << bp1) >> 1;
@@ -671,8 +935,13 @@ struct T1 {
                 int32_t *d = &data[size_t(y0) * w + x];
                 for (int y = y0; y < y1; ++y, p += stride, d += w) {
                     if ((*p & (F_SIG | F_VISIT)) != F_SIG) continue;
-                    int cx = (*p & F_REFINE) ? 16 : (*p & 0xff) ? 15 : 14;
-                    int v = mq_decode(m, ctx[cx]);
+                    int v;
+                    if (Raw) {
+                        v = int(raw_decode(raw));
+                    } else {
+                        int cx = (*p & F_REFINE) ? 16 : (*p & 0xff) ? 15 : 14;
+                        v = mq_decode(m, ctx[cx]);
+                    }
                     *d += (v ^ (*d < 0)) ? half : -half;
                     *p |= F_REFINE;
                 }
@@ -713,31 +982,68 @@ struct T1 {
         mq = m;
     }
 
-    // decodes npasses passes from the top coded bit-plane (bpno_plus_one:
-    // one more than its index, OpenJPEG's extra fractional bit) into data
-    void decode(const uint8_t *bytes, size_t len, int cw, int chh, int orient,
-                int bpno_plus_one, int npasses) {
+    // decodes a code-block's segments (opj_t1_decode_cblk): bytes holds
+    // them one after another, with two bytes of room after the last;
+    // bpno_plus_one starts at roishift + numbps, one more than the top
+    // coded bit-plane's index (OpenJPEG's extra fractional bit)
+    void decode(uint8_t *bytes, const std::vector<SegSpan> &segs, int cw, int chh, int orient,
+                int numbps, int roishift, int style) {
         w = cw; h = chh; stride = w + 2;
+        vsc = (style & 8) != 0;
         flags.assign(size_t(stride) * (h + 2), 0);
         data.assign(size_t(w) * h, 0);
         cols.assign(size_t(stride) * ((h + 3) / 4 + 2), 0);
-        memset(ctx, 0, sizeof ctx);
-        ctx[18] = 2 * 46;  // uniform
-        ctx[17] = 2 * 3;   // run length
-        ctx[0] = 2 * 4;    // zero coding, no significant neighbour
-        mq.bp = bytes;
-        mq.c = len == 0 ? 0xffu << 16 : uint32_t(*bytes) << 16;
-        mq_bytein(mq);
-        mq.c <<= 7;
-        mq.ct -= 7;
-        mq.a = 0x8000;
+        reset_contexts();
         const uint8_t *zc = kZc[orient];
+        int bpno_plus_one = roishift + numbps;
         int passtype = 2;
-        for (int pass = 0; pass < npasses && bpno_plus_one >= 1; ++pass) {
-            if (passtype == 0) sigpass(bpno_plus_one, zc);
-            else if (passtype == 1) refpass(bpno_plus_one);
-            else clnpass(bpno_plus_one, zc);
-            if (++passtype == 3) { passtype = 0; --bpno_plus_one; }
+        uint8_t *at = bytes;
+        for (const SegSpan &sg : segs) {
+            const bool is_raw = bpno_plus_one <= numbps - 4 && passtype < 2 && (style & 1);
+            // opj_mqc_init_dec_common's artificial 0xFF 0xFF after the
+            // segment, over the next one's first bytes while it decodes
+            uint8_t *end = at + sg.len, backup[2] = {end[0], end[1]};
+            end[0] = end[1] = 0xff;
+            if (is_raw) {
+                raw = RawRegs{at, 0, 0};
+            } else {
+                mq.bp = at;
+                mq.c = sg.len == 0 ? 0xffu << 16 : uint32_t(*at) << 16;
+                mq_bytein(mq);
+                mq.c <<= 7;
+                mq.ct -= 7;
+                mq.a = 0x8000;
+            }
+            for (int pass = 0; pass < sg.passes && bpno_plus_one >= 1; ++pass) {
+                if (passtype == 0) {
+                    if (is_raw) sigpass_raw(bpno_plus_one);
+                    else sigpass(bpno_plus_one, zc);
+                } else if (passtype == 1) {
+                    if (is_raw) refpass<true>(bpno_plus_one);
+                    else refpass<false>(bpno_plus_one);
+                } else {
+                    clnpass(bpno_plus_one, zc);
+                    if (style & 32)  // segmentation symbols: read, not checked
+                        for (int k = 0; k < 4; ++k) mq_decode(mq, ctx[18]);
+                }
+                if ((style & 2) && !is_raw) reset_contexts();
+                if (++passtype == 3) { passtype = 0; --bpno_plus_one; }
+            }
+            end[0] = backup[0];
+            end[1] = backup[1];
+            at = end;
+        }
+        if (roishift >= 31) {
+            std::fill(data.begin(), data.end(), 0);
+        } else if (roishift) {  // ROI max-shift: magnitudes at or above 2^roishift
+            const int32_t thresh = int32_t(1) << roishift;
+            for (int32_t &v : data) {
+                int32_t mag = v < 0 ? -v : v;
+                if (mag >= thresh) {
+                    mag >>= roishift;
+                    v = v < 0 ? -mag : mag;
+                }
+            }
         }
     }
 };
@@ -831,6 +1137,7 @@ inline int64_t round_float(float f) {
 struct Scratch {
     T1 t1;
     std::vector<uint8_t> buf;
+    std::vector<SegSpan> segs;
 };
 
 // A pool of kThreads - 1 workers started at first use and kept (never
@@ -937,7 +1244,8 @@ struct Decoder {
     int64_t n;
     Header h;
     int32_t *out;
-    int64_t W, H;
+    int32_t *order = nullptr;            // the tiles by their last tile-part
+    std::vector<int64_t> plane_offset;   // each component's plane in out
 
     struct TileData {
         bool seen = false;
@@ -952,8 +1260,13 @@ struct Decoder {
     void run() {
         int64_t pos;
         read_main_header(d, n, h, pos);
-        W = h.X1 - h.X0;
-        H = h.Y1 - h.Y0;
+        int64_t at = 0;
+        for (int c = 0; c < h.nc; ++c) {
+            plane_offset.push_back(at);
+            at += (ceildiv(h.X1, h.dx[c]) - ceildiv(h.X0, h.dx[c])) *
+                  (ceildiv(h.Y1, h.dy[c]) - ceildiv(h.Y0, h.dy[c]));
+        }
+        std::vector<int> last_part;  // tile indices, one a tile-part
         tiles.resize(size_t(h.ntx) * h.nty);
         Reader r{d, n, pos};
         size_t ppm_pos = 0;
@@ -978,6 +1291,7 @@ struct Decoder {
                 bad("JPEG 2000 SOT: tile-parts out of order");
             }
             t.last_tp = tpsot;
+            last_part.push_back(isot);
             std::vector<char> coc(h.nc, 0), qcc(h.nc, 0);
             bool poc_seen = false;
             if (h.has_ppm) {  // this tile-part's packet headers
@@ -1023,6 +1337,14 @@ struct Decoder {
             if (r.pos > end) bad("JPEG 2000 SOD past its tile-part");
             t.bytes.insert(t.bytes.end(), d + r.pos, d + end);
             r.pos = end;
+        }
+        if (order) {
+            std::vector<char> done(tiles.size(), 0);
+            size_t k = 0;
+            for (size_t i = last_part.size(); i-- > 0;)  // each tile's last, in order
+                if (!done[last_part[i]]) { done[last_part[i]] = 1; order[k++] = last_part[i]; }
+            std::reverse(order, order + k);
+            for (; k < tiles.size(); ++k) order[k] = -1;
         }
         std::vector<int> seen;
         int64_t work = 0;
@@ -1265,9 +1587,28 @@ struct Decoder {
                 else if ((np = int(bio.read(5))) != 31) np += 6;
                 else np = 37 + int(bio.read(7));
                 while (bio.read(1)) ++cb.lblock;
-                int bits = cb.lblock + floorlog2(uint32_t(np));
-                if (bits > 32) bad("JPEG 2000 packet header: code-word length too long");
-                cb.newlen = bio.read(bits);
+                // the segments these passes fall in: the last one while it
+                // has room, then new ones (OpenJPEG's header loop)
+                const int style = p.cod[pk.c].style;
+                cb.head.clear();
+                if (!cb.segs.empty() && cb.segs.back().numpasses < cb.segs.back().maxpasses) {
+                    cb.headseg = int(cb.segs.size()) - 1;
+                    cb.head.push_back(cb.segs.back());
+                } else {
+                    cb.headseg = int(cb.segs.size());
+                    cb.head.push_back(new_seg(style, cb.segs.empty() ? nullptr : &cb.segs.back()));
+                }
+                for (int n = np;;) {
+                    Seg &sg = cb.head.back();
+                    sg.newpasses = std::min(sg.maxpasses - sg.numpasses, n);
+                    int bits = cb.lblock + floorlog2(uint32_t(sg.newpasses));
+                    if (bits > 32) bad("JPEG 2000 packet header: code-word length too long");
+                    sg.newlen = bio.read(bits);
+                    n -= sg.newpasses;
+                    if (n <= 0) break;
+                    Seg prev = sg;
+                    cb.head.push_back(new_seg(style, &prev));
+                }
                 cb.newpasses = np;
             }
         }
@@ -1278,11 +1619,22 @@ struct Decoder {
             for (int k = 0; k < P.cw * P.ch; ++k) {
                 Cblk &cb = B.cblks[P.first + k];
                 if (!cb.newpasses) continue;
-                if (int64_t(cb.newlen) > bend - bp) bad("JPEG 2000 packet data runs past its tile");
-                if (cb.newlen) cb.chunks.push_back({bp - base, cb.newlen});
+                for (size_t i = 0; i < cb.head.size(); ++i) {
+                    const Seg &sg = cb.head[i];
+                    if (int64_t(sg.newlen) > bend - bp) bad("JPEG 2000 packet data runs past its tile");
+                    if (sg.newlen) cb.chunks.push_back({bp - base, sg.newlen});
+                    bp += sg.newlen;
+                    size_t at = size_t(cb.headseg) + i;
+                    if (at == cb.segs.size()) {
+                        cb.segs.push_back(sg);
+                        cb.segs.back().numpasses = 0;
+                        cb.segs.back().len = 0;
+                    }
+                    cb.segs[at].numpasses += sg.newpasses;
+                    cb.segs[at].len += sg.newlen;
+                }
                 cb.npasses += cb.newpasses;
                 cb.newpasses = 0;
-                bp += cb.newlen;
             }
         }
     }
@@ -1294,7 +1646,8 @@ struct Decoder {
         int64_t tx1 = std::min(h.TX0 + (tp + 1) * h.TW, h.X1), ty1 = std::min(h.TY0 + (tq + 1) * h.TH, h.Y1);
         std::vector<TileComp> tc(h.nc);
         for (int c = 0; c < h.nc; ++c) {
-            tc[c].x0 = tx0; tc[c].y0 = ty0; tc[c].x1 = tx1; tc[c].y1 = ty1;
+            tc[c].x0 = ceildiv(tx0, h.dx[c]); tc[c].y0 = ceildiv(ty0, h.dy[c]);
+            tc[c].x1 = ceildiv(tx1, h.dx[c]); tc[c].y1 = ceildiv(ty1, h.dy[c]);
             build(tc[c], p.cod[c], p.q[c], c);
         }
         const uint8_t *base = td.bytes.data();
@@ -1309,7 +1662,7 @@ struct Decoder {
         // tier 1, one job a code-block, then the wavelet, one job a
         // component: jobs write disjoint samples, so any thread order
         // gives the same bits
-        struct Job { TileComp *t; Band *B; Cblk *cb; int64_t x, y; int64_t cost; };
+        struct Job { TileComp *t; Band *B; Cblk *cb; int c; int64_t x, y; int64_t cost; };
         std::vector<Job> jobs;
         int64_t cost = 0;
         for (int c = 0; c < h.nc; ++c) {
@@ -1325,10 +1678,10 @@ struct Decoder {
                     if (B.bandno & 2) oy = t.res[r - 1].y1 - t.res[r - 1].y0;
                     for (Cblk &cb : B.cblks) {
                         if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
-                        if (cb.npasses && cb.numbps >= 31)
+                        if (p.roi[c] + cb.numbps >= 31)
                             bad("JPEG 2000 code-block with 31 or more bit-planes");
                         int64_t work = (cb.x1 - cb.x0) * (cb.y1 - cb.y0) * (cb.npasses + 1);
-                        jobs.push_back(Job{&t, &B, &cb, cb.x0 - B.x0 + ox, cb.y0 - B.y0 + oy, work});
+                        jobs.push_back(Job{&t, &B, &cb, c, cb.x0 - B.x0 + ox, cb.y0 - B.y0 + oy, work});
                         cost += work;
                     }
                 }
@@ -1353,8 +1706,10 @@ struct Decoder {
             sc.buf.resize(len + 2);
             size_t o = 0;
             for (auto &ch : cb.chunks) { memcpy(&sc.buf[o], base + ch.first, ch.second); o += ch.second; }
-            sc.buf[len] = sc.buf[len + 1] = 0xff;
-            sc.t1.decode(sc.buf.data(), len, cw, chh, jb.B->bandno, cb.numbps, cb.npasses);
+            sc.segs.clear();
+            for (const Seg &sg : cb.segs) sc.segs.push_back(SegSpan{sg.len, sg.numpasses});
+            sc.t1.decode(sc.buf.data(), sc.segs, cw, chh, jb.B->bandno, cb.numbps, p.roi[jb.c],
+                         p.cod[jb.c].style);
             const int32_t *v = sc.t1.data.data();
             if (t.rev) {
                 for (int j2 = 0; j2 < chh; ++j2)
@@ -1367,45 +1722,27 @@ struct Decoder {
                         t.fdata[size_t((jb.y + j2) * tw + jb.x + i)] = float(v[size_t(j2) * cw + i]) * s;
             }
         });
-        parallel(size_t(h.nc), (tx1 - tx0) * (ty1 - ty0) * h.nc * 8, [&](size_t c, Scratch &) {
+        int64_t work = 0;
+        for (auto &t : tc) work += (t.x1 - t.x0) * (t.y1 - t.y0);
+        parallel(size_t(h.nc), work * 8, [&](size_t c, Scratch &) {
             TileComp &t = tc[c];
             int64_t tw = t.x1 - t.x0;
             if (t.rev) inverse_dwt(t, t.idata.get(), tw);
             else inverse_dwt(t, t.fdata.get(), tw);
         });
-        if (p.mct && h.nc >= 3) {
-            bool rev = p.cod[0].qmfbid == 1;
-            if (p.cod[1].qmfbid != p.cod[0].qmfbid || p.cod[2].qmfbid != p.cod[0].qmfbid)
-                todo(std::string("JPEG 2000 colour transform across components of different wavelets") + kNotPorted);
-            size_t ns = size_t((tx1 - tx0) * (ty1 - ty0));
-            if (rev) {
-                int32_t *c0 = tc[0].idata.get(), *c1 = tc[1].idata.get(), *c2 = tc[2].idata.get();
-                for (size_t i = 0; i < ns; ++i) {
-                    int32_t y = c0[i], u = c1[i], v = c2[i];
-                    int32_t g = y - ((u + v) >> 2);
-                    c0[i] = v + g; c1[i] = g; c2[i] = u + g;
-                }
-            } else {
-                float *c0 = tc[0].fdata.get(), *c1 = tc[1].fdata.get(), *c2 = tc[2].fdata.get();
-                for (size_t i = 0; i < ns; ++i) {
-                    float y = c0[i], u = c1[i], v = c2[i];
-                    float r = y + (v * 1.402f);
-                    float g = y - (u * 0.34413f) - (v * 0.71414f);
-                    float b = y + (u * 1.772f);
-                    c0[i] = r; c1[i] = g; c2[i] = b;
-                }
-            }
-        }
-        parallel(size_t(h.nc), (tx1 - tx0) * (ty1 - ty0) * h.nc, [&](size_t c, Scratch &) {
+        if (p.mct && h.nc >= 3) colour_transform(tc);
+        parallel(size_t(h.nc), work, [&](size_t c, Scratch &) {
             TileComp &t = tc[c];
             int prec = h.prec[c];
-            int64_t lo, hi, shift;
-            if (h.sgnd[c]) { lo = -(int64_t(1) << (prec - 1)); hi = (int64_t(1) << (prec - 1)) - 1; shift = 0; }
-            else { lo = 0; hi = (int64_t(1) << prec) - 1; shift = int64_t(1) << (prec - 1); }
+            int64_t lo, hi, shift = p.dc[c];
+            if (h.sgnd[c]) { lo = -(int64_t(1) << (prec - 1)); hi = (int64_t(1) << (prec - 1)) - 1; }
+            else { lo = 0; hi = (int64_t(1) << prec) - 1; }
             int64_t tw = t.x1 - t.x0, th = t.y1 - t.y0;
-            int32_t *plane = out + c * W * H;
+            int64_t cx0 = ceildiv(h.X0, h.dx[c]), cy0 = ceildiv(h.Y0, h.dy[c]);
+            int64_t cw = ceildiv(h.X1, h.dx[c]) - cx0;
+            int32_t *plane = out + plane_offset[c];
             for (int64_t j = 0; j < th; ++j) {
-                int32_t *row = plane + (t.y0 - h.Y0 + j) * W + (t.x0 - h.X0);
+                int32_t *row = plane + (t.y0 - cy0 + j) * cw + (t.x0 - cx0);
                 if (t.rev) {
                     const int32_t *src = &t.idata[size_t(j * tw)];
                     for (int64_t i = 0; i < tw; ++i) {
@@ -1425,6 +1762,62 @@ struct Decoder {
                 }
             }
         });
+    }
+
+    // the RCT or ICT of the first three components (opj_tcd_mct_decode):
+    // they must have as many resolutions and samples; component 0's
+    // wavelet chooses the transform, which reads each buffer's 32-bit
+    // words as its type (OpenJPEG keeps every component in one int32 array)
+    void colour_transform(std::vector<TileComp> &tc) {
+        size_t ns = size_t((tc[0].x1 - tc[0].x0) * (tc[0].y1 - tc[0].y0));
+        for (int c = 1; c < 3; ++c)
+            if (tc[c].nres != tc[0].nres ||
+                size_t((tc[c].x1 - tc[c].x0) * (tc[c].y1 - tc[c].y0)) != ns)
+                bad("JPEG 2000: components of different dimensions under a colour transform");
+        bool rev = tc[0].rev;
+        if (tc[1].rev == rev && tc[2].rev == rev) {
+            if (rev) {
+                int32_t *c0 = tc[0].idata.get(), *c1 = tc[1].idata.get(), *c2 = tc[2].idata.get();
+                for (size_t i = 0; i < ns; ++i) rct(c0[i], c1[i], c2[i]);
+            } else {
+                float *c0 = tc[0].fdata.get(), *c1 = tc[1].fdata.get(), *c2 = tc[2].fdata.get();
+                for (size_t i = 0; i < ns; ++i) ict(c0[i], c1[i], c2[i]);
+            }
+            return;
+        }
+        void *buf[3];
+        for (int c = 0; c < 3; ++c)
+            buf[c] = tc[c].rev ? static_cast<void *>(tc[c].idata.get()) : static_cast<void *>(tc[c].fdata.get());
+        for (size_t i = 0; i < ns; ++i) {
+            uint32_t w[3];
+            for (int c = 0; c < 3; ++c) memcpy(&w[c], static_cast<uint8_t *>(buf[c]) + 4 * i, 4);
+            if (rev) {
+                int32_t v[3];
+                memcpy(v, w, sizeof v);
+                rct(v[0], v[1], v[2]);
+                memcpy(w, v, sizeof v);
+            } else {
+                float v[3];
+                memcpy(v, w, sizeof v);
+                ict(v[0], v[1], v[2]);
+                memcpy(w, v, sizeof v);
+            }
+            for (int c = 0; c < 3; ++c) memcpy(static_cast<uint8_t *>(buf[c]) + 4 * i, &w[c], 4);
+        }
+    }
+
+    static void rct(int32_t &c0, int32_t &c1, int32_t &c2) {
+        int32_t y = c0, u = c1, v = c2;
+        int32_t g = y - ((u + v) >> 2);
+        c0 = v + g; c1 = g; c2 = u + g;
+    }
+
+    static void ict(float &c0, float &c1, float &c2) {
+        float y = c0, u = c1, v = c2;
+        float r = y + (v * 1.402f);
+        float g = y - (u * 0.34413f) - (v * 0.71414f);
+        float b = y + (u * 1.772f);
+        c0 = r; c1 = g; c2 = b;
     }
 
     // OpenJPEG's order: one resolution at a time, its rows, then its columns
@@ -1478,8 +1871,8 @@ extern "C" int64_t j2k_info(const uint8_t *cs, int64_t n, int64_t *info, int64_t
     }
 }
 
-extern "C" int64_t j2k_decode(const uint8_t *cs, int64_t n, int32_t *out, char *err,
-                              int64_t errlen) {
+extern "C" int64_t j2k_decode_tiles(const uint8_t *cs, int64_t n, int32_t *out, int32_t *order,
+                                    char *err, int64_t errlen) {
     try {
         static std::once_flag luts;
         std::call_once(luts, init_luts);
@@ -1487,6 +1880,7 @@ extern "C" int64_t j2k_decode(const uint8_t *cs, int64_t n, int32_t *out, char *
         dec.d = cs;
         dec.n = n;
         dec.out = out;
+        dec.order = order;
         dec.run();
         return 0;
     } catch (const Error &e) {
@@ -1496,4 +1890,9 @@ extern "C" int64_t j2k_decode(const uint8_t *cs, int64_t n, int32_t *out, char *
         set_error(Error{1, "JPEG 2000: out of memory"}, err, errlen);
         return -1;
     }
+}
+
+extern "C" int64_t j2k_decode(const uint8_t *cs, int64_t n, int32_t *out, char *err,
+                              int64_t errlen) {
+    return j2k_decode_tiles(cs, n, out, nullptr, err, errlen);
 }

@@ -19,11 +19,13 @@ and a tile-part COD/QCD, tile-parts split three ways, SOP markers placed
 by the PLT lengths, other sample precisions, and, with packet headers
 found by a tier-2 parser here, SOP and EPH markers and PPM and PPT
 segments).  What Pillow refuses, the
-port refuses with ValueError; a feature no writer here can make raises
-NotImplementedError naming ROADMAP A6 (j) 1.  The committed files under
-fixtures/formats/jpeg2000 and the COLMAP capture fixtures/colmap_jp2
-(``python tests/test_torch_jpeg2000.py`` writes them) hash to Pillow's
-arrays in fixtures/formats.json.
+port refuses with ValueError; HT code-blocks, which no writer here makes,
+raise NotImplementedError naming ROADMAP A6 (j) 1.  The coding modes
+Pillow's writer cannot set are test_torch_jpeg2000_modes.py's.  The
+committed files under fixtures/formats/jpeg2000 and the COLMAP capture
+fixtures/colmap_jp2 (``python tests/test_torch_jpeg2000.py`` writes them;
+its odd views in the modes of nerf2mesh_tpu_torch/tools/j2k_forms.py) hash
+to Pillow's arrays in fixtures/formats.json.
 """
 
 import contextlib
@@ -44,14 +46,20 @@ from PIL import Image
 from nerf2mesh_tpu_torch.data import png
 
 REPO = Path(__file__).resolve().parent.parent
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 FIXTURES = REPO / "nerf2mesh_tpu_torch" / "fixtures"
 FORMAT_HASHES = FIXTURES / "formats.json"
 FORMAT_DIR = "formats/jpeg2000"
-# the COLMAP capture chip_smoke.py's phase 14 (g) trains on
+# the COLMAP capture chip_smoke.py's phase 14 (g) trains on: view i in
+# CAPTURE_KINDS[i], Pillow's writer on even views and j2k_forms's coding
+# modes on odd ones
 CAPTURE = FIXTURES / "colmap_jp2"
-CAPTURE_KINDS = ["jp2_rgb", "j2k_irreversible_mct", "jp2_sycc", "j2k_tiles",
-                 "j2k_layers_db", "jp2_rpcl_precincts", "j2k_cblk4_layers",
-                 "jp2_res1_irreversible"]
+PILLOW_KINDS = ["jp2_rgb", "jp2_sycc", "j2k_layers_db", "j2k_cblk4_layers"]
+MODES_KINDS = ["jp2_sycc420", "jp2_sycc422", "j2k_archival",
+               "j2k_termall_reset", "j2k_vsc_segsym_pterm", "j2k_roi",
+               "j2k_all_modes_tiles", "j2k_sycc420_odd_offset"]
+CAPTURE_KINDS = [k for pair in zip(PILLOW_KINDS * 2, MODES_KINDS)
+                 for k in pair]
 
 
 @contextlib.contextmanager
@@ -620,30 +628,17 @@ def refused_cases(base: dict) -> dict:
     return c
 
 
+def cod_style(cs: bytes, style: int) -> bytes:
+    """The codestream with COD's code-block style byte set to `style`."""
+    return edit_main(cs, lambda m: replace_segment(
+        m, 0xFF52, segment(m, 0xFF52)[:8] + bytes([style])
+        + segment(m, 0xFF52)[9:]))
+
+
 def not_ported_cases(base: dict) -> dict:
-    """Codestream features no writer here makes: each raises
-    NotImplementedError naming ROADMAP A6 (j) 1."""
-    cs = base["rgb_j2k"]
-    c = {}
-
-    def cod(fn):
-        return edit_main(cs, lambda m: replace_segment(
-            m, 0xFF52, fn(bytearray(segment(m, 0xFF52)))))
-
-    for bit, name in ((1, "bypass"), (2, "reset"), (4, "termall"),
-                      (8, "vertically_causal"), (16, "predictable"),
-                      (32, "segmentation_symbols"), (64, "ht")):
-        c[f"cblk_{name}"] = cod(lambda b: b[:8] + bytes([bit]) + b[9:])
-    c["part2_mct"] = cod(lambda b: b[:4] + bytes([2]) + b[5:])
-    c["rgn"] = edit_main(cs, lambda m: m + [(0xFF5E, bytes([0, 0, 3]))])
-    c["cap"] = edit_main(cs, lambda m: m + [(0xFF50, bytes(4))])
-
-    def subsampled(m):
-        siz = bytearray(segment(m, 0xFF51))
-        siz[37 + 3] = 2
-        return replace_segment(m, 0xFF51, bytes(siz))
-    c["subsampled"] = edit_main(cs, subsampled)
-    return c
+    """HT code-blocks (style bit 0x40), which no writer here makes: they
+    raise NotImplementedError naming ROADMAP A6 (j) 1."""
+    return {"cblk_ht": cod_style(base["rgb_j2k"], 0x40)}
 
 
 BASE = pillow_cases()
@@ -767,38 +762,77 @@ def test_decoder_is_built_without_fma_contraction():
 
 
 # ------------------------------------------------------- captures and masks
+def modes_frame(rgb: np.ndarray, kind: str) -> bytes:
+    """A capture's RGB frame in a coding mode Pillow's writer cannot set,
+    through tools/j2k_forms.py."""
+    from nerf2mesh_tpu_torch.tools import j2k_forms as jf
+    planes = [rgb[..., i] for i in range(3)]
+    if "sycc" in kind:               # Pillow's YCbCr, chroma sub-sampled
+        ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
+        dx, dy = (2, 1) if kind == "jp2_sycc422" else (2, 2)
+        off = (1, 1) if kind.endswith("odd_offset") else (0, 0)
+        if off != (0, 0):    # the picture on a grid offset by one sample
+            ycc = np.pad(ycc, ((1, 0), (1, 0), (0, 0)), mode="edge")
+        h, w = rgb.shape[:2]
+        # chroma sample (u, v) sits at (u dx, v dy) on the reference grid
+        y0, x0 = -(-off[1] // dy), -(-off[0] // dx)
+        chroma = [ycc[y0 * dy::dy, x0 * dx::dx, i][
+            :-(-(h + off[1]) // dy) - y0, :-(-(w + off[0]) // dx) - x0]
+            for i in (1, 2)]
+        luma = ycc[off[1]:, off[0]:, 0]
+        cs = jf.encode([luma] + chroma, size=(w, h), offset=off, comps=[
+            jf.Component(levels=4)] + [jf.Component(levels=3, dx=dx, dy=dy)
+                                       for _ in range(2)])
+        return cs if kind.startswith("j2k") else jp2_file(cs, 18)
+    if kind == "j2k_archival":       # bypass, RPCL, precincts, 9/7
+        comps = [jf.Component(levels=4, style=jf.BYPASS, reversible=False,
+                              step=2.0, precincts=[(6, 6)] * 5)
+                 for _ in range(3)]
+        return jf.encode(planes, comps=comps, mct=True, layers=3,
+                         progression="RPCL")
+    if kind == "j2k_termall_reset":
+        comps = [jf.Component(levels=3, cblk=(5, 5),
+                              style=jf.TERMALL | jf.RESET) for _ in range(3)]
+        return jf.encode(planes, comps=comps, mct=True, layers=2)
+    if kind == "j2k_vsc_segsym_pterm":
+        comps = [jf.Component(levels=5, style=jf.VSC | jf.SEGSYM | jf.PTERM,
+                              reversible=False, step=1.5) for _ in range(3)]
+        return jf.encode(planes, comps=comps, mct=True)
+    if kind == "j2k_roi":
+        return jf.encode(planes, comps=[jf.Component(levels=3)
+                                        for _ in range(3)],
+                         roi={0: (24, 24, 72, 72)}, mct=True, layers=2)
+    assert kind == "j2k_all_modes_tiles"
+    comps = [jf.Component(levels=2, cblk=(4, 4), style=63, reversible=False,
+                          step=1.0) for _ in range(3)]
+    return jf.encode(planes, comps=comps, mct=True, layers=4, tiles=(40, 36),
+                     offset=(5, 7), tile_offset=(3, 2), progression="RLCP")
+
+
 def encode_frame(img: np.ndarray, kind: str) -> bytes:
     """A capture's frame (RGB) or mask ([H, W] grey, .j2k) in one of the
     variants."""
     im = Image.fromarray(img)
     if img.ndim == 2:
         return pillow_j2k(im, True)
+    if kind in MODES_KINDS:
+        return modes_frame(img, kind)
     return {
         "jp2_rgb": lambda: pillow_j2k(im, False),
-        "j2k_irreversible_mct": lambda: pillow_j2k(im, True,
-                                                   irreversible=True, mct=1),
         "jp2_sycc": lambda: pillow_j2k(im.convert("YCbCr"), False),
-        "j2k_tiles": lambda: pillow_j2k(im, True, tile_size=(40, 36),
-                                        tile_offset=(3, 2), offset=(5, 7),
-                                        mct=1),
         "j2k_layers_db": lambda: pillow_j2k(im, True,
                                             quality_layers=[30, 40, 50],
                                             quality_mode="dB",
                                             irreversible=True, mct=1),
-        "jp2_rpcl_precincts": lambda: pillow_j2k(
-            im, False, progression="RPCL", precinct_size=(32, 32),
-            quality_layers=[8, 2], irreversible=True, mct=1),
         "j2k_cblk4_layers": lambda: pillow_j2k(
             im, True, codeblock_size=(4, 4), quality_layers=[10, 3],
             mct=1),
-        "jp2_res1_irreversible": lambda: pillow_j2k(
-            im, False, num_resolutions=1, irreversible=True, mct=1),
     }[kind]()
 
 
 def make_capture(root: str) -> None:
     """A 16-view 96^2 COLMAP capture whose i-th frame is in
-    CAPTURE_KINDS[i % 8] (renamed in images.bin) with a grey .j2k mask
+    CAPTURE_KINDS[i] (renamed in images.bin) with a grey .j2k mask
     a frame under the name the providers look for (mask/<stem>.png: both
     packages read a file by its content)."""
     import dataclasses
@@ -825,10 +859,11 @@ def make_capture(root: str) -> None:
 
 
 def test_capture_loads_as_jax():
-    """The committed capture fixtures/colmap_jp2 (frames in the eight
-    variants chip_smoke's phase 14 (g) trains on, grey .j2k masks): JAX's
-    COLMAP provider (Pillow) and the port's (Pillow blocked) load equal
-    images, masks, poses and intrinsics."""
+    """The committed capture fixtures/colmap_jp2 (frames in the variants
+    chip_smoke's phase 14 (g) trains on, the odd views in j2k_forms's
+    coding modes: sub-sampled sYCC, bypass, termall, ROI, ...; grey .j2k
+    masks): JAX's COLMAP provider (Pillow) and the port's (Pillow blocked)
+    load equal images, masks, poses and intrinsics."""
     from nerf2mesh_tpu.config import parse_args as jparse
     from nerf2mesh_tpu.data.colmap import load_colmap_dataset as jload
     from nerf2mesh_tpu_torch.config import parse_args as tparse
@@ -845,6 +880,16 @@ def test_capture_loads_as_jax():
         np.testing.assert_array_equal(got.intrinsics, want.intrinsics)
     names = sorted(os.listdir(CAPTURE / "images"))
     assert {n.rsplit(".", 1)[1] for n in names} == {"jp2", "j2k"}
+    styles, sampling, rgn = 0, set(), 0
+    for n in names:
+        data = (CAPTURE / "images" / n).read_bytes()
+        main, _ = split_codestream(data[data.index(J2K_SIGNATURE):])
+        styles |= segment(main, 0xFF52)[8]
+        siz = segment(main, 0xFF51)
+        sampling |= {siz[37 + 3 * i:39 + 3 * i] for i in range(3)}
+        rgn += any(m == 0xFF5E for m, _ in main)
+    # the odd views: every code-block style but HT, 4:2:0, 4:2:2, ROI
+    assert styles == 63 and {b"\2\2", b"\2\1"} <= sampling and rgn
 
 
 def test_blender_mask_in_jpeg2000(tmp_path):
@@ -943,7 +988,8 @@ def test_writers_reproduce_the_committed_bytes():
 
 def test_capture_writer_reproduces_a_frame(tmp_path):
     """The capture's writer gives the committed bytes again from the same
-    synthetic frames (frames 0-3 and their masks)."""
+    synthetic frames (frames 0-3, two of them in j2k_forms's modes, and
+    their masks)."""
     from nerf2mesh_tpu_torch.data.synthetic import generate_colmap_dataset
     root = tmp_path / "c"
     generate_colmap_dataset(str(root), H=96, W=96, n_images=16, n_points=400)

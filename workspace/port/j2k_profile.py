@@ -4,6 +4,7 @@ fixtures/formats/jpeg2000, and the split of data/jpeg2000.decode_jpeg2000
 into the C++ decode and the numpy unpack.
 
     python3 workspace/port/j2k_profile.py [--reps N] [--out DIR]
+        [--fixtures formats/jpeg2000_modes]
 
 The codestreams (a JP2 file's jp2c payload) go to one file; a C++ harness
 linked with a copy of j2kdec.cpp decodes them N times over: once built
@@ -68,9 +69,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=40)
     ap.add_argument("--out", default=".")
+    ap.add_argument("--fixtures", default="formats/jpeg2000")
     args = ap.parse_args()
-    root = os.path.join("nerf2mesh_tpu_torch", "fixtures", "formats",
-                        "jpeg2000")
+    root = os.path.join("nerf2mesh_tpu_torch", "fixtures", args.fixtures)
     files = [f for f in sorted(glob.glob(root + "/*")) if "512" not in f]
     datas = [open(f, "rb").read() for f in files]
     streams = [d if d[:4] == j2k.J2K_SIGNATURE else j2k._openjpeg_jp2(d)[1]
